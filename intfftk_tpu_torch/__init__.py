@@ -1,0 +1,20 @@
+"""intfftk_tpu_torch — the PyTorch/CUDA port of intfftk_tpu for NVIDIA Hopper.
+
+The JAX package ``intfftk_tpu`` stays the reference.  This package shares
+its NumPy specification (``intfftk_tpu.config``, the twiddle tables and the
+golden models, none of which imports JAX) and ports the compute path:
+
+* ``ops.intmath``    — the exact butterfly arithmetic on int32/int64 tensors;
+* ``ops.transform``  — the eager staged forward transform (the CPU path and
+  the plain version every kernel is held against);
+* ``ops.fused_fft``  — ``LargeFFTPlan``, the four-step transform as two
+  launches of the hand-written CUDA kernel ``csrc/fused_pass.cu``;
+* ``device``         — where a call runs: the kernel on an sm_90 card, the
+  plain version on the CPU.
+
+Outputs are bit-identical to ``intfftk_tpu.golden`` and to the JAX plans.
+"""
+
+from intfftk_tpu.config import FFTConfig, snr_db
+
+__all__ = ["FFTConfig", "snr_db"]

@@ -1,0 +1,35 @@
+"""Where a call runs: the CUDA kernels on a Hopper card, the plain version
+on the CPU.
+
+Counterpart of ``intfftk_tpu.ops.pallas_fft.infer_interpret`` and
+``intfftk_tpu.ops.tuning.device_tuning``.  The tensor a call is given
+decides, never global state: a CUDA tensor takes the kernel path and must
+live on an sm_90 card; a CPU tensor takes the plain PyTorch version.  Any
+other device raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+#: Compute capability the kernels are built for (``-arch sm_90a``).
+KERNEL_CAPABILITY = (9, 0)
+
+
+def use_kernel(device: torch.device | str) -> bool:
+    """True when work on ``device`` launches the CUDA kernels, False when it
+    runs the plain PyTorch version (CPU).  Raises for a CUDA device that is
+    not sm_90 and for any other device type."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise RuntimeError(
+            f"no compute path for device {device}: use a CUDA sm_90 device "
+            f"or the CPU")
+    cap = torch.cuda.get_device_capability(device)
+    if cap != KERNEL_CAPABILITY:
+        raise RuntimeError(
+            f"{torch.cuda.get_device_name(device)} is sm_{cap[0]}{cap[1]}; "
+            f"the kernels are built for sm_90a (Hopper)")
+    return True

@@ -1,0 +1,83 @@
+"""Build and load the CUDA kernel library from the sources in ``csrc/``.
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain ``extern "C"`` interface, loaded with ``ctypes``.  The
+build happens at first use, into ``build/torch_kernels/<hash>/`` at the
+root of the checkout, keyed on a hash of the sources and the flags, so a
+changed source builds anew and an unchanged one loads at once.  Nothing
+here runs at import: ``ctypes`` and ``nvcc`` are reached only from
+``build()``/``library()``.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from pathlib import Path
+
+SOURCES = ("fused_pass.cu",)
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+LIB_NAME = "libintfft_torch.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    import shutil
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and Path(CUDA_HOME, "bin", "nvcc").exists():
+        return str(Path(CUDA_HOME, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> tuple[Path, str]:
+    """Compile the library unless this source hash is built already.
+    Returns (path, compiler log); the log is empty when nothing was built.
+    Raises RuntimeError with nvcc's output when the build fails."""
+    import hashlib
+    import subprocess
+
+    srcs = [CSRC / s for s in SOURCES]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        digest.update(s.read_bytes())
+    so = BUILD_ROOT / digest.hexdigest()[:16] / LIB_NAME
+    if so.exists():
+        return so, ""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f".{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
+                           f"\n{res.stdout}{res.stderr}")
+    os.replace(tmp, so)       # atomic: a concurrent build never sees half
+    return so, res.stdout + res.stderr
+
+
+@functools.cache
+def library():
+    """The loaded kernel library, built first if needed."""
+    import ctypes
+
+    so, _ = build()
+    lib = ctypes.CDLL(str(so))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.intfft_fused_pass.argtypes = [ptr] * 8 + [i32] * 11 + [ptr]
+    lib.intfft_fused_pass.restype = i32
+    lib.intfft_error_string.argtypes = [i32]
+    lib.intfft_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib, err: int, what: str):
+    """Raise when a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = lib.intfft_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")

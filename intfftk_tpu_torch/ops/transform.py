@@ -1,0 +1,135 @@
+"""Staged integer radix-2 forward transform in eager PyTorch.
+
+Counterpart of ``intfftk_tpu/ops/transform.py`` (``dif_stage``,
+``fft_stages``, ``FFTPlan``), forward only and narrow only (output width
+<= 32 bits).  It runs on int64 tensors on any device: it is the CPU path
+of the port and the building block of the plain versions the CUDA kernels
+are held against.  Bit-identical to ``intfftk_tpu.golden.fft_int``.
+
+Stage structure (forward DIF, ``int_fftNk.vhd:184-279``): view
+[..., blocks, 2, h] -> butterfly lane 0 against lane 1 -> write back.  The
+natural-order output reorder is a transpose of the log2(n) index-bit axes,
+the same permutation as the ``bitrev_indices`` gather.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from intfftk_tpu.config import FFTConfig
+from intfftk_tpu.golden.twiddle import stage_twiddles_int
+
+from .intmath import cmult_exact, neg_guarded, round_half_up, wrap_width
+
+
+def check_narrow(cfg: FFTConfig):
+    """The port carries data paths of at most 32 bits so far."""
+    if cfg.output_width > 32:
+        raise NotImplementedError(
+            f"data paths wider than 32 bits (output width "
+            f"{cfg.output_width}) are not ported yet: ROADMAP Queue A, "
+            f"'Wide/unscaled path'")
+
+
+def pack_tables(cfg: FFTConfig):
+    """Stage twiddles packed by order into one [n] int32 vector per part:
+    order p >= 2 occupies [2^p, 2^(p+1)) (``pallas_fft._pack_tables``;
+    orders 0 and 1 need no table)."""
+    n = cfg.n
+    w_re = np.zeros(n, np.int32)
+    w_im = np.zeros(n, np.int32)
+    for p in range(2, cfg.stages):
+        re, im = stage_twiddles_int(p, cfg.twiddle_width, cfg.twiddle_gen)
+        w_re[1 << p: 2 << p] = re
+        w_im[1 << p: 2 << p] = im
+    return w_re, w_im
+
+
+def bitrev_last(x: torch.Tensor) -> torch.Tensor:
+    """Bit-reversal permutation of the last axis (a power of two):
+    ``out[..., j] = x[..., bitrev(j)]``, as a transpose of its bit axes."""
+    n = x.shape[-1]
+    nbits = n.bit_length() - 1
+    lead = x.dim() - 1
+    v = x.reshape(x.shape[:-1] + (2,) * nbits)
+    perm = tuple(range(lead)) + tuple(range(lead + nbits - 1, lead - 1, -1))
+    return v.permute(perm).reshape(x.shape)
+
+
+def dif_stage(ar, ai, br, bi, cfg: FFTConfig, in_w: int, p: int,
+              w_re, w_im):
+    """One forward stage on int64 lane views; mirrors golden
+    ``dif_butterfly_int``.  ``w_re``/``w_im``: the order-p twiddles [2^p]
+    (read only for p >= 2)."""
+    scale, rnd = cfg.scale, cfg.rounding == "round"
+    out_w = in_w + 1 - scale
+    if scale and not rnd:
+        ar, ai, br, bi = ar >> 1, ai >> 1, br >> 1, bi >> 1
+        sr, si, dr, di = ar + br, ai + bi, ar - br, ai - bi
+    elif scale:
+        sr, si = round_half_up(ar + br), round_half_up(ai + bi)
+        dr, di = round_half_up(ar - br), round_half_up(ai - bi)
+    else:
+        sr, si, dr, di = ar + br, ai + bi, ar - br, ai - bi
+    sr, si = wrap_width(sr, out_w), wrap_width(si, out_w)
+    dr, di = wrap_width(dr, out_w), wrap_width(di, out_w)
+
+    if p == 0:
+        yr, yi = dr, di
+    elif p == 1:
+        # W in {1, -j}: the odd lane takes (re, im) = (im, neg_guarded(re))
+        yr = torch.stack([dr[..., 0], di[..., 1]], dim=-1)
+        yi = torch.stack([di[..., 0], neg_guarded(dr[..., 1])], dim=-1)
+    else:
+        yr, yi = cmult_exact(dr, di, w_re, w_im, cfg.twiddle_shift, out_w)
+    return sr, si, yr, yi
+
+
+def fft_stages(x_re, x_im, cfg: FFTConfig, w_re, w_im):
+    """Forward transform along the last axis: integer [..., n] in natural
+    order -> int64 [..., n] in natural order.  ``w_re``/``w_im``: the
+    packed stage tables of ``pack_tables``."""
+    n = cfg.n
+    xr, xi = x_re.long(), x_im.long()
+    if xr.shape[-1] != n:
+        raise ValueError(f"last dim {xr.shape[-1]} != n={n}")
+    if not cfg.bypass_fly:
+        shp = xr.shape[:-1]
+        for s in range(cfg.stages):
+            p = cfg.stage_twiddle_order(s)
+            h = 1 << p
+            vr = xr.reshape(shp + (-1, 2, h))
+            vi = xi.reshape(shp + (-1, 2, h))
+            sr, si, yr, yi = dif_stage(
+                vr[..., 0, :], vi[..., 0, :], vr[..., 1, :], vi[..., 1, :],
+                cfg, cfg.stage_input_width(s), p,
+                w_re[h: 2 * h], w_im[h: 2 * h])
+            xr = torch.stack([sr, yr], dim=-2).reshape(shp + (n,))
+            xi = torch.stack([si, yi], dim=-2).reshape(shp + (n,))
+    # DIF leaves the spectrum in bit-reversed order (bypass_fly: the
+    # permutation network alone, int_fftNk.vhd:259-277)
+    return bitrev_last(xr), bitrev_last(xi)
+
+
+class FFTPlan(nn.Module):
+    """Forward transform plan of one config: the packed stage tables as
+    buffers.  ``plan(x_re, x_im)``: integer [..., n] -> int64 [..., n],
+    natural order in and out, on the device of the input."""
+
+    def __init__(self, cfg: FFTConfig, inverse: bool = False,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        if inverse:
+            raise NotImplementedError(
+                "the inverse staged transform is not ported yet: ROADMAP "
+                "Queue A, 'ops/transform.py -> torch eager staged path'")
+        check_narrow(cfg)
+        self.cfg = cfg
+        w_re, w_im = pack_tables(cfg)
+        self.register_buffer("w_re", torch.as_tensor(w_re, device=device))
+        self.register_buffer("w_im", torch.as_tensor(w_im, device=device))
+
+    def forward(self, x_re, x_im):
+        return fft_stages(x_re, x_im, self.cfg, self.w_re, self.w_im)
