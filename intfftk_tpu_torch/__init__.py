@@ -4,12 +4,18 @@ The JAX package ``intfftk_tpu`` stays the reference.  This package shares
 its NumPy specification (``intfftk_tpu.config``, the twiddle tables and the
 golden models, none of which imports JAX) and ports the compute path:
 
-* ``ops.intmath``    — the exact butterfly arithmetic on int32/int64 tensors;
-* ``ops.transform``  — the eager staged forward transform (the CPU path and
-  the plain version every kernel is held against);
-* ``ops.fused_fft``  — ``LargeFFTPlan``, the four-step transform as two
-  launches of the hand-written CUDA kernel ``csrc/fused_pass.cu``;
-* ``device``         — where a call runs: the kernel on an sm_90 card, the
+* ``ops.intmath``     — the exact butterfly arithmetic on int32/int64
+  tensors;
+* ``ops.transform``   — the eager staged transform, forward and inverse
+  (the CPU path and the plain version every kernel is held against);
+* ``ops.fused_fft``   — ``fused_pass``, one launch of the hand-written CUDA
+  kernel ``csrc/fused_pass.cu``, and ``LargeFFTPlan``, the four-step
+  transform as two launches of it, natural or raw order;
+* ``ops.single_pass`` — ``PallasFFTPlan`` and ``FusedAxisFFT``, the
+  n <= 4096 engines, one launch per call;
+* ``parallel``        — ``Channelizer`` on one device;
+* ``runtime``         — ``StreamExecutor`` on CUDA streams;
+* ``device``          — where a call runs: the kernel on an sm_90 card, the
   plain version on the CPU.
 
 Outputs are bit-identical to ``intfftk_tpu.golden`` and to the JAX plans.

@@ -1,38 +1,55 @@
-// fused_pass.cu -- one factor pass of the integer four-step FFT, for Hopper
-// (sm_90a).
+// fused_pass.cu -- one factor pass of the integer FFT, for Hopper (sm_90a).
 //
-// Replaces, on the NVIDIA H100, two Pallas TPU kernels of
-// intfftk_tpu/ops/pallas_fft.py:
-//   * _FusedFourStep._kernel (:1255, pallas_call at :1361) in its forward,
-//     natural-order, narrow (<= 32-bit) form.  A 64k block is 256 KiB as
-//     int16 complex, more than one CTA's 227 KB of shared memory, so the
-//     whole-fused [n1, n2] tile that sits in VMEM on the TPU becomes two
-//     launches of this kernel: factor 1 with the inter-factor twiddle and a
-//     transposed store, then factor 2;
+// Replaces, on the NVIDIA H100, three Pallas TPU kernels of
+// intfftk_tpu/ops/pallas_fft.py, all of which run the one stage body
+// _transform_rows (:501-559):
+//   * _FusedFourStep._kernel (:1255, pallas_call at :1361) in its narrow
+//     (<= 32-bit) forms: forward and inverse, natural and raw order.  A 64k
+//     block is 256 KiB as int16 complex, more than one CTA's 227 KB of
+//     shared memory, so the whole-fused [n1, n2] tile that sits in VMEM on
+//     the TPU becomes two launches of this kernel: factor 1 with the
+//     inter-factor twiddle and a transposed store, then factor 2;
 //   * _FusedPass._kernel (:965, pallas_call at :1097) in its narrow,
-//     forward, table-epilogue form -- the same contract, once.
+//     table-epilogue forms, with the transposed load and store
+//     (FusedAxisFFT, the Channelizer's "cn" layout);
+//   * PallasFFTPlan._kernel (:829, pallas_call at :855): the single-pass
+//     n <= 4096 transform of an [n, B] tile, launched on a [1, n, B] view
+//     ("nb"), or on [1, B, n] with the transposed load and store ("bn").
 //
 // What it computes, for each batch item b and column c of x[b, :, c]
 // (R = m rows, m a power of two, 8 <= m <= 4096):
-//   1. the m-point integer DIF with FFTConfig numerics (golden
-//      int_model.dif_butterfly_int, pallas_fft._bfly_fwd);
-//   2. the natural-order output reorder (row k is read at bitrev(k));
-//   3. optionally y[k, c] * (er[k, c] + j*ei[k, c]) >> twiddle_shift,
-//      wrapped to the factor's output width (the inter-factor twiddle);
-//   4. a store to out[b, c, k] (transposed) or out[b, k, c], int16 or int32.
+//   1. the load: x[b, r, c], or x[b, c, r] with transpose_in (a [B, C, R]
+//      operand, read along R); the inverse in natural order puts row r at
+//      shared row bitrev(r), as its DIT stages consume a bit-reversed
+//      spectrum;
+//   2. the m-point integer transform with FFTConfig numerics: forward DIF
+//      (golden int_model.dif_butterfly_int, pallas_fft._bfly_fwd), or
+//      inverse DIT, the B operand times the conjugate twiddle wrapped to
+//      the stage's input width before the same butterfly
+//      (_dit_stage_rows, _bfly_inv);
+//   3. the forward in natural order reads stored row k at bitrev(k); with
+//      natural off (the raw core contract) neither side is reordered;
+//   4. optionally stored row k times (er[k, c] + j*ei[k, c]) >>
+//      twiddle_shift, wrapped to the factor's output width (the
+//      inter-factor twiddle);
+//   5. a store to out[b, c, k] (transpose_out) or out[b, k, c], int16 or
+//      int32.
 //
 // What bounds it on this card: device-memory bytes set the floor.  At the
-// main path's [64, 256, 256] int16 blocks each pass reads 16 MiB and writes
+// 64k path's [64, 256, 256] int16 blocks each pass reads 16 MiB and writes
 // 16 MiB, about 10 us at the data-sheet 3.35 TB/s.  On an H100 80GB HBM3
 // at its 700 W limit this kernel takes about 0.1 ms per pass there, ten
 // times that floor: it is bound by the integer work per sample (64-bit
 // products, register wraps, index math) and its shared-memory traffic and
-// barriers, which are still to be counted from its SASS.
+// barriers, which are still to be counted from its SASS.  At m = 4096 a
+// CTA holds only 4 columns (160 KiB of shared memory, one CTA per SM), so
+// the [n, B] load reads 16-byte row segments.
 //
 // What the design does about it: one read and one write of device memory
-// per pass; every stage, the reorder and the epilogue run on an int32 tile
-// in shared memory.  One CTA holds one batch item and TC columns:
-// [m, TC] re and im planes, rows padded to TC + 1 words.
+// per pass; every stage, both reorders and the epilogue run on an int32
+// tile in shared memory.  One CTA holds one batch item and TC columns:
+// [m, TC] re and im planes, rows padded to TC + 1 words.  The direction is
+// a template parameter, so the forward body carries no inverse branch.
 //
 // Numerics: every sum is formed in uint32 (modular, no signed overflow)
 // and wrapped to the stage's output width with a shift pair, so the result
@@ -47,7 +64,8 @@ namespace {
 constexpr int kThreads = 256;
 
 struct PassParams {
-  int batch, rows, cols;   // x is [batch, rows, cols]
+  int batch, rows, cols;   // x is [batch, rows, cols] ([batch, cols, rows]
+                           // with transpose_in)
   int log_rows;            // log2(rows)
   int tc, log_tc;          // columns per CTA
   int data_width;          // width entering stage 0
@@ -55,6 +73,8 @@ struct PassParams {
   int round;               // 1: round half up, 0: truncate
   int tw_shift;            // renormalising floor shift of every product
   int bypass;              // 1: no butterflies, reorder only (USE_FLY = 0)
+  int natural;             // 1: natural spectrum order, 0: bit-reversed
+  int transpose_in;        // 1: x is [batch, cols, rows]
   int transpose_out;       // 1: out is [batch, cols, rows]
 };
 
@@ -62,6 +82,13 @@ struct PassParams {
 __device__ __forceinline__ int32_t wrap32(uint32_t v, int w) {
   const int sh = 32 - w;
   return static_cast<int32_t>(v << sh) >> sh;
+}
+
+// -x for x >= 0, -x - 1 for x < 0 (int_dif2_fly.vhd:281-304): exact at
+// INT32_MIN.
+__device__ __forceinline__ int32_t neg_guarded(int32_t x) {
+  return static_cast<int32_t>(static_cast<uint32_t>(x >> 31) -
+                              static_cast<uint32_t>(x));
 }
 
 // (br + j*bi) * (c + j*d) >> sh, wrapped to w bits.  |data| < 2^31 and
@@ -75,9 +102,11 @@ __device__ __forceinline__ void cmult(int32_t br, int32_t bi, int32_t c,
   yi = wrap32(static_cast<uint32_t>(pi >> sh), w);
 }
 
-// DIF sum and difference with the mode's scale and rounding, wrapped to
-// out_w bits (int_dif2_fly.vhd:144-241).  The round-mode difference reaches
-// +2^(w-1) at (max, min) and wraps to -2^(w-1).
+// Sum and difference with the mode's scale and rounding, wrapped to out_w
+// bits: the DIF butterfly (int_dif2_fly.vhd:144-241) and the DIT combine
+// of A with B*W (int_dit2_fly.vhd:142-217) are the same arithmetic.  The
+// round-mode difference reaches +2^(w-1) at (max, min) and wraps to
+// -2^(w-1).
 __device__ __forceinline__ void bfly(int32_t a, int32_t b, int in_w,
                                      const PassParams& p, int32_t& s,
                                      int32_t& d) {
@@ -101,7 +130,7 @@ __device__ __forceinline__ void bfly(int32_t a, int32_t b, int in_w,
   d = wrap32(du, out_w);
 }
 
-template <typename T>
+template <typename T, bool kInverse>
 __global__ void __launch_bounds__(kThreads)
 fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
                   const int32_t* __restrict__ w_re,
@@ -117,26 +146,42 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
   const int c0 = blockIdx.x * tc;
   const size_t item = static_cast<size_t>(b) * m * p.cols;
   const int tile = m * tc;
+  const int rev_sh = 32 - p.log_rows;
+  // which side is reordered: the inverse's load, the forward's store
+  const bool rev_in = kInverse && p.natural;
+  const bool rev_out = !kInverse && p.natural;
 
-  // load [m, TC], coalesced along the columns; the tail tile reads zeros
+  // load [m, TC], coalesced along the columns, or along the rows of a
+  // [B, C, R] operand; the tail tile reads zeros
   for (int u = threadIdx.x; u < tile; u += kThreads) {
-    const int r = u >> p.log_tc, c = u & (tc - 1), col = c0 + c;
+    int r, c;
+    if (p.transpose_in) {
+      r = u & (m - 1);
+      c = u >> p.log_rows;
+    } else {
+      r = u >> p.log_tc;
+      c = u & (tc - 1);
+    }
+    const int col = c0 + c;
     int32_t vr = 0, vi = 0;
     if (col < p.cols) {
-      const size_t g = item + static_cast<size_t>(r) * p.cols + col;
+      const size_t g = item + (p.transpose_in
+                                   ? static_cast<size_t>(col) * m + r
+                                   : static_cast<size_t>(r) * p.cols + col);
       vr = x_re[g];
       vi = x_im[g];
     }
-    s_re[r * ld + c] = vr;
-    s_im[r * ld + c] = vi;
+    const int a = (rev_in ? (__brev(r) >> rev_sh) : r) * ld + c;
+    s_re[a] = vr;
+    s_im[a] = vi;
   }
   __syncthreads();
 
-  // every stage in shared memory: stage s pairs rows i and i + 2^q,
-  // q = log2(m) - 1 - s the twiddle order
+  // every stage in shared memory: stage s pairs rows i and i + 2^q, q the
+  // twiddle order: log2(m) - 1 - s forward (DIF), s inverse (DIT)
   const int n_stages = p.bypass ? 0 : p.log_rows;
   for (int s = 0; s < n_stages; ++s) {
-    const int q = p.log_rows - 1 - s;
+    const int q = kInverse ? s : p.log_rows - 1 - s;
     const int h = 1 << q;
     const int in_w = p.data_width + s * (1 - p.scale);
     const int out_w = in_w + 1 - p.scale;
@@ -145,43 +190,56 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
       const int k = t & (h - 1);
       const int i = (((t >> q) << (q + 1)) | k) * ld + c;
       const int j = i + h * ld;
-      int32_t sr, si, dr, di, yr, yi;
-      bfly(s_re[i], s_re[j], in_w, p, sr, dr);
-      bfly(s_im[i], s_im[j], in_w, p, si, di);
-      if (q == 0) {
-        yr = dr;
-        yi = di;
-      } else if (q == 1) {
-        // W = -j on the odd index: (re, im) = (im, neg_guarded(re)),
-        // neg_guarded(x) = (x >> 31) - x, exact at INT32_MIN
-        if (k & 1) {
-          yr = di;
-          yi = static_cast<int32_t>(static_cast<uint32_t>(dr >> 31) -
-                                    static_cast<uint32_t>(dr));
-        } else {
-          yr = dr;
-          yi = di;
+      int32_t sr, si, dr, di;
+      if (kInverse) {
+        // B times conj(W) first, wrapped to in_w; W = -j on the odd index
+        // of order 1 makes it B * j = (neg_guarded(bi), br)
+        const int32_t br = s_re[j], bi = s_im[j];
+        int32_t bwr = br, bwi = bi;
+        if (q == 1) {
+          if (k & 1) {
+            bwr = neg_guarded(bi);
+            bwi = br;
+          }
+        } else if (q > 1) {
+          cmult(br, bi, __ldg(w_re + h + k), -__ldg(w_im + h + k),
+                p.tw_shift, in_w, bwr, bwi);
         }
+        bfly(s_re[i], bwr, in_w, p, sr, dr);
+        bfly(s_im[i], bwi, in_w, p, si, di);
       } else {
-        cmult(dr, di, __ldg(w_re + h + k), __ldg(w_im + h + k), p.tw_shift,
-              out_w, yr, yi);
+        int32_t yr, yi;
+        bfly(s_re[i], s_re[j], in_w, p, sr, yr);
+        bfly(s_im[i], s_im[j], in_w, p, si, yi);
+        dr = yr;
+        di = yi;
+        if (q == 1) {
+          // W = -j on the odd index: (re, im) = (im, neg_guarded(re))
+          if (k & 1) {
+            dr = yi;
+            di = neg_guarded(yr);
+          }
+        } else if (q > 1) {
+          cmult(yr, yi, __ldg(w_re + h + k), __ldg(w_im + h + k),
+                p.tw_shift, out_w, dr, di);
+        }
       }
       s_re[i] = sr;
       s_im[i] = si;
-      s_re[j] = yr;
-      s_im[j] = yi;
+      s_re[j] = dr;
+      s_im[j] = di;
     }
     __syncthreads();
   }
 
-  // natural output row k lives at shared row bitrev(k)
-  const int rev_sh = 32 - p.log_rows;
+  // stored row k lives at shared row bitrev(k) in the natural forward,
+  // at row k otherwise
   if (e_re != nullptr) {
     const int ow = p.data_width + p.log_rows * (1 - p.scale);
     for (int u = threadIdx.x; u < tile; u += kThreads) {
       const int k = u >> p.log_tc, c = u & (tc - 1), col = c0 + c;
       if (col < p.cols) {
-        const int a = (__brev(k) >> rev_sh) * ld + c;
+        const int a = (rev_out ? (__brev(k) >> rev_sh) : k) * ld + c;
         const size_t g = static_cast<size_t>(k) * p.cols + col;
         int32_t yr, yi;
         cmult(s_re[a], s_im[a], __ldg(e_re + g), __ldg(e_im + g), p.tw_shift,
@@ -198,7 +256,7 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
     for (int u = threadIdx.x; u < tile; u += kThreads) {
       const int k = u & (m - 1), c = u >> p.log_rows, col = c0 + c;
       if (col < p.cols) {
-        const int a = (__brev(k) >> rev_sh) * ld + c;
+        const int a = (rev_out ? (__brev(k) >> rev_sh) : k) * ld + c;
         const size_t g = item + static_cast<size_t>(col) * m + k;
         y_re[g] = static_cast<T>(s_re[a]);
         y_im[g] = static_cast<T>(s_im[a]);
@@ -208,7 +266,7 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
     for (int u = threadIdx.x; u < tile; u += kThreads) {
       const int k = u >> p.log_tc, c = u & (tc - 1), col = c0 + c;
       if (col < p.cols) {
-        const int a = (__brev(k) >> rev_sh) * ld + c;
+        const int a = (rev_out ? (__brev(k) >> rev_sh) : k) * ld + c;
         const size_t g = item + static_cast<size_t>(k) * p.cols + col;
         y_re[g] = static_cast<T>(s_re[a]);
         y_im[g] = static_cast<T>(s_im[a]);
@@ -223,7 +281,7 @@ int log2_exact(int v) {
   return (1 << l) == v ? l : -1;
 }
 
-template <typename T>
+template <typename T, bool kInverse>
 cudaError_t launch(const void* x_re, const void* x_im, const void* w_re,
                    const void* w_im, const void* e_re, const void* e_im,
                    void* y_re, void* y_im, PassParams p, cudaStream_t stream) {
@@ -233,16 +291,27 @@ cudaError_t launch(const void* x_re, const void* x_im, const void* w_re,
   p.log_tc = log2_exact(p.tc);
   const size_t smem = 2u * p.rows * (p.tc + 1) * sizeof(int32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_pass_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      fused_pass_kernel<T, kInverse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.cols + p.tc - 1) / p.tc, p.batch);
-  fused_pass_kernel<T><<<grid, kThreads, smem, stream>>>(
+  fused_pass_kernel<T, kInverse><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x_re), static_cast<const T*>(x_im),
       static_cast<const int32_t*>(w_re), static_cast<const int32_t*>(w_im),
       static_cast<const int32_t*>(e_re), static_cast<const int32_t*>(e_im),
       static_cast<T*>(y_re), static_cast<T*>(y_im), p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dir(int inverse, const void* x_re, const void* x_im,
+                       const void* w_re, const void* w_im, const void* e_re,
+                       const void* e_im, void* y_re, void* y_im,
+                       const PassParams& p, cudaStream_t stream) {
+  return inverse ? launch<T, true>(x_re, x_im, w_re, w_im, e_re, e_im, y_re,
+                                   y_im, p, stream)
+                 : launch<T, false>(x_re, x_im, w_re, w_im, e_re, e_im,
+                                    y_re, y_im, p, stream);
 }
 
 }  // namespace
@@ -256,23 +325,25 @@ extern "C" int intfft_fused_pass(const void* x_re, const void* x_im,
                                  const void* e_im, int batch, int rows,
                                  int cols, int io16, int data_width, int scale,
                                  int round, int tw_shift, int bypass,
+                                 int inverse, int natural, int transpose_in,
                                  int transpose_out, int device,
                                  void* stream) {
   const int log_rows = log2_exact(rows);
   if (log_rows < 3 || log_rows > 12 || batch < 1 || batch > 65535 ||
-      cols < 1 ||
-      data_width < 1 || data_width + (1 - scale) * log_rows > 32) {
+      cols < 1 || data_width < 1 ||
+      data_width + (1 - scale) * log_rows > 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  PassParams p{batch, rows,  cols,     log_rows, 0,      0,
-               data_width, scale, round, tw_shift, bypass, transpose_out};
+  PassParams p{batch,    rows,   cols,    log_rows,     0,
+               0,        data_width, scale, round,      tw_shift,
+               bypass,   natural, transpose_in, transpose_out};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = io16 ? launch<int16_t>(x_re, x_im, w_re, w_im, e_re, e_im, y_re,
-                               y_im, p, s)
-             : launch<int32_t>(x_re, x_im, w_re, w_im, e_re, e_im, y_re,
-                               y_im, p, s);
+  err = io16 ? launch_dir<int16_t>(inverse, x_re, x_im, w_re, w_im, e_re,
+                                   e_im, y_re, y_im, p, s)
+             : launch_dir<int32_t>(inverse, x_re, x_im, w_re, w_im, e_re,
+                                   e_im, y_re, y_im, p, s);
   return static_cast<int>(err);
 }
 

@@ -69,7 +69,7 @@ def library():
     so, _ = build()
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.intfft_fused_pass.argtypes = [ptr] * 8 + [i32] * 11 + [ptr]
+    lib.intfft_fused_pass.argtypes = [ptr] * 8 + [i32] * 14 + [ptr]
     lib.intfft_fused_pass.restype = i32
     lib.intfft_error_string.argtypes = [i32]
     lib.intfft_error_string.restype = ctypes.c_char_p

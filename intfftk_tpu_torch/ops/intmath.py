@@ -61,13 +61,18 @@ def shift_wrap(v: torch.Tensor, s: int, w: int) -> torch.Tensor:
 
 
 def cmult_exact(br: torch.Tensor, bi: torch.Tensor, w_re: torch.Tensor,
-                w_im: torch.Tensor, shift: int, out_width: int):
+                w_im: torch.Tensor, shift: int, out_width: int,
+                conj: bool = False):
     """(br + j*bi) * (w_re + j*w_im) as int64: re = (br*c - bi*d) >> shift,
     im = (bi*c + br*d) >> shift, each wrapped to ``out_width`` bits.  The
     floor shift applies to the summed full-precision product, as in the
-    DSP48 cascade (``int_cmult18x25_dsp48.vhd:106-225``)."""
+    DSP48 cascade (``int_cmult18x25_dsp48.vhd:106-225``).  ``conj``
+    negates the twiddle's imaginary part (the DIT/inverse path,
+    ``int_dit2_fly.vhd:304-322``)."""
     br, bi = br.long(), bi.long()
     c, d = w_re.long(), w_im.long()
+    if conj:
+        d = -d
     pre = br * c - bi * d
     pim = bi * c + br * d
     return (shift_wrap(pre, shift, out_width),

@@ -1,18 +1,22 @@
-"""Staged integer radix-2 forward transform in eager PyTorch.
+"""Staged integer radix-2 transform in eager PyTorch.
 
 Counterpart of ``intfftk_tpu/ops/transform.py`` (``dif_stage``,
-``fft_stages``, ``FFTPlan``), forward only and narrow only (output width
-<= 32 bits).  It runs on int64 tensors on any device: it is the CPU path
-of the port and the building block of the plain versions the CUDA kernels
-are held against.  Bit-identical to ``intfftk_tpu.golden.fft_int``.
+``dit_stage``, ``fft_stages``, ``FFTPlan``, ``make_plan``, ``fft``,
+``ifft``, ``fft_ifft_pair``), narrow only (output width <= 32 bits).  It
+runs on int64 tensors on any device: it is the CPU path of the port and
+the building block of the plain versions the CUDA kernels are held
+against.  Bit-identical to ``intfftk_tpu.golden.fft_int``.
 
-Stage structure (forward DIF, ``int_fftNk.vhd:184-279``): view
-[..., blocks, 2, h] -> butterfly lane 0 against lane 1 -> write back.  The
-natural-order output reorder is a transpose of the log2(n) index-bit axes,
-the same permutation as the ``bitrev_indices`` gather.
+Stage structure (forward DIF ``int_fftNk.vhd:184-279``, inverse DIT
+``int_ifftNk.vhd``): view [..., blocks, 2, h] -> butterfly lane 0 against
+lane 1 -> write back.  The spectrum-side reorder is a transpose of the
+log2(n) index-bit axes, the same permutation as the ``bitrev_indices``
+gather.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -58,11 +62,11 @@ def bitrev_last(x: torch.Tensor) -> torch.Tensor:
     return v.permute(perm).reshape(x.shape)
 
 
-def dif_stage(ar, ai, br, bi, cfg: FFTConfig, in_w: int, p: int,
-              w_re, w_im):
-    """One forward stage on int64 lane views; mirrors golden
-    ``dif_butterfly_int``.  ``w_re``/``w_im``: the order-p twiddles [2^p]
-    (read only for p >= 2)."""
+def _sum_diff(ar, ai, br, bi, cfg: FFTConfig, in_w: int):
+    """A + B and A - B with the mode's scale and rounding, wrapped to the
+    stage's output width: the DIF butterfly and the DIT combine of A with
+    B*W are the same arithmetic (golden ``dif_butterfly_int`` /
+    ``dit_butterfly_int``)."""
     scale, rnd = cfg.scale, cfg.rounding == "round"
     out_w = in_w + 1 - scale
     if scale and not rnd:
@@ -73,9 +77,16 @@ def dif_stage(ar, ai, br, bi, cfg: FFTConfig, in_w: int, p: int,
         dr, di = round_half_up(ar - br), round_half_up(ai - bi)
     else:
         sr, si, dr, di = ar + br, ai + bi, ar - br, ai - bi
-    sr, si = wrap_width(sr, out_w), wrap_width(si, out_w)
-    dr, di = wrap_width(dr, out_w), wrap_width(di, out_w)
+    return (wrap_width(sr, out_w), wrap_width(si, out_w),
+            wrap_width(dr, out_w), wrap_width(di, out_w))
 
+
+def dif_stage(ar, ai, br, bi, cfg: FFTConfig, in_w: int, p: int,
+              w_re, w_im):
+    """One forward stage on int64 lane views; mirrors golden
+    ``dif_butterfly_int``.  ``w_re``/``w_im``: the order-p twiddles [2^p]
+    (read only for p >= 2)."""
+    sr, si, dr, di = _sum_diff(ar, ai, br, bi, cfg, in_w)
     if p == 0:
         yr, yi = dr, di
     elif p == 1:
@@ -83,53 +94,119 @@ def dif_stage(ar, ai, br, bi, cfg: FFTConfig, in_w: int, p: int,
         yr = torch.stack([dr[..., 0], di[..., 1]], dim=-1)
         yi = torch.stack([di[..., 0], neg_guarded(dr[..., 1])], dim=-1)
     else:
-        yr, yi = cmult_exact(dr, di, w_re, w_im, cfg.twiddle_shift, out_w)
+        yr, yi = cmult_exact(dr, di, w_re, w_im, cfg.twiddle_shift,
+                             in_w + 1 - cfg.scale)
     return sr, si, yr, yi
 
 
-def fft_stages(x_re, x_im, cfg: FFTConfig, w_re, w_im):
-    """Forward transform along the last axis: integer [..., n] in natural
-    order -> int64 [..., n] in natural order.  ``w_re``/``w_im``: the
-    packed stage tables of ``pack_tables``."""
+def dit_stage(ar, ai, br, bi, cfg: FFTConfig, in_w: int, p: int,
+              w_re, w_im):
+    """One inverse stage on int64 lane views; mirrors golden
+    ``dit_butterfly_int``: B times the conjugate order-p twiddle, wrapped
+    to ``in_w``, then the same sum and difference as the forward."""
+    if p == 0:
+        bwr, bwi = br, bi
+    elif p == 1:
+        # conj(W) in {1, j}: the odd lane takes (neg_guarded(im), re)
+        bwr = torch.stack([br[..., 0], neg_guarded(bi[..., 1])], dim=-1)
+        bwi = torch.stack([bi[..., 0], br[..., 1]], dim=-1)
+    else:
+        bwr, bwi = cmult_exact(br, bi, w_re, w_im, cfg.twiddle_shift, in_w,
+                               conj=True)
+    return _sum_diff(ar, ai, bwr, bwi, cfg, in_w)
+
+
+def fft_stages(x_re, x_im, cfg: FFTConfig, w_re, w_im, inverse=False,
+               natural=True):
+    """Transform along the last axis: integer [..., n] -> int64 [..., n].
+    The time side is natural order; the spectrum side is natural order,
+    or bit-reversed with ``natural=False`` (the raw core contract: the
+    forward emits it, the inverse consumes it).  ``w_re``/``w_im``: the
+    packed stage tables of ``pack_tables`` (the same for both
+    directions)."""
     n = cfg.n
     xr, xi = x_re.long(), x_im.long()
     if xr.shape[-1] != n:
         raise ValueError(f"last dim {xr.shape[-1]} != n={n}")
+    # the DIT stages consume a bit-reversed spectrum, the DIF stages emit
+    # one (bypass_fly: the permutation network alone, int_fftNk.vhd:259-277)
+    if inverse and natural:
+        xr, xi = bitrev_last(xr), bitrev_last(xi)
     if not cfg.bypass_fly:
         shp = xr.shape[:-1]
+        stage = dit_stage if inverse else dif_stage
         for s in range(cfg.stages):
-            p = cfg.stage_twiddle_order(s)
+            p = cfg.stage_twiddle_order(s, inverse)
             h = 1 << p
             vr = xr.reshape(shp + (-1, 2, h))
             vi = xi.reshape(shp + (-1, 2, h))
-            sr, si, yr, yi = dif_stage(
+            sr, si, yr, yi = stage(
                 vr[..., 0, :], vi[..., 0, :], vr[..., 1, :], vi[..., 1, :],
                 cfg, cfg.stage_input_width(s), p,
                 w_re[h: 2 * h], w_im[h: 2 * h])
             xr = torch.stack([sr, yr], dim=-2).reshape(shp + (n,))
             xi = torch.stack([si, yi], dim=-2).reshape(shp + (n,))
-    # DIF leaves the spectrum in bit-reversed order (bypass_fly: the
-    # permutation network alone, int_fftNk.vhd:259-277)
-    return bitrev_last(xr), bitrev_last(xi)
+    if natural and not inverse:
+        xr, xi = bitrev_last(xr), bitrev_last(xi)
+    return xr, xi
 
 
 class FFTPlan(nn.Module):
-    """Forward transform plan of one config: the packed stage tables as
-    buffers.  ``plan(x_re, x_im)``: integer [..., n] -> int64 [..., n],
-    natural order in and out, on the device of the input."""
+    """Transform plan of one config and direction: the packed stage tables
+    as buffers.  ``plan(x_re, x_im)``: integer [..., n] -> int64 [..., n],
+    natural order in and out, on the device of the input.  The inverse is
+    unnormalised, like the reference's."""
 
     def __init__(self, cfg: FFTConfig, inverse: bool = False,
                  device: torch.device | str | None = None):
         super().__init__()
-        if inverse:
-            raise NotImplementedError(
-                "the inverse staged transform is not ported yet: ROADMAP "
-                "Queue A, 'ops/transform.py -> torch eager staged path'")
         check_narrow(cfg)
-        self.cfg = cfg
+        self.cfg, self.inverse = cfg, inverse
         w_re, w_im = pack_tables(cfg)
         self.register_buffer("w_re", torch.as_tensor(w_re, device=device))
         self.register_buffer("w_im", torch.as_tensor(w_im, device=device))
 
     def forward(self, x_re, x_im):
-        return fft_stages(x_re, x_im, self.cfg, self.w_re, self.w_im)
+        return fft_stages(x_re, x_im, self.cfg, self.w_re, self.w_im,
+                          inverse=self.inverse)
+
+
+# ----------------------------------------------------------- functional API
+
+def make_plan(cfg: FFTConfig, inverse: bool = False,
+              device: torch.device | str | None = None) -> FFTPlan:
+    """The staged plan of ``cfg``; a data path wider than 32 bits raises
+    NotImplementedError (the JAX package's ``WideFFTPlan`` is not ported
+    yet)."""
+    return FFTPlan(cfg, inverse=inverse, device=device)
+
+
+def _run(x_re, x_im, cfg: FFTConfig, inverse: bool):
+    xr, xi = torch.as_tensor(x_re), torch.as_tensor(x_im)
+    return make_plan(cfg, inverse, device=xr.device)(xr, xi)
+
+
+def fft(x_re, x_im, cfg: FFTConfig):
+    """Forward integer FFT, natural in / natural out."""
+    return _run(x_re, x_im, cfg, False)
+
+
+def ifft(x_re, x_im, cfg: FFTConfig):
+    """Inverse integer FFT (unnormalised, like the reference)."""
+    return _run(x_re, x_im, cfg, True)
+
+
+def fft_ifft_pair(x_re, x_im, cfg: FFTConfig, fly_fwd: bool = True,
+                  fly_inv: bool = True):
+    """FFT -> IFFT roundtrip, mirroring ``int_fft_ifft_pair``: the IFFT's
+    input width is widened to the forward's output width
+    (``int_fft_ifft_pair.vhd:261``).  ``fly_fwd``/``fly_inv`` are the
+    reference's per-core butterfly knockouts FLY_FWD/FLY_INV
+    (``int_fft_ifft_pair.vhd:92-93``): False leaves that core's
+    permutation network alone, at its configured widths."""
+    fwd_cfg = cfg if fly_fwd else dataclasses.replace(cfg, bypass_fly=True)
+    icfg = dataclasses.replace(cfg, data_width=cfg.output_width,
+                               bypass_fly=not fly_inv or cfg.bypass_fly)
+    inv = make_plan(icfg, inverse=True)     # raises before any work if wide
+    yr, yi = _run(x_re, x_im, fwd_cfg, False)
+    return inv.to(yr.device)(yr, yi)

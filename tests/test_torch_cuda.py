@@ -1,7 +1,8 @@
 """The CUDA kernel (csrc/fused_pass.cu) against its plain version on the
-card.  Marked ``cuda``: each test skips where no CUDA device is present;
-on a machine with an H100 run ``python -m pytest tests/test_torch_cuda.py``
-(the first test builds the kernel into build/)."""
+card, and the port's plans on the card against golden.  Marked ``cuda``:
+each test skips where no CUDA device is present; on a machine with an H100
+run ``python -m pytest tests/test_torch_cuda.py`` (the first test builds
+the kernel into build/)."""
 
 import dataclasses
 
@@ -10,11 +11,15 @@ import pytest
 import torch
 
 from intfftk_tpu.config import FFTConfig
+from intfftk_tpu.golden import fft_int
+from intfftk_tpu.golden.float_model import bitrev_indices
 from intfftk_tpu.golden.four_step import four_step_int
 from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, circle_table,
                                               fused_pass,
                                               fused_pass_reference)
+from intfftk_tpu_torch.ops.single_pass import PallasFFTPlan
 from intfftk_tpu_torch.ops.transform import pack_tables
+from intfftk_tpu_torch.parallel import Channelizer
 
 pytestmark = pytest.mark.cuda
 MODES = [("unscaled", "truncate"), ("scaled", "truncate"), ("scaled", "round")]
@@ -73,3 +78,111 @@ def test_large_fft_on_card(dev, mode, rounding, bypass):
     gr, gi = four_step_int(xr, xi, cfg, 16, 256)
     np.testing.assert_array_equal(yr.cpu().numpy(), gr)
     np.testing.assert_array_equal(yi.cpu().numpy(), gi)
+
+
+@pytest.mark.parametrize("mode,rounding", MODES)
+@pytest.mark.parametrize("r,c,nb", [(8, 40, 3), (256, 72, 2), (4096, 6, 2)])
+@pytest.mark.parametrize("inverse,natural,turned,epi", [
+    (False, False, False, True), (True, True, False, True),
+    (True, False, False, True), (False, True, True, False),
+    (True, False, True, False), (True, True, True, True)],
+    ids=["fwd_raw_epi", "inv_nat_epi", "inv_raw_epi", "fwd_nat_turned",
+         "inv_raw_turned", "inv_nat_turned_epi"])
+def test_kernel_forms_vs_plain(dev, mode, rounding, r, c, nb, inverse,
+                               natural, turned, epi):
+    """The inverse, raw-order and transposed-load forms, ragged column
+    tiles, int16 and int32 blocks, full-scale adversarial items."""
+    cfg = FFTConfig(n=r, mode=mode, rounding=rounding, data_width=16,
+                    twiddle_width=16)
+    dt = torch.int16 if cfg.output_width <= 16 else torch.int32
+    shape = (nb, c, r) if turned else (nb, r, c)
+    xr, xi = _stimulus(shape, 16, seed=r + c + 1)
+    x = [torch.as_tensor(v).to(dt).to(dev) for v in (xr, xi)]
+    tables = tuple(torch.as_tensor(t, device=dev) for t in pack_tables(cfg))
+    e = (tuple(torch.as_tensor(t, device=dev) for t in circle_table(
+        dataclasses.replace(cfg, n=r * 64), r, c, inverse,
+        "natural" if natural else "raw")) if epi else None)
+    kw = dict(epi=e, transpose_out=epi, inverse=inverse, natural=natural,
+              transpose_in=turned)
+    before = fused_pass.launches
+    yr, yi = fused_pass(*x, cfg, tables, **kw)
+    torch.cuda.synchronize()
+    assert fused_pass.launches == before + 1
+    wr, wi = fused_pass_reference(*x, cfg, tables, **kw)
+    assert torch.equal(yr, wr) and torch.equal(yi, wi)
+
+
+@pytest.mark.parametrize("n", [8, 1024, 4096])
+@pytest.mark.parametrize("order", ["natural", "bitrev"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("layout", ["nb", "bn"])
+def test_pallas_plan_on_card(dev, layout, inverse, order, n):
+    """PallasFFTPlan, one launch per call, ragged batches 3 and 200,
+    scaled/round, against golden fft_int."""
+    cfg = FFTConfig(n=n, mode="scaled", rounding="round")
+    plan = PallasFFTPlan(cfg, inverse=inverse, layout=layout, order=order,
+                         device=dev)
+    rev = bitrev_indices(n)
+    for b in (3, 200):
+        xr, xi = _stimulus((b, n), 16, seed=b + n)
+        src = (xr[:, rev], xi[:, rev]) if order == "bitrev" and inverse \
+            else (xr, xi)
+        gr, gi = fft_int(*src, cfg, inverse=inverse)
+        if order == "bitrev" and not inverse:
+            gr, gi = gr[:, rev], gi[:, rev]
+        if layout == "nb":
+            xr, xi, gr, gi = xr.T, xi.T, gr.T, gi.T
+        before = fused_pass.launches
+        yr, yi = plan(torch.as_tensor(xr, device=dev),
+                      torch.as_tensor(xi, device=dev))
+        assert fused_pass.launches == before + 1
+        np.testing.assert_array_equal(yr.cpu().numpy(), gr)
+        np.testing.assert_array_equal(yi.cpu().numpy(), gi)
+
+
+@pytest.mark.parametrize("mode,rounding", MODES)
+def test_large_fft_raw_chain_on_card(dev, mode, rounding):
+    """The raw forward then the swapped-factor raw inverse, 4 launches,
+    against the golden natural composition."""
+    cfg = FFTConfig(n=4096, mode=mode, rounding=rounding)
+    icfg = dataclasses.replace(cfg, data_width=cfg.output_width)
+    if mode == "unscaled":
+        icfg = dataclasses.replace(icfg, mode="scaled", rounding="round")
+    fwd = LargeFFTPlan(cfg, 16, 256, order="raw", device=dev)
+    inv = LargeFFTPlan(icfg, 256, 16, inverse=True, order="raw", device=dev)
+    xr, xi = _stimulus((3, 4096), 16, seed=6)
+    before = fused_pass.launches
+    y = fwd(torch.as_tensor(xr, device=dev), torch.as_tensor(xi, device=dev))
+    z = inv(*y)
+    assert fused_pass.launches == before + 4
+    gr, gi = four_step_int(xr, xi, cfg, 16, 256)
+    o = fwd.raw_spectrum_order()
+    np.testing.assert_array_equal(y[0].cpu().numpy(), gr[:, o])
+    hr, hi = four_step_int(gr, gi, icfg, 256, 16, inverse=True)
+    np.testing.assert_array_equal(z[0].cpu().numpy(), hr)
+    np.testing.assert_array_equal(z[1].cpu().numpy(), hi)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("layout", ["cn", "nc"])
+def test_channelizer_stream_on_card(dev, layout, inverse):
+    """The streamed Channelizer on CUDA streams with pinned staging:
+    bursts of 1-96 channels, depth 3, bit-equal to golden, in order."""
+    n, total = 256, 700
+    cfg = FFTConfig(n=n, mode="scaled", rounding="round")
+    rng = np.random.default_rng(7)
+    re = rng.integers(-(1 << 15), 1 << 15, (total, n))
+    im = rng.integers(-(1 << 15), 1 << 15, (total, n))
+    ex = Channelizer(cfg, inverse=inverse, layout=layout,
+                     device=dev).stream(lane_tile=128, depth=3)
+    pos, got = 0, []
+    while pos < total:
+        c = min(int(rng.integers(1, 97)), total - pos)
+        got += list(ex.feed(re[pos:pos + c].T, im[pos:pos + c].T))
+        pos += c
+    got += list(ex.flush())
+    gr, gi = fft_int(re, im, cfg, inverse=inverse)
+    np.testing.assert_array_equal(
+        np.concatenate([g[0] for g in got], axis=1).T, gr)
+    np.testing.assert_array_equal(
+        np.concatenate([g[1] for g in got], axis=1).T, gi)

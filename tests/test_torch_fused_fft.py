@@ -47,8 +47,9 @@ def _adversarial(shape, w=16):
 
 
 @functools.cache
-def _jax_plan(cfg, n1, n2):
-    return jp.LargeFFTPlan(cfg, n1, n2, interpret=True)
+def _jax_plan(cfg, n1, n2, inverse=False, order="natural"):
+    return jp.LargeFFTPlan(cfg, n1, n2, inverse=inverse, order=order,
+                           interpret=True)
 
 
 def _port_blocks(plan, xr, xi):
@@ -79,37 +80,51 @@ def _check_slice(cfg, n1, n2, xr, xi):
 
 # ----------------------------------------------------------- one pass
 
+FORMS = [(False, True, False), (False, False, False), (True, True, False),
+         (True, False, False), (False, True, True), (True, False, True)]
+
+
 @pytest.mark.parametrize("mode,rounding", MODES)
 @pytest.mark.parametrize("epi", [True, False], ids=["epi_turn", "plain"])
-def test_fused_pass_vs_jax(mode, rounding, epi):
+@pytest.mark.parametrize("inverse,natural,turned", FORMS, ids=[
+    "fwd_nat", "fwd_raw", "inv_nat", "inv_raw", "fwd_nat_turned_in",
+    "inv_raw_turned_in"])
+def test_fused_pass_vs_jax(mode, rounding, epi, inverse, natural, turned):
     """fused_pass_reference == JAX _FusedPass (interpret) at R=64, C=16,
-    B=3, in the epilogue + transposed-store form and the plain form."""
+    B=3, in every narrow form: forward and inverse, natural and raw order,
+    rows read straight or turned, with and without the epilogue and
+    transposed store; full-scale adversarial items.  The wrapper takes
+    the same plain version on the CPU and counts no launch."""
     r, c, nb = 64, 16, 3
     cfg = FFTConfig(n=r, mode=mode, rounding=rounding, data_width=16,
                     twiddle_width=16)
-    xr, xi = _random((nb, r, c), seed=1)
-    xr[0], xi[0] = _adversarial((r, c))
-    jpass = jp._FusedPass(cfg, False, wide_in=False, wide_out=False,
-                          has_epi=epi, transpose_out=epi, interpret=True,
-                          spectrum_rows="natural")
+    shape = (nb, c, r) if turned else (nb, r, c)
+    xr, xi = _random(shape, seed=1)
+    xr[0], xi[0] = _adversarial(shape[1:])
+    xi[2], xr[2] = _adversarial(shape[1:])
+    jpass = jp._FusedPass(cfg, inverse, wide_in=False, wide_out=False,
+                          has_epi=epi, transpose_out=epi,
+                          transpose_in=turned, interpret=True,
+                          spectrum_rows="natural" if natural else "bitrev")
     tables = tuple(torch.as_tensor(t) for t in pack_tables(cfg))
     for ours, theirs in zip(tables, (jpass.consts["w_re"],
                                      jpass.consts["w_im"])):
         np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs)[:, 0])
     e = (tuple(torch.as_tensor(t) for t in circle_table(
-        dataclasses.replace(cfg, n=r * c), r, c)) if epi else None)
+        dataclasses.replace(cfg, n=r * c), r, c, inverse,
+        "natural" if natural else "raw")) if epi else None)
     (jr,), (ji,) = jpass.apply(
         jpass.consts, (jnp.asarray(xr, jnp.int32),),
         (jnp.asarray(xi, jnp.int32),),
         epi=tuple(jnp.asarray(t.numpy()) for t in e) if epi else None)
     x = [torch.as_tensor(v).int() for v in (xr, xi)]
-    yr, yi = fused_pass_reference(*x, cfg, tables, epi=e, transpose_out=epi)
+    kw = dict(epi=e, transpose_out=epi, inverse=inverse, natural=natural,
+              transpose_in=turned)
+    yr, yi = fused_pass_reference(*x, cfg, tables, **kw)
     np.testing.assert_array_equal(yr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(yi.numpy(), np.asarray(ji))
-    # the wrapper takes the plain version for CPU tensors, and counts
-    # no launch
     before = fused_pass.launches
-    wr, wi = fused_pass(*x, cfg, tables, epi=e, transpose_out=epi)
+    wr, wi = fused_pass(*x, cfg, tables, **kw)
     assert torch.equal(wr, yr) and torch.equal(wi, yi)
     assert fused_pass.launches == before
 
@@ -131,6 +146,8 @@ def test_fused_pass_rejects():
     with pytest.raises(ValueError):          # epilogue table of wrong shape
         fused_pass(x, x, cfg, tables, epi=(tables[0], tables[1]),
                    transpose_out=True)
+    with pytest.raises(ValueError):          # a turned load wants [B, C, R]
+        fused_pass(x, x, cfg, tables, transpose_out=False, transpose_in=True)
 
 
 def test_device_resolver():
@@ -166,6 +183,93 @@ def test_large_fft_64k_main_path():
     _check_slice(cfg, None, None, xr, xi)
 
 
+def _raw_golden(xr, xi, cfg, plan):
+    """Golden bits of a raw-order plan on flat [B, n] input in its own
+    layout (raw spectrum in for the inverse, out for the forward)."""
+    o = plan.raw_spectrum_order()
+    if plan.inverse:
+        nr, ni = np.empty_like(xr), np.empty_like(xi)
+        nr[:, o], ni[:, o] = xr, xi
+        return four_step_int(nr, ni, cfg, plan.n1, plan.n2, inverse=True)
+    gr, gi = four_step_int(xr, xi, cfg, plan.n1, plan.n2)
+    return gr[:, o], gi[:, o]
+
+
+@pytest.mark.parametrize("inverse,order", [(True, "natural"),
+                                           (False, "raw"), (True, "raw")],
+                         ids=["inv", "fwd_raw", "inv_raw"])
+@pytest.mark.parametrize("mode,rounding", MODES)
+def test_large_fft_4096_inverse_raw(mode, rounding, inverse, order):
+    """n = 4096, 32x128: the inverse and raw-order plans == the JAX plans
+    (interpret) == golden four_step_int, random and full-scale
+    adversarial stimuli."""
+    cfg = FFTConfig(n=4096, mode=mode, rounding=rounding, data_width=16,
+                    twiddle_width=16)
+    plan = LargeFFTPlan(cfg, inverse=inverse, order=order)
+    jplan = _jax_plan(cfg, None, None, inverse, order)
+    assert (plan.n1, plan.n2, plan.io16) == (jplan.n1, jplan.n2, jplan.io16)
+    np.testing.assert_array_equal(plan.raw_spectrum_order(),
+                                  jplan.raw_spectrum_order())
+    xr, xi = _random((2, 4096), seed=9)
+    xr[1], xi[1] = _adversarial((4096,))
+    yr, yi = _port_blocks(plan, xr, xi)
+    jr, ji = jplan(xr, xi)
+    np.testing.assert_array_equal(yr, np.asarray(jr, np.int64))
+    np.testing.assert_array_equal(yi, np.asarray(ji, np.int64))
+    if order == "natural":
+        gr, gi = four_step_int(xr, xi, cfg, plan.n1, plan.n2, inverse=True)
+    else:
+        gr, gi = _raw_golden(xr, xi, cfg, plan)
+    np.testing.assert_array_equal(yr, gr)
+    np.testing.assert_array_equal(yi, gi)
+
+
+@pytest.mark.parametrize("mode,rounding", MODES)
+def test_large_fft_raw_chain(mode, rounding):
+    """A raw forward's output block is the swapped-factor raw inverse's
+    input block: fwd -> inv with no reorder == the natural golden
+    composition (icfg widened as the pair widens it; the unscaled
+    forward's 28-bit spectrum goes into a scaled/round inverse)."""
+    cfg = FFTConfig(n=4096, mode=mode, rounding=rounding, data_width=16,
+                    twiddle_width=16)
+    icfg = dataclasses.replace(cfg, data_width=cfg.output_width)
+    if mode == "unscaled":
+        icfg = dataclasses.replace(icfg, mode="scaled", rounding="round")
+    fwd = LargeFFTPlan(cfg, order="raw")
+    inv = LargeFFTPlan(icfg, fwd.n2, fwd.n1, inverse=True, order="raw")
+    assert inv.block_in_shape == fwd.block_out_shape
+    assert inv.block_out_shape == fwd.block_in_shape
+    np.testing.assert_array_equal(inv.raw_spectrum_order(),
+                                  fwd.raw_spectrum_order())
+    xr, xi = _adversarial((2, 4096))
+    yr, yi = _port_blocks(fwd, xr, xi)
+    zr, zi = _port_blocks(inv, yr, yi)
+    gr, gi = four_step_int(xr, xi, cfg, fwd.n1, fwd.n2)
+    hr, hi = four_step_int(gr, gi, icfg, inv.n1, inv.n2, inverse=True)
+    np.testing.assert_array_equal(zr, hr)
+    np.testing.assert_array_equal(zi, hi)
+
+
+def test_large_fft_64k_roundtrip():
+    """The 64k raw-chained roundtrip of the chip run at batch 1, 16-bit
+    scaled/round, against golden: both halves bit-equal."""
+    cfg = FFTConfig(n=65536, mode="scaled", rounding="round", data_width=16,
+                    twiddle_width=16)
+    icfg = dataclasses.replace(cfg, data_width=cfg.output_width)
+    fwd = LargeFFTPlan(cfg, order="raw")
+    inv = LargeFFTPlan(icfg, fwd.n2, fwd.n1, inverse=True, order="raw")
+    xr, xi = _random((1, 65536), seed=10)
+    yr, yi = _port_blocks(fwd, xr, xi)
+    gr, gi = four_step_int(xr, xi, cfg, 256, 256)
+    o = fwd.raw_spectrum_order()
+    np.testing.assert_array_equal(yr, gr[:, o])
+    np.testing.assert_array_equal(yi, gi[:, o])
+    zr, zi = _port_blocks(inv, yr, yi)
+    hr, hi = four_step_int(gr, gi, icfg, 256, 256, inverse=True)
+    np.testing.assert_array_equal(zr, hr)
+    np.testing.assert_array_equal(zi, hi)
+
+
 def test_forward_flat():
     cfg = FFTConfig(n=4096, mode="scaled", rounding="truncate")
     xr, xi = _random((2, 4096), seed=3)
@@ -180,17 +284,21 @@ def test_bypass_fly():
     _check_slice(cfg, None, None, *_random((2, 4096), seed=4))
 
 
-def test_tables_from_jax():
+@pytest.mark.parametrize("inverse,order", [(False, "natural"),
+                                           (True, "natural"), (False, "raw"),
+                                           (True, "raw")],
+                         ids=["fwd", "inv", "fwd_raw", "inv_raw"])
+def test_tables_from_jax(inverse, order):
     """The port's own tables equal the converted JAX consts, and a plan
     loaded with the JAX tables gives the same bits."""
     cfg = FFTConfig(n=4096, mode="scaled", rounding="round")
-    jplan = _jax_plan(cfg, None, None)
+    jplan = _jax_plan(cfg, None, None, inverse, order)
     tables = tables_from_jax(jax.tree_util.tree_map(np.asarray,
                                                     jplan.consts))
-    plan = LargeFFTPlan(cfg)
+    plan = LargeFFTPlan(cfg, inverse=inverse, order=order)
     for name, t in tables.items():
         assert torch.equal(getattr(plan, name), t), name
-    loaded = LargeFFTPlan(cfg)
+    loaded = LargeFFTPlan(cfg, inverse=inverse, order=order)
     for name in tables:
         getattr(loaded, name).zero_()
     loaded.load_tables(tables)
@@ -203,10 +311,9 @@ def test_tables_from_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(inverse=True), dict(order="raw"), dict(schedule="monolithic"),
-    dict(epi_synth=True), dict(cfg=FFTConfig(n=65536, mode="unscaled",
-                                             data_width=20))],
-    ids=["inverse", "raw", "monolithic", "epi_synth", "wide"])
+    dict(schedule="monolithic"), dict(epi_synth=True),
+    dict(cfg=FFTConfig(n=65536, mode="unscaled", data_width=20))],
+    ids=["monolithic", "epi_synth", "wide"])
 def test_not_ported_raises(kw):
     cfg = kw.pop("cfg", FFTConfig(n=65536))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -223,7 +330,9 @@ def test_bad_arguments():
 def test_import_leaves_jax_out():
     """The port never imports JAX (a subprocess: conftest imports it)."""
     code = ("import sys, intfftk_tpu_torch, intfftk_tpu_torch.ops, "
-            "intfftk_tpu_torch.convert, intfftk_tpu_torch.device; "
+            "intfftk_tpu_torch.ops.single_pass, intfftk_tpu_torch.parallel, "
+            "intfftk_tpu_torch.runtime, intfftk_tpu_torch.convert, "
+            "intfftk_tpu_torch.device; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'intfftk_tpu.ops', "
             "'intfftk_tpu.parallel', 'intfftk_tpu.runtime'))); "

@@ -78,11 +78,13 @@ def test_round_forms(name):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("conj", [False, True], ids=["w", "conj"])
 @pytest.mark.parametrize("tw", [16, 18, 25])
 @pytest.mark.parametrize("dw", [16, 24, 32])
-def test_cmult_exact(dw, tw):
+def test_cmult_exact(dw, tw, conj):
     """One int64 product-sum, floor shift and wrap == the JAX limb tiers
-    == golden cmult_int."""
+    == golden cmult_int; ``conj`` (the inverse) negates the twiddle's
+    imaginary part."""
     rng = np.random.default_rng(dw * 100 + tw)
     lim = 1 << (dw - 1)
     edge = np.array([-lim, -lim + 1, -1, 0, 1, lim - 1], np.int64)
@@ -96,13 +98,13 @@ def test_cmult_exact(dw, tw):
     c, d = w_re[idx], w_im[idx]
     shift = tw - 1 if tw < 19 else tw - 2
     got = tm.cmult_exact(*(torch.as_tensor(x.astype(np.int32))
-                           for x in (br, bi, c, d)), shift, dw)
+                           for x in (br, bi, c, d)), shift, dw, conj=conj)
     got = [g.numpy() for g in got]
-    want = golden.cmult_int(br, bi, c, d, shift, dw)
+    want = golden.cmult_int(br, bi, c, -d if conj else d, shift, dw)
     plan = jm.CmultPlan(data_width=dw, twiddle_width=tw, shift=shift,
                         out_width=dw)
     jax_out = jm.cmult_exact(plan, *(jnp.asarray(x.astype(np.int32))
-                                     for x in (br, bi, c, d)))
+                                     for x in (br, bi, c, d)), conj=conj)
     for g, w, j in zip(got, want, jax_out):
         np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(g, np.asarray(j).astype(np.int64))
