@@ -11,13 +11,18 @@ Phases; any failure exits non-zero and prints no result line:
 1. toolchain: torch, CUDA and nvcc versions, the card's name and power
    limit, then the kernel is built from csrc/ (printing build seconds and
    the register/shared-memory report of ptxas);
-2. the kernel against its plain PyTorch version on the card (torch.equal),
-   random and full-scale adversarial stimuli: the forward natural pass
-   forms at the 64k path's [64, 256, 256] int16 shapes, ragged column
-   tails and a batch of 3; the inverse (natural and raw) and forward raw
-   four-step passes at [64, 256, 256]; a transposed load; PallasFFTPlan
-   nb/bn x fwd/inv x natural/bitrev at n = 8, 1024, 4096 with ragged
-   batches 3 and 200; int32 unscaled/truncate at n = 1024;
+2. the kernels against their plain PyTorch versions on the card
+   (torch.equal), random and full-scale adversarial stimuli: the forward
+   natural pass forms at the 64k path's [64, 256, 256] int16 shapes,
+   ragged column tails and a batch of 3; the inverse (natural and raw)
+   and forward raw four-step passes at [64, 256, 256]; a transposed load;
+   PallasFFTPlan nb/bn x fwd/inv x natural/bitrev at n = 8, 1024, 4096
+   with ragged batches 3 and 200; int32 unscaled/truncate at n = 1024;
+   the twiddle generator against the host circle table at 512K and 1M
+   (fwd/inv, twiddle_gen auto and taylor_new) and 16M (auto); the in-kernel
+   synthesis epilogue at [4, 1024, 1024] and the ragged [3, 1024, 40]
+   (n = 2^20); the monolithic 2-D stage pass at [64, 256, 256] and
+   [2, 1024, 512], both directions;
 3. the 64k forward path: LargeFFTPlan(64k, scaled/round, 16-bit data and
    twiddles).apply_blocks on [64, 256, 256] int16 blocks, bit-equal to
    golden four_step_int for all 64 items, with exactly 2 kernel launches;
@@ -32,10 +37,22 @@ Phases; any failure exits non-zero and prints no result line:
 6. the 64k raw-chained roundtrip at batch 8: LargeFFTPlan(order="raw")
    then the swapped-factor raw inverse, exactly 4 launches, both halves
    bit-equal to four_step_int, and the roundtrip SNR;
-7. timing with CUDA events over chained calls, kernel and plain version in
-   turns (plain, kernel, kernel, plain);
-8. a JSON line describing each ported kernel, then the result line
-   {"ok": true, "device": {...}} as the last line.
+7. the 1M block chain at its published size (bench_large_blocks(1M,
+   batch=4)): plan a then the swapped-factor plan b on [4, 1024, 1024]
+   int16 blocks, in epi_mode host, device and inkernel, 2 launches per
+   plan call, the generator once per device-mode plan, bit-equal to
+   four_step_int; the inverse too;
+8. 512K on the flat contract (batch 8, 1024 x 512), forward and inverse
+   against four_step_int; 16M (4096 x 4096, batch 1) in device and
+   inkernel mode, kernel == plain on the card, and against four_step_int
+   at 16M when the golden model is estimated under a minute, else at 4M;
+9. the monolithic schedule: 64 x 64k and 2 x 512K, forward and inverse,
+   bit-equal to fft_int, 2 launches per call; the 64k roundtrip and the
+   64k raw order;
+10. timing with CUDA events over chained calls, kernel and plain version
+    in turns (plain, kernel, kernel, plain);
+11. a JSON line describing each ported kernel, then the result line
+    {"ok": true, "device": {...}} as the last line.
 """
 
 import dataclasses
@@ -51,6 +68,12 @@ ROOT = Path(__file__).resolve().parent
 N, BATCH, CHAIN = 65536, 64, 50
 CH, CH_N, CH_CHAIN, PLAIN_CHAIN = 4096, 4096, 20, 3
 RT_BATCH = 8
+N1M, B1M = 1 << 20, 4
+N512K, B512K = 1 << 19, 8
+N16M = 1 << 24
+EPI_MODES = ("host", "device", "inkernel")
+#: the 16M golden model runs when it is estimated under this many seconds
+GOLDEN_16M_LIMIT_S = 60.0
 
 
 class SmokeFailure(Exception):
@@ -130,7 +153,10 @@ def main() -> int:
                                                   circle_table, fused_pass,
                                                   fused_pass_reference)
     from intfftk_tpu_torch.ops.single_pass import PallasFFTPlan
-    from intfftk_tpu_torch.ops.transform import pack_tables
+    from intfftk_tpu_torch.ops.transform import pack_tables, pack_tables_2d
+    from intfftk_tpu_torch.ops.twiddle_synth import (EpiSynth, coarse_table,
+                                                     device_circle_table,
+                                                     synth_circle_block)
     from intfftk_tpu_torch.parallel import Channelizer
 
     # ---- 1. toolchain and build
@@ -162,7 +188,7 @@ def main() -> int:
     check((plan.n1, plan.n2, plan.io16) == (256, 256, True),
           "64k plan: 256 x 256 factors, int16 blocks")
     # largest |kernel - plain| over the comparisons of each ported kernel
-    max_err = {"K1": 0, "K2": 0, "K4": 0}
+    max_err = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K6": 0}
 
     def same(a, b, what, kernel="K1"):
         err = max(int((x.long() - y.long()).abs().max())
@@ -172,12 +198,8 @@ def main() -> int:
               f"{what}: kernel == plain")
 
     def plain_blocks(p, xr, xi):
-        kw = dict(inverse=p.inverse, natural=p.order == "natural")
-        br, bi = fused_pass_reference(xr, xi, p.cfg1, (p.w1r, p.w1i),
-                                      epi=(p.er, p.ei), transpose_out=True,
-                                      **kw)
-        return fused_pass_reference(br, bi, p.cfg2, (p.w2r, p.w2i),
-                                    transpose_out=False, **kw)
+        """The plain version of a LargeFFTPlan's apply_blocks, on the card."""
+        return p.apply_blocks(xr, xi, pass_fn=fused_pass_reference)
 
     def plain_single(p, xr, xi):
         """The plain version of a single-pass plan's call, on the card."""
@@ -280,6 +302,58 @@ def main() -> int:
         same(sp(*x), plain_single(sp, *x),
              f"PallasFFTPlan n=1024 unscaled/truncate int32 inverse="
              f"{inverse} B=200", "K4")
+
+    # the twiddle generator (K6): the device table == the host table;
+    # "taylor_new" (XSER="NEW") has no pi constant for the 16M half-circle
+    # order 23 (row_twiddle_tay.vhd:134-148), so the golden model has no
+    # table there
+    for n, n1, n2, gens in ((N512K, 1024, 512, ("auto", "taylor_new")),
+                            (N1M, 1024, 1024, ("auto", "taylor_new")),
+                            (N16M, 4096, 4096, ("auto",))):
+        for gen in gens:
+            c = FFTConfig(n=n, twiddle_gen=gen)
+            for inverse in (False, True):
+                host = [torch.as_tensor(t, device=dev)
+                        for t in circle_table(c, n1, n2, inverse)]
+                same(device_circle_table(c, n, n1, n2, inverse, dev), host,
+                     f"generator [{n1}, {n2}] n={n} {gen} inverse="
+                     f"{inverse} == host circle_table", "K6")
+    # the in-kernel synthesis epilogue (K6 in K2) with the 1M plan's
+    # synthesis constants, and a ragged 40-column prefix of its block
+    c1m = FFTConfig(n=N1M, mode="scaled", rounding="round", data_width=16,
+                    twiddle_width=16)
+    f1k = dataclasses.replace(c1m, n=1024)
+    t1k = [torch.as_tensor(t, device=dev) for t in pack_tables(f1k)]
+    syn = EpiSynth(*coarse_table(c1m, dev), N1M)
+    for nb, c, seed in ((B1M, 1024, 21), (3, 40, 22)):
+        for inverse in (False, True):
+            for adv in (False, True):
+                x = [torch.as_tensor(v.reshape(nb, 1024, c),
+                                     dtype=torch.int16, device=dev)
+                     for v in _stimulus(nb, 1024 * c, seed, adversarial=adv)]
+                kw = dict(synth=syn, transpose_out=True, inverse=inverse)
+                same(fused_pass(*x, f1k, t1k, **kw),
+                     fused_pass_reference(*x, f1k, t1k, **kw),
+                     f"in-kernel epilogue pass [{nb}, 1024, {c}] int16 "
+                     f"inverse={inverse}, adversarial {adv}", "K6")
+    # the monolithic 2-D stage pass (K3): every stage multiplies
+    for n, n1, n2, nb in ((N, 256, 256, BATCH), (N512K, 1024, 512, 2)):
+        cm = FFTConfig(n=n, mode="scaled", rounding="round", data_width=16,
+                       twiddle_width=16)
+        fa = dataclasses.replace(cm, n=n1)
+        t2 = [torch.as_tensor(t, device=dev)
+              for t in pack_tables_2d(cm, n1, n2)]
+        for inverse in (False, True):
+            for natural in (True, False):
+                x = [torch.as_tensor(v.reshape(nb, n1, n2),
+                                     dtype=torch.int16, device=dev)
+                     for v in _stimulus(nb, n, 23, adversarial=natural)]
+                kw = dict(tables_2d=t2, transpose_out=not inverse,
+                          inverse=inverse, natural=natural)
+                same(fused_pass(*x, fa, None, **kw),
+                     fused_pass_reference(*x, fa, None, **kw),
+                     f"2-D stage pass [{nb}, {n1}, {n2}] inverse={inverse} "
+                     f"natural={natural}", "K3")
     torch.cuda.synchronize()
 
     # ---- 3. the 64k forward path
@@ -452,7 +526,172 @@ def main() -> int:
     check(np.isfinite(rt_snr) and np.isfinite(u_snr),
           "roundtrip SNRs finite")
 
-    # ---- 7. timing, kernel and plain in turns
+    # ---- 7. the 1M block chain, per epilogue mode
+    def flat(y, nb):
+        return [v.reshape(nb, -1).cpu().numpy() for v in y]
+
+    def equal(y, g, nb):
+        return all(np.array_equal(a, b) for a, b in zip(flat(y, nb), g))
+
+    xr, xi = _stimulus(B1M, N1M, 24)
+    t0 = time.perf_counter()
+    g1 = four_step_int(xr, xi, c1m, 1024, 1024)
+    golden_1m_s = (time.perf_counter() - t0) / B1M
+    g2 = four_step_int(*g1, c1m, 1024, 1024)
+    gi1 = four_step_int(xr, xi, c1m, 1024, 1024, inverse=True)
+    print(f"  golden four_step_int at 1M: {golden_1m_s:.3f} s per item")
+    chains, path_launches = {}, {}
+    for mode in EPI_MODES:
+        torch.cuda.synchronize()
+        fused_pass.launches = device_circle_table.launches = 0
+        a = LargeFFTPlan(c1m, epi_synth=mode, device=dev)
+        b = LargeFFTPlan(c1m, a.n2, a.n1, epi_synth=mode, device=dev)
+        x = blocks(a, xr, xi)
+        y = a.apply_blocks(*x)
+        la = fused_pass.launches
+        z = b.apply_blocks(*y)
+        torch.cuda.synchronize()
+        counts = (fused_pass.launches, device_circle_table.launches)
+        path_launches[mode] = counts
+        what = f"1M block chain, epi_mode {mode}"
+        check(a.epi_mode == b.epi_mode == mode
+              and (a.n1, a.n2, a.io16) == (1024, 1024, True)
+              and b.block_in_shape == a.block_out_shape, f"{what}: plans")
+        check(la == 2 and counts[0] == 4, f"{what}: {counts[0]} launches, "
+              f"2 per plan call")
+        check(counts[1] == (2 if mode == "device" else 0),
+              f"{what}: {counts[1]} generator launches (one per "
+              f"device-mode plan, none per call)")
+        check(equal(y, g1, B1M) and equal(z, g2, B1M),
+              f"{what}: plan a and plan b, all {B1M} items bit-equal to "
+              f"four_step_int")
+        ip = LargeFFTPlan(c1m, inverse=True, epi_synth=mode, device=dev)
+        before = fused_pass.launches
+        w = ip.apply_blocks(*x)
+        torch.cuda.synchronize()
+        check(fused_pass.launches == before + 2 and equal(w, gi1, B1M),
+              f"{what}: the inverse, 2 launches, bit-equal to "
+              f"four_step_int(inverse=True)")
+        same(z, plain_blocks(b, *y), f"{what}: plan b kernel == plain",
+             "K6" if mode == "inkernel" else "K2")
+        chains[mode] = (a, b, ip)
+
+    # ---- 8. 512K on the flat contract, and 16M
+    c512 = dataclasses.replace(c1m, n=N512K)
+    p512 = LargeFFTPlan(c512, device=dev)
+    ip512 = LargeFFTPlan(c512, inverse=True, device=dev)
+    check((p512.n1, p512.n2, p512.epi_mode) == (1024, 512, "device"),
+          "512K plan: 1024 x 512, epi_mode device")
+    xr, xi = _stimulus(B512K, N512K, 25)
+    x512 = [torch.as_tensor(v, dtype=torch.int16, device=dev)
+            for v in (xr, xi)]
+    torch.cuda.synchronize()
+    fused_pass.launches = 0
+    y = p512(*x512)
+    w = ip512(*x512)
+    torch.cuda.synchronize()
+    launches_512k = fused_pass.launches
+    check(launches_512k == 4, f"512K flat forward + inverse: "
+          f"{launches_512k} launches")
+    check(equal([v[:2] for v in y], four_step_int(xr[:2], xi[:2], c512,
+                                                 1024, 512), 2)
+          and equal([v[:2] for v in w], four_step_int(
+              xr[:2], xi[:2], c512, 1024, 512, inverse=True), 2),
+          "512K flat x 8: forward and inverse, 2 items bit-equal to "
+          "four_step_int")
+
+    c16 = dataclasses.replace(c1m, n=N16M)
+    xr, xi = _stimulus(1, N16M, 26)
+    p16 = {}
+    for mode in ("device", "inkernel"):
+        torch.cuda.synchronize()
+        fused_pass.launches = device_circle_table.launches = 0
+        p = LargeFFTPlan(c16, epi_synth=mode, device=dev)
+        x16 = blocks(p, xr, xi)
+        y = p.apply_blocks(*x16)
+        torch.cuda.synchronize()
+        counts = (fused_pass.launches, device_circle_table.launches)
+        path_launches["16M " + mode] = counts
+        check((p.n1, p.n2) == (4096, 4096) and counts == (
+            2, int(mode == "device")), f"16M {mode}: 4096 x 4096, "
+            f"launches {counts}")
+        same(y, plain_blocks(p, *x16), f"16M {mode}: kernel == plain",
+             "K6" if mode == "inkernel" else "K2")
+        p16[mode] = (p, y)
+    estimate = golden_1m_s * 16 * 1.25
+    if estimate < GOLDEN_16M_LIMIT_S:
+        t0 = time.perf_counter()
+        g = four_step_int(xr, xi, c16, 4096, 4096)
+        golden_at = f"16M ({time.perf_counter() - t0:.1f} s of golden)"
+        check(all(equal(y, g, 1) for _, y in p16.values()),
+              f"16M device and inkernel: bit-equal to four_step_int")
+    else:
+        c4 = dataclasses.replace(c1m, n=1 << 22)
+        xr, xi = _stimulus(1, 1 << 22, 27)
+        g = four_step_int(xr, xi, c4, 2048, 2048)
+        for mode in ("device", "inkernel"):
+            p = LargeFFTPlan(c4, epi_synth=mode, device=dev)
+            check(equal(p.apply_blocks(*blocks(p, xr, xi)), g, 1),
+                  f"4M {mode}: bit-equal to four_step_int")
+        golden_at = f"4M (the 16M golden was estimated at {estimate:.0f} s)"
+    print(f"  the split pipeline's golden check ran at {golden_at}")
+
+    # ---- 9. the monolithic schedule
+    mono = LargeFFTPlan(cfg, schedule="monolithic", device=dev)
+    imono = LargeFFTPlan(cfg, inverse=True, schedule="monolithic",
+                         device=dev)
+    check((mono.n1, mono.n2, mono.io16, imono.block_in_shape)
+          == (256, 256, True, (256, 256)), "monolithic 64k: 256 x 256, "
+          "int16 blocks")
+    xr, xi = _stimulus(BATCH, N, 28)
+    x = blocks(mono, xr, xi)
+    torch.cuda.synchronize()
+    fused_pass.launches = 0
+    y = mono.apply_blocks(*x)
+    torch.cuda.synchronize()
+    launches_mono = fused_pass.launches
+    check(launches_mono == 2, f"monolithic 64k: {launches_mono} launches")
+    gm = fft_int(xr, xi, cfg)
+    check(equal(y, gm, BATCH), f"monolithic 64k x {BATCH}: all items "
+          f"bit-equal to fft_int")
+    same(y, plain_blocks(mono, *x), "monolithic 64k: kernel == plain", "K3")
+    z = imono.apply_blocks(*y)
+    rt = slice(0, 8)
+    gr8, gi8 = fft_int(gm[0][rt], gm[1][rt], cfg, inverse=True)
+    check(equal([v[rt] for v in z], (gr8, gi8), 8),
+          "monolithic 64k roundtrip: 8 items bit-equal to the golden "
+          "fft_int roundtrip")
+    rawf = LargeFFTPlan(cfg, order="raw", schedule="monolithic", device=dev)
+    rawi = LargeFFTPlan(cfg, inverse=True, order="raw",
+                        schedule="monolithic", device=dev)
+    o = rawf.raw_spectrum_order()
+    before = fused_pass.launches
+    ry = rawf.apply_blocks(*x)
+    rz = rawi.apply_blocks(*ry)
+    torch.cuda.synchronize()
+    check(fused_pass.launches == before + 4
+          and equal(ry, (gm[0][:, o], gm[1][:, o]), BATCH)
+          and equal([v[rt] for v in rz], (gr8, gi8), 8),
+          "monolithic 64k raw: forward bit-equal under raw_spectrum_order,"
+          " raw inverse of it == the golden roundtrip")
+    cm512 = dataclasses.replace(c1m, n=N512K)
+    m512 = LargeFFTPlan(cm512, schedule="monolithic", device=dev)
+    im512 = LargeFFTPlan(cm512, inverse=True, schedule="monolithic",
+                         device=dev)
+    xr, xi = _stimulus(2, N512K, 29)
+    torch.cuda.synchronize()
+    fused_pass.launches = 0
+    y = m512.apply_blocks(*blocks(m512, xr, xi))
+    w = im512.apply_blocks(*blocks(im512, xr, xi))
+    torch.cuda.synchronize()
+    launches_mono512 = fused_pass.launches
+    check(launches_mono512 == 4, f"monolithic 512K forward + inverse: "
+          f"{launches_mono512} launches")
+    check(equal(y, fft_int(xr, xi, cm512), 2)
+          and equal(w, fft_int(xr, xi, cm512, inverse=True), 2),
+          "monolithic 512K x 2: forward and inverse bit-equal to fft_int")
+
+    # ---- 10. timing, kernel and plain in turns
     x = blocks(plan, *_stimulus(BATCH, N, 5))
     k_ms, p_ms, ms = _turns(lambda a, b: plan.apply_blocks(a, b),
                             lambda a, b: plain_blocks(plan, a, b), *x,
@@ -506,13 +745,79 @@ def main() -> int:
         print(f"  streamed Channelizer {layout} (lane_tile 512, depth 4): "
               f"wall {st['wall_s'] * 1e3:.2f} ms for {CH} channels, "
               f"{st['msamples_per_s']:.1f} Msamples/s")
+
+    def report(what, samples, k, pl, turns, moved=None):
+        gbs = f", {moved / k / 1e6:.1f} GB/s" if moved else ""
+        print(f"  {what}: kernel {k:.4f} ms ({turns['kernel'][0]:.4f}, "
+              f"{turns['kernel'][1]:.4f}), {samples / k / 1e3:.1f} "
+              f"Msamples/s{gbs}; plain {pl:.4f} ms ({turns['plain'][0]:.4f}, "
+              f"{turns['plain'][1]:.4f})")
+
+    # int16 re/im in and out of two passes, per transformed sample
+    io_bytes = 2 * 2 * 2 * 2
+    x = blocks(chains["host"][0], *_stimulus(B1M, N1M, 24))
+    chain_ms = {}
+    for mode, (a, b, _) in chains.items():
+        chain_ms[mode] = _turns(
+            lambda u, v, a=a, b=b: b.apply_blocks(*a.apply_blocks(u, v)),
+            lambda u, v, a=a, b=b: plain_blocks(b, *plain_blocks(a, u, v)),
+            *x, 20, 2)
+        report(f"1M block chain [4, 1024, 1024] int16, plan a + plan b "
+               f"(4 launches), epi_mode {mode}", 2 * B1M * N1M,
+               *chain_ms[mode], moved=2 * B1M * N1M * io_bytes)
+    pass1_1m = {}
+    for mode, (a, _, _) in chains.items():
+        c, kw = a.passes()[0]             # [4, 1024, 1024] in and out
+        pass1_1m[mode] = _event_ms(lambda u, v, c=c, kw=kw: fused_pass(
+            u, v, c, **kw), *x, calls=20)
+    print("  1M pass 1 alone (ms): " + ", ".join(
+        f"{m} {t:.4f}" for m, t in pass1_1m.items()))
+    gen_ms = {}
+    for n, n1 in ((N1M, 1024), (N16M, 4096)):
+        c = dataclasses.replace(c1m, n=n)
+        co = coarse_table(c, dev)
+        gen_ms[n] = _turns(
+            lambda u, v, c=c, n=n, n1=n1, co=co: device_circle_table(
+                c, n, n1, n1, False, coarse=co),
+            lambda u, v, c=c, n=n, n1=n1, co=co: synth_circle_block(
+                co, n1, n1, 0, n, c, False), None, None, 20, 2)
+        report(f"generator, one [{n1}, {n1}] table (n = {n}; coarse table "
+               f"on the card)", n, *gen_ms[n], moved=8 * n)
+    x = x512
+    k512 = _turns(p512, lambda u, v: p512.apply_blocks(
+        *(t.reshape((B512K,) + p512.block_in_shape) for t in (u, v)),
+        pass_fn=fused_pass_reference), *x, 20, 2)
+    report(f"512K flat [{B512K}, {N512K}] int16 forward (2 launches)",
+           B512K * N512K, *k512, moved=B512K * N512K * io_bytes)
+    xr, xi = _stimulus(1, N16M, 26)
+    p16["host"] = (LargeFFTPlan(c16, epi_synth="host", device=dev), None)
+    ms16 = {}
+    for mode in EPI_MODES:
+        p = p16[mode][0]
+        ms16[mode] = _turns(lambda u, v, p=p: p.apply_blocks(u, v),
+                            lambda u, v, p=p: plain_blocks(p, u, v),
+                            *blocks(p, xr, xi), 10, 1)
+        report(f"16M [1, 4096, 4096] int16 apply_blocks, epi_mode {mode}",
+               N16M, *ms16[mode], moved=N16M * io_bytes)
+    x = blocks(mono, *_stimulus(BATCH, N, 28))
+    mono_ms = _turns(lambda u, v: mono.apply_blocks(u, v),
+                     lambda u, v: plain_blocks(mono, u, v), *x, CHAIN, 10)
+    report("monolithic 64k [64, 256, 256] int16 apply_blocks", BATCH * N,
+           *mono_ms, moved=BATCH * N * io_bytes)
+    x = [torch.as_tensor(v, dtype=torch.int16, device=dev)
+         for v in _stimulus(2, N512K, 29)]
+    mono512_ms = _turns(m512, lambda u, v: m512.apply_blocks(
+        *(t.reshape((2,) + m512.block_in_shape) for t in (u, v)),
+        pass_fn=fused_pass_reference), *x, CHAIN, 10)
+    report("monolithic 512K flat [2, 524288] int16 forward", 2 * N512K,
+           *mono512_ms, moved=2 * N512K * io_bytes)
     check("jax" not in sys.modules, "no JAX module was imported")
 
-    # ---- 8. results
+    # ---- 11. results
     src = "intfftk_tpu_torch/csrc/fused_pass.cu"
     mean = lambda layout, k=0: sum(ch_ms[layout, inverse][k]
                                    for inverse in (False, True)) / 2
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": "fused_pass: K1 four-step, forward natural (64k "
                  "apply_blocks)", "route": "cuda", "source": src,
          "replaces": "intfftk_tpu/ops/pallas_fft.py:1255",
@@ -532,7 +837,56 @@ def main() -> int:
                  "fwd + inv)", "route": "cuda", "source": src,
          "replaces": "intfftk_tpu/ops/pallas_fft.py:829",
          "launches": ch_launches["nc"], "max_abs_err": max_err["K4"],
-         "ms": mean("nc"), "plain_ms": mean("nc", 1)}]}))
+         "ms": mean("nc"), "plain_ms": mean("nc", 1)}]
+    k2 = "intfftk_tpu/ops/pallas_fft.py:965"
+    k6 = "intfftk_tpu/ops/twiddle_synth.py:126"
+    k3 = "intfftk_tpu/ops/pallas_fft.py:1204"
+    for mode in EPI_MODES:
+        kernels.append(
+            {"name": f"fused_pass: K2 split pipeline, 1M block chain "
+                     f"(plans a + b), epi_mode {mode}"
+                     + (" (K6 in the epilogue)" if mode == "inkernel" else ""),
+             "route": "cuda", "source": src,
+             "replaces": k6 if mode == "inkernel" else k2,
+             "launches": path_launches[mode][0],
+             "max_abs_err": max_err["K6" if mode == "inkernel" else "K2"],
+             "ms": chain_ms[mode][0], "plain_ms": chain_ms[mode][1]})
+    kernels += [
+        {"name": "circle_table_kernel: K6 generator, one [1024, 1024] table "
+                 "(1M device-mode plans a + b)", "route": "cuda",
+         "source": src, "replaces": k6,
+         "launches": path_launches["device"][1], "max_abs_err": max_err["K6"],
+         "ms": gen_ms[N1M][0], "plain_ms": gen_ms[N1M][1]},
+        {"name": "circle_table_kernel: K6 generator, one [4096, 4096] table "
+                 "(16M device-mode plan)", "route": "cuda", "source": src,
+         "replaces": k6, "launches": path_launches["16M device"][1],
+         "max_abs_err": max_err["K6"],
+         "ms": gen_ms[N16M][0], "plain_ms": gen_ms[N16M][1]},
+        {"name": "fused_pass: K2 split pipeline, 512K flat forward + inverse "
+                 "(timed: forward)", "route": "cuda", "source": src,
+         "replaces": k2, "launches": launches_512k,
+         "max_abs_err": max_err["K2"], "ms": k512[0], "plain_ms": k512[1]},
+        {"name": "fused_pass: K2 split pipeline, 16M, epi_mode device",
+         "route": "cuda", "source": src, "replaces": k2,
+         "launches": path_launches["16M device"][0],
+         "max_abs_err": max_err["K2"], "ms": ms16["device"][0],
+         "plain_ms": ms16["device"][1]},
+        {"name": "fused_pass: K6 in-kernel epilogue, 16M, epi_mode inkernel",
+         "route": "cuda", "source": src, "replaces": k6,
+         "launches": path_launches["16M inkernel"][0],
+         "max_abs_err": max_err["K6"], "ms": ms16["inkernel"][0],
+         "plain_ms": ms16["inkernel"][1]},
+        {"name": "fused_pass: K3 monolithic schedule, 64k x 64 "
+                 "apply_blocks", "route": "cuda", "source": src,
+         "replaces": k3, "launches": launches_mono,
+         "max_abs_err": max_err["K3"], "ms": mono_ms[0],
+         "plain_ms": mono_ms[1]},
+        {"name": "fused_pass: K3 monolithic schedule, 512K x 2 forward + "
+                 "inverse (timed: forward)", "route": "cuda", "source": src,
+         "replaces": k3, "launches": launches_mono512,
+         "max_abs_err": max_err["K3"], "ms": mono512_ms[0],
+         "plain_ms": mono512_ms[1]}]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,8 +9,12 @@ golden models, none of which imports JAX) and ports the compute path:
 * ``ops.transform``   — the eager staged transform, forward and inverse
   (the CPU path and the plain version every kernel is held against);
 * ``ops.fused_fft``   — ``fused_pass``, one launch of the hand-written CUDA
-  kernel ``csrc/fused_pass.cu``, and ``LargeFFTPlan``, the four-step
-  transform as two launches of it, natural or raw order;
+  kernel ``csrc/fused_pass.cu``, and ``LargeFFTPlan``, the large-n
+  transform as two launches of it: four-step (its inter-factor twiddle
+  from a host table, a device-generated table or synthesized in the
+  kernel) or monolithic, natural or raw order;
+* ``ops.twiddle_synth`` — the inter-factor twiddles from the 512-entry
+  coarse quarter table: the generator kernel and its plain version;
 * ``ops.single_pass`` — ``PallasFFTPlan`` and ``FusedAxisFFT``, the
   n <= 4096 engines, one launch per call;
 * ``parallel``        — ``Channelizer`` on one device;

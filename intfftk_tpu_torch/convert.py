@@ -5,16 +5,26 @@ The JAX plans thread their tables through jit as ``plan.consts``
 
 * ``PallasFFTPlan`` and ``FusedAxisFFT`` (:826, :1464): the packed stage
   tables ``w_re``/``w_im`` as [n, 1] columns;
-* ``LargeFFTPlan`` (:1702-1710), in any direction and order: the
-  inter-factor twiddles ``er``/``ei`` [n1, n2], and the packed stage
-  tables of both factors, under ``"w"`` as ``w1r``, ``w1i``, ``w2r``,
-  ``w2i`` (the whole-fused kernel, ``_FusedFourStep.consts``
-  :1194-1195), or under ``"p1"``/``"p2"`` as ``w_re``/``w_im`` (the split
-  pair of ``_FusedPass``).
+* ``LargeFFTPlan`` (:1639-1710), four-step schedule, in any direction and
+  order: the packed stage tables of both factors, under ``"w"`` as
+  ``w1r``, ``w1i``, ``w2r``, ``w2i`` (the whole-fused kernel,
+  ``_FusedFourStep.consts`` :1194-1195), or under ``"p1"``/``"p2"`` as
+  ``w_re``/``w_im`` (the split pair of ``_FusedPass``); the inter-factor
+  twiddles ``er``/``ei`` [n1, n2] (host-built, or generated on the device
+  in the split pipeline's device mode, :1668-1676), or, in its in-kernel
+  mode, no table but the coarse table ``p1["tw_tbl"]``, packed
+  (re & 0xFFFF) | (im << 16) into [4, 128] (``twiddle_synth.
+  packed_coarse``);
+* ``LargeFFTPlan``, monolithic schedule (:1639-1659): the standard
+  factor's packed tables under ``"w"`` as ``wsr``/``wsi``, the 2-D stage
+  tables as ``er``/``ei`` [n1, n2], and ``mrev``, the lane gather's index
+  (the port's kernel does that reorder itself; it is dropped).
 
 ``tables_from_jax`` maps them, as numpy arrays, onto the buffers of the
-port's counterpart: ``LargeFFTPlan.load_tables``, or ``load_state_dict``
-of ``PallasFFTPlan``/``FusedAxisFFT``.
+port's counterpart: ``LargeFFTPlan.load_tables`` (the four-step's
+``w1r`` ... ``ei``, or ``coarse_re``/``coarse_im``; the monolithic
+``wsr``, ``wsi``, ``t2r``, ``t2i``), or ``load_state_dict`` of
+``PallasFFTPlan``/``FusedAxisFFT``.
 """
 
 from __future__ import annotations
@@ -27,18 +37,37 @@ def _vec(a) -> torch.Tensor:
     return torch.as_tensor(np.array(a, np.int32).reshape(-1))
 
 
+def _mat(a) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, np.int32))
+
+
+def unpack_coarse(packed) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX [4, 128] packed coarse table -> two int32 [512] tensors: the
+    signed low and high 16-bit halves of each word."""
+    v = _vec(packed)
+    return (v << 16) >> 16, v >> 16
+
+
 def tables_from_jax(consts: dict) -> dict[str, torch.Tensor]:
     """JAX plan consts (leaves as numpy) -> the port's buffers: ``w_re``,
-    ``w_im`` ([n] int32) for a single-pass plan; ``w1r, w1i, w2r, w2i``
-    ([n1], [n2] int32) and ``er, ei`` ([n1, n2] int32) for a
-    ``LargeFFTPlan``."""
-    if "er" not in consts:
-        return {k: _vec(consts[k]) for k in ("w_re", "w_im")}
-    if "w" in consts:
-        out = {k: _vec(consts["w"][k]) for k in ("w1r", "w1i", "w2r", "w2i")}
-    else:
+    ``w_im`` ([n] int32) for a single-pass plan; for a ``LargeFFTPlan``,
+    ``w1r, w1i, w2r, w2i`` ([n1], [n2] int32) with ``er, ei`` ([n1, n2]
+    int32) or ``coarse_re, coarse_im`` ([512] int32), or, monolithic,
+    ``wsr, wsi`` and ``t2r, t2i`` ([n1, n2] int32)."""
+    if "p1" in consts:
         out = {f"w{f}{part}": _vec(consts[f"p{f}"][f"w_{name}"])
                for f in (1, 2) for part, name in (("r", "re"), ("i", "im"))}
-    for k in ("er", "ei"):
-        out[k] = torch.as_tensor(np.array(consts[k], np.int32))
+        if "tw_tbl" in consts["p1"]:
+            out["coarse_re"], out["coarse_im"] = unpack_coarse(
+                consts["p1"]["tw_tbl"])
+    elif "w" in consts and "wsr" in consts["w"]:
+        return {"wsr": _vec(consts["w"]["wsr"]),
+                "wsi": _vec(consts["w"]["wsi"]),
+                "t2r": _mat(consts["er"]), "t2i": _mat(consts["ei"])}
+    elif "w" in consts:
+        out = {k: _vec(consts["w"][k]) for k in ("w1r", "w1i", "w2r", "w2i")}
+    else:
+        return {k: _vec(consts[k]) for k in ("w_re", "w_im")}
+    if "er" in consts:
+        out["er"], out["ei"] = _mat(consts["er"]), _mat(consts["ei"])
     return out

@@ -1,20 +1,30 @@
 // fused_pass.cu -- one factor pass of the integer FFT, for Hopper (sm_90a).
 //
-// Replaces, on the NVIDIA H100, three Pallas TPU kernels of
+// Replaces, on the NVIDIA H100, four Pallas TPU kernels of
 // intfftk_tpu/ops/pallas_fft.py, all of which run the one stage body
-// _transform_rows (:501-559):
+// _transform_rows (:501-559) or its 2-D twin _transform_rows_2d (:406-430),
+// and the twiddle generator synth_circle_block of
+// intfftk_tpu/ops/twiddle_synth.py:126:
 //   * _FusedFourStep._kernel (:1255, pallas_call at :1361) in its narrow
 //     (<= 32-bit) forms: forward and inverse, natural and raw order.  A 64k
 //     block is 256 KiB as int16 complex, more than one CTA's 227 KB of
 //     shared memory, so the whole-fused [n1, n2] tile that sits in VMEM on
 //     the TPU becomes two launches of this kernel: factor 1 with the
 //     inter-factor twiddle and a transposed store, then factor 2;
-//   * _FusedPass._kernel (:965, pallas_call at :1097) in its narrow,
-//     table-epilogue forms, with the transposed load and store
+//   * _FusedPass._kernel (:965, pallas_call at :1097) in its narrow
+//     forms, with the epilogue from a table or synthesized in the kernel
+//     (epi_synth_n, :1000-1025), and the transposed load and store
 //     (FusedAxisFFT, the Channelizer's "cn" layout);
+//   * _FusedFourStep._kernel_monolithic (:1204, pallas_call at :1361): the
+//     monolithic schedule as two launches, the i1 factor's stages with 2-D
+//     full-size twiddle tables (this kernel with t2_re/t2_im), the other
+//     factor standard;
 //   * PallasFFTPlan._kernel (:829, pallas_call at :855): the single-pass
 //     n <= 4096 transform of an [n, B] tile, launched on a [1, n, B] view
-//     ("nb"), or on [1, B, n] with the transposed load and store ("bn").
+//     ("nb"), or on [1, B, n] with the transposed load and store ("bn");
+//   * synth_circle_block (twiddle_synth.py:126; inside _FusedPass and as
+//     the XLA generator device_circle_table, :103): synth_twiddle below,
+//     run by the epilogue and by the generator kernel circle_table_kernel.
 //
 // What it computes, for each batch item b and column c of x[b, :, c]
 // (R = m rows, m a power of two, 8 <= m <= 4096):
@@ -26,12 +36,17 @@
 //      (golden int_model.dif_butterfly_int, pallas_fft._bfly_fwd), or
 //      inverse DIT, the B operand times the conjugate twiddle wrapped to
 //      the stage's input width before the same butterfly
-//      (_dit_stage_rows, _bfly_inv);
+//      (_dit_stage_rows, _bfly_inv); with 2-D tables t2[R, C], stage order
+//      q reads its twiddle at t2[2^q + k, col] and every stage multiplies,
+//      q = 0 and 1 included (_stage_rows_2d);
 //   3. the forward in natural order reads stored row k at bitrev(k); with
 //      natural off (the raw core contract) neither side is reordered;
 //   4. optionally stored row k times (er[k, c] + j*ei[k, c]) >>
 //      twiddle_shift, wrapped to the factor's output width (the
-//      inter-factor twiddle);
+//      inter-factor twiddle); with the coarse table instead of er/ei, the
+//      twiddle W_n^(+-k*col) is synthesized here (col = the global column)
+//      from the 4 KiB table staged in shared memory, so no O(N) array
+//      exists;
 //   5. a store to out[b, c, k] (transpose_out) or out[b, k, c], int16 or
 //      int32.
 //
@@ -47,9 +62,15 @@
 //
 // What the design does about it: one read and one write of device memory
 // per pass; every stage, both reorders and the epilogue run on an int32
-// tile in shared memory.  One CTA holds one batch item and TC columns:
-// [m, TC] re and im planes, rows padded to TC + 1 words.  The direction is
-// a template parameter, so the forward body carries no inverse branch.
+// tile in shared memory.  The epilogue's table is a second read of the
+// pass's size; synthesizing it trades those bytes for about 25 integer
+// operations per sample, and the generator kernel makes the table once per
+// plan instead.  The 2-D stage tables of the monolithic pass are read once
+// per stage per sample, coalesced along the columns.  One CTA holds one
+// batch item and TC columns: [m, TC] re and im planes, rows padded to
+// TC + 1 words.  The direction and the 2-D tables are template
+// parameters, so the forward body carries no inverse branch and the
+// standard stages no 2-D one.
 //
 // Numerics: every sum is formed in uint32 (modular, no signed overflow)
 // and wrapped to the stage's output width with a shift pair, so the result
@@ -77,6 +98,15 @@ struct PassParams {
   int transpose_in;        // 1: x is [batch, cols, rows]
   int transpose_out;       // 1: out is [batch, cols, rows]
 };
+
+// The twiddle generator's constants for the full size n = 2^log_n
+// (twiddle_synth.synth_params): the Taylor pi constant of stage order
+// log_n - 1, the MACC's XSHIFT, and the low address bits of the count.
+struct SynthParams {
+  int log_n, mathpi, xshift, sh_cnt;
+};
+
+constexpr int kCoarse = 512;     // entries of the coarse quarter table
 
 // Low w bits of v as a signed w-bit value, 1 <= w <= 32.
 __device__ __forceinline__ int32_t wrap32(uint32_t v, int w) {
@@ -130,18 +160,76 @@ __device__ __forceinline__ void bfly(int32_t a, int32_t b, int in_w,
   d = wrap32(du, out_w);
 }
 
-template <typename T, bool kInverse>
+// W_n^m for m in [0, n) from the coarse quarter table (re, im): bit-equal
+// to golden circle_twiddles_int(n)[m] (synth_circle_block): the
+// half-circle fold by the top bit, the quadrant fold (x -j) by the next,
+// the coarse entry of the top 9 address bits, and the exact Taylor MACC
+// of row_twiddle_tay.vhd, rnd((a << XS) +- b*mpx) >> XS, computed as
+// 2a + floor(+-b*mpx / 2^(XS-1)) rounded half up on its LSB.  At twiddle
+// widths <= 16, |b| < 2^15 and mpx < 2^15, so every product fits int32.
+__device__ __forceinline__ void synth_twiddle(int m, const int32_t* cre,
+                                              const int32_t* cim,
+                                              const SynthParams& s,
+                                              int32_t& er, int32_t& ei) {
+  const int top = s.log_n - 1;
+  const int neg = m >> top;
+  const int mm = m & ((1 << top) - 1);
+  const int div = mm >> (top - 1);
+  const int addr = mm & ((1 << (top - 1)) - 1);
+  const int count = addr & ((1 << s.sh_cnt) - 1);
+  const int32_t re = cre[addr >> s.sh_cnt], im = cim[addr >> s.sh_cnt];
+  const int32_t fre = div ? im : re;
+  const int32_t fim = div ? -re : im;
+  const int32_t mpx = (s.mathpi * count) >> 1;
+  const int sh = s.xshift - 1;
+  int32_t t = 2 * fre + ((fim * mpx) >> sh);
+  const int32_t tre = (t >> 1) + (t & 1);
+  t = 2 * fim + ((-(fre * mpx)) >> sh);
+  const int32_t tim = (t >> 1) + (t & 1);
+  er = neg ? -tre : tre;
+  ei = neg ? -tim : tim;
+}
+
+// The generator: er/ei[k, j] = W_n^(+-k*j) for an [n1, n2] table, one
+// thread per entry (device_circle_table).  The coarse table is read
+// through the read-only cache: 4 KiB, shared by every thread.
+__global__ void __launch_bounds__(kThreads)
+circle_table_kernel(const int32_t* __restrict__ cre,
+                    const int32_t* __restrict__ cim, int32_t* __restrict__ er,
+                    int32_t* __restrict__ ei, int n1, int n2, int inverse,
+                    const SynthParams s) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= n1 * n2) return;
+  const int n = 1 << s.log_n;
+  int m = (g / n2) * (g % n2);          // < n: the host checks the block
+  if (inverse) m = (n - m) & (n - 1);
+  int32_t wr, wi;
+  synth_twiddle(m, cre, cim, s, wr, wi);
+  er[g] = wr;
+  ei[g] = wi;
+}
+
+template <typename T, bool kInverse, bool kTwoD>
 __global__ void __launch_bounds__(kThreads)
 fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
                   const int32_t* __restrict__ w_re,
                   const int32_t* __restrict__ w_im,
+                  const int32_t* __restrict__ t2_re,
+                  const int32_t* __restrict__ t2_im,
                   const int32_t* __restrict__ e_re,
-                  const int32_t* __restrict__ e_im, T* __restrict__ y_re,
-                  T* __restrict__ y_im, const PassParams p) {
+                  const int32_t* __restrict__ e_im,
+                  const int32_t* __restrict__ c_re,
+                  const int32_t* __restrict__ c_im, T* __restrict__ y_re,
+                  T* __restrict__ y_im, const PassParams p,
+                  const SynthParams syn) {
   extern __shared__ int32_t smem[];
   const int m = p.rows, tc = p.tc, ld = tc + 1;
   int32_t* s_re = smem;
   int32_t* s_im = smem + m * ld;
+  // the coarse table of the in-kernel epilogue, after the two planes
+  int32_t* s_cre = smem + 2 * m * ld;
+  int32_t* s_cim = s_cre + kCoarse;
+  const bool synth = c_re != nullptr;
   const int b = blockIdx.y;
   const int c0 = blockIdx.x * tc;
   const size_t item = static_cast<size_t>(b) * m * p.cols;
@@ -175,6 +263,12 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
     s_re[a] = vr;
     s_im[a] = vi;
   }
+  if (synth) {
+    for (int u = threadIdx.x; u < kCoarse; u += kThreads) {
+      s_cre[u] = __ldg(c_re + u);
+      s_cim[u] = __ldg(c_im + u);
+    }
+  }
   __syncthreads();
 
   // every stage in shared memory: stage s pairs rows i and i + 2^q, q the
@@ -190,13 +284,22 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
       const int k = t & (h - 1);
       const int i = (((t >> q) << (q + 1)) | k) * ld + c;
       const int j = i + h * ld;
+      // the 2-D table's twiddle of this stage, row 2^q + k, this column
+      int32_t tr = 0, ti = 0;
+      if (kTwoD && c0 + c < p.cols) {
+        const size_t g = static_cast<size_t>(h + k) * p.cols + c0 + c;
+        tr = __ldg(t2_re + g);
+        ti = __ldg(t2_im + g);
+      }
       int32_t sr, si, dr, di;
       if (kInverse) {
         // B times conj(W) first, wrapped to in_w; W = -j on the odd index
         // of order 1 makes it B * j = (neg_guarded(bi), br)
         const int32_t br = s_re[j], bi = s_im[j];
         int32_t bwr = br, bwi = bi;
-        if (q == 1) {
+        if (kTwoD) {
+          cmult(br, bi, tr, -ti, p.tw_shift, in_w, bwr, bwi);
+        } else if (q == 1) {
           if (k & 1) {
             bwr = neg_guarded(bi);
             bwi = br;
@@ -213,7 +316,9 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
         bfly(s_im[i], s_im[j], in_w, p, si, yi);
         dr = yr;
         di = yi;
-        if (q == 1) {
+        if (kTwoD) {
+          cmult(yr, yi, tr, ti, p.tw_shift, out_w, dr, di);
+        } else if (q == 1) {
           // W = -j on the odd index: (re, im) = (im, neg_guarded(re))
           if (k & 1) {
             dr = yi;
@@ -234,16 +339,26 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
 
   // stored row k lives at shared row bitrev(k) in the natural forward,
   // at row k otherwise
-  if (e_re != nullptr) {
+  if (e_re != nullptr || synth) {
     const int ow = p.data_width + p.log_rows * (1 - p.scale);
+    const int n_full = 1 << syn.log_n;
     for (int u = threadIdx.x; u < tile; u += kThreads) {
       const int k = u >> p.log_tc, c = u & (tc - 1), col = c0 + c;
       if (col < p.cols) {
         const int a = (rev_out ? (__brev(k) >> rev_sh) : k) * ld + c;
-        const size_t g = static_cast<size_t>(k) * p.cols + col;
+        int32_t wr, wi;
+        if (synth) {
+          // k * col < n: the host checks the block against n
+          int mi = k * col;
+          if (kInverse) mi = (n_full - mi) & (n_full - 1);
+          synth_twiddle(mi, s_cre, s_cim, syn, wr, wi);
+        } else {
+          const size_t g = static_cast<size_t>(k) * p.cols + col;
+          wr = __ldg(e_re + g);
+          wi = __ldg(e_im + g);
+        }
         int32_t yr, yi;
-        cmult(s_re[a], s_im[a], __ldg(e_re + g), __ldg(e_im + g), p.tw_shift,
-              ow, yr, yi);
+        cmult(s_re[a], s_im[a], wr, wi, p.tw_shift, ow, yr, yi);
         s_re[a] = yr;
         s_im[a] = yi;
       }
@@ -281,57 +396,86 @@ int log2_exact(int v) {
   return (1 << l) == v ? l : -1;
 }
 
-template <typename T, bool kInverse>
-cudaError_t launch(const void* x_re, const void* x_im, const void* w_re,
-                   const void* w_im, const void* e_re, const void* e_im,
-                   void* y_re, void* y_im, PassParams p, cudaStream_t stream) {
+// The pointers of one launch: stage tables (1-D w, or 2-D t2), epilogue
+// (table e, or coarse table c), data in and out.
+struct PassPtrs {
+  const void *x_re, *x_im, *w_re, *w_im, *t2_re, *t2_im, *e_re, *e_im,
+      *c_re, *c_im;
+  void *y_re, *y_im;
+};
+
+template <typename T, bool kInverse, bool kTwoD>
+cudaError_t launch(const PassPtrs& a, PassParams p, const SynthParams& syn,
+                   cudaStream_t stream) {
   // TC columns per CTA: 32 up to m = 512, then fewer so that m = 4096
-  // still fits (2 planes x 4096 x 5 words x 4 B = 160 KiB)
+  // still fits (2 planes x 4096 x 5 words x 4 B = 160 KiB), plus the
+  // 4 KiB coarse table of the in-kernel epilogue
   p.tc = p.rows <= 512 ? 32 : 16384 / p.rows;
   p.log_tc = log2_exact(p.tc);
-  const size_t smem = 2u * p.rows * (p.tc + 1) * sizeof(int32_t);
+  const size_t smem = (2u * p.rows * (p.tc + 1) +
+                       (a.c_re != nullptr ? 2u * kCoarse : 0u)) *
+                      sizeof(int32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_pass_kernel<T, kInverse>,
+      fused_pass_kernel<T, kInverse, kTwoD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.cols + p.tc - 1) / p.tc, p.batch);
-  fused_pass_kernel<T, kInverse><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x_re), static_cast<const T*>(x_im),
-      static_cast<const int32_t*>(w_re), static_cast<const int32_t*>(w_im),
-      static_cast<const int32_t*>(e_re), static_cast<const int32_t*>(e_im),
-      static_cast<T*>(y_re), static_cast<T*>(y_im), p);
+  const auto i32 = [](const void* v) {
+    return static_cast<const int32_t*>(v);
+  };
+  fused_pass_kernel<T, kInverse, kTwoD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.x_re), static_cast<const T*>(a.x_im),
+      i32(a.w_re), i32(a.w_im), i32(a.t2_re), i32(a.t2_im), i32(a.e_re),
+      i32(a.e_im), i32(a.c_re), i32(a.c_im), static_cast<T*>(a.y_re),
+      static_cast<T*>(a.y_im), p, syn);
   return cudaGetLastError();
 }
 
+// The direction and the 2-D stage tables are template parameters, so the
+// standard stages carry no branch of the other forms.
 template <typename T>
-cudaError_t launch_dir(int inverse, const void* x_re, const void* x_im,
-                       const void* w_re, const void* w_im, const void* e_re,
-                       const void* e_im, void* y_re, void* y_im,
-                       const PassParams& p, cudaStream_t stream) {
-  return inverse ? launch<T, true>(x_re, x_im, w_re, w_im, e_re, e_im, y_re,
-                                   y_im, p, stream)
-                 : launch<T, false>(x_re, x_im, w_re, w_im, e_re, e_im,
-                                    y_re, y_im, p, stream);
+cudaError_t launch_dir(int inverse, const PassPtrs& a, const PassParams& p,
+                       const SynthParams& syn, cudaStream_t stream) {
+  if (a.t2_re != nullptr) {
+    return inverse ? launch<T, true, true>(a, p, syn, stream)
+                   : launch<T, false, true>(a, p, syn, stream);
+  }
+  return inverse ? launch<T, true, false>(a, p, syn, stream)
+                 : launch<T, false, false>(a, p, syn, stream);
+}
+
+// A synthesis block [rows, cols] of size n = 2^log_n: every index
+// k * j < n, and the Taylor regime (stage order log_n - 1 >= 11).
+bool synth_ok(const SynthParams& s, int rows, int cols) {
+  return s.log_n >= 12 && s.log_n <= 30 && s.sh_cnt >= 0 &&
+         s.sh_cnt <= s.log_n - 3 &&
+         static_cast<long long>(rows - 1) * (cols - 1) < (1LL << s.log_n);
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes (intfftk_tpu_torch/ops/_build.py).
-// Pointers are device pointers; e_re/e_im may be null (no epilogue).
+// Pointers are device pointers.  Stage tables: w_re/w_im [rows], or, when
+// t2_re/t2_im are given, 2-D tables [rows, cols] (w may be null then).
+// Epilogue: e_re/e_im [rows, cols], or the coarse table c_re/c_im [512]
+// with the synthesis constants, or neither (both null).
 // Returns a cudaError_t: 0 when the launch was accepted.
-extern "C" int intfft_fused_pass(const void* x_re, const void* x_im,
-                                 void* y_re, void* y_im, const void* w_re,
-                                 const void* w_im, const void* e_re,
-                                 const void* e_im, int batch, int rows,
-                                 int cols, int io16, int data_width, int scale,
-                                 int round, int tw_shift, int bypass,
-                                 int inverse, int natural, int transpose_in,
-                                 int transpose_out, int device,
-                                 void* stream) {
+extern "C" int intfft_fused_pass(
+    const void* x_re, const void* x_im, void* y_re, void* y_im,
+    const void* w_re, const void* w_im, const void* t2_re, const void* t2_im,
+    const void* e_re, const void* e_im, const void* c_re, const void* c_im,
+    int batch, int rows, int cols, int io16, int data_width, int scale,
+    int round, int tw_shift, int bypass, int inverse, int natural,
+    int transpose_in, int transpose_out, int synth_log_n, int mathpi,
+    int xshift, int sh_cnt, int device, void* stream) {
   const int log_rows = log2_exact(rows);
+  const SynthParams syn{synth_log_n, mathpi, xshift, sh_cnt};
   if (log_rows < 3 || log_rows > 12 || batch < 1 || batch > 65535 ||
       cols < 1 || data_width < 1 ||
-      data_width + (1 - scale) * log_rows > 32) {
+      data_width + (1 - scale) * log_rows > 32 ||
+      (t2_re == nullptr && w_re == nullptr) ||
+      (e_re != nullptr && c_re != nullptr) ||
+      (c_re != nullptr && !synth_ok(syn, rows, cols))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -339,12 +483,35 @@ extern "C" int intfft_fused_pass(const void* x_re, const void* x_im,
   PassParams p{batch,    rows,   cols,    log_rows,     0,
                0,        data_width, scale, round,      tw_shift,
                bypass,   natural, transpose_in, transpose_out};
+  const PassPtrs a{x_re, x_im, w_re, w_im, t2_re, t2_im, e_re, e_im,
+                   c_re, c_im, y_re, y_im};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = io16 ? launch_dir<int16_t>(inverse, x_re, x_im, w_re, w_im, e_re,
-                                   e_im, y_re, y_im, p, s)
-             : launch_dir<int32_t>(inverse, x_re, x_im, w_re, w_im, e_re,
-                                   e_im, y_re, y_im, p, s);
+  err = io16 ? launch_dir<int16_t>(inverse, a, p, syn, s)
+             : launch_dir<int32_t>(inverse, a, p, syn, s);
   return static_cast<int>(err);
+}
+
+// The [n1, n2] inter-factor table W_n^(+-k*j) from the coarse table
+// c_re/c_im [512] (device pointers), written to er/ei [n1, n2].
+extern "C" int intfft_circle_table(const void* c_re, const void* c_im,
+                                   void* er, void* ei, int n1, int n2,
+                                   int inverse, int log_n, int mathpi,
+                                   int xshift, int sh_cnt, int device,
+                                   void* stream) {
+  const SynthParams syn{log_n, mathpi, xshift, sh_cnt};
+  if (n1 < 1 || n2 < 1 || !synth_ok(syn, n1, n2) ||
+      static_cast<long long>(n1) * n2 > (1LL << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int total = n1 * n2;
+  circle_table_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(c_re), static_cast<const int32_t*>(c_im),
+      static_cast<int32_t*>(er), static_cast<int32_t*>(ei), n1, n2, inverse,
+      syn);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* intfft_error_string(int err) {

@@ -69,8 +69,10 @@ def library():
     so, _ = build()
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.intfft_fused_pass.argtypes = [ptr] * 8 + [i32] * 14 + [ptr]
+    lib.intfft_fused_pass.argtypes = [ptr] * 12 + [i32] * 18 + [ptr]
     lib.intfft_fused_pass.restype = i32
+    lib.intfft_circle_table.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.intfft_circle_table.restype = i32
     lib.intfft_error_string.argtypes = [i32]
     lib.intfft_error_string.restype = ctypes.c_char_p
     return lib

@@ -11,7 +11,9 @@ Stage structure (forward DIF ``int_fftNk.vhd:184-279``, inverse DIT
 ``int_ifftNk.vhd``): view [..., blocks, 2, h] -> butterfly lane 0 against
 lane 1 -> write back.  The spectrum-side reorder is a transpose of the
 log2(n) index-bit axes, the same permutation as the ``bitrev_indices``
-gather.
+gather.  ``pack_tables_2d``/``fft_stages_2d`` are the monolithic
+schedule's i1-factor stages with full-size 2-D twiddle tables
+(``pallas_fft.py:340-430``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,23 @@ def pack_tables(cfg: FFTConfig):
         re, im = stage_twiddles_int(p, cfg.twiddle_width, cfg.twiddle_gen)
         w_re[1 << p: 2 << p] = re
         w_im[1 << p: 2 << p] = im
+    return w_re, w_im
+
+
+def pack_tables_2d(cfg: FFTConfig, n1: int, n2: int):
+    """The 2-D stage tables of the monolithic schedule's i1 factor, [n1, n2]
+    int32 per part (``pallas_fft._pack_tables_2d``): stage sub-order q of
+    the n1 factor is full-size order p = q + log2(n2), whose twiddle index
+    k1*n2 + i2 is never trivial, so rows [2^q, 2^(q+1)) hold
+    ``stage_twiddles_int(p)`` as [2^q, n2] for every q, 0 and 1 included."""
+    ln2 = n2.bit_length() - 1
+    w_re = np.zeros((n1, n2), np.int32)
+    w_im = np.zeros((n1, n2), np.int32)
+    for q in range(n1.bit_length() - 1):
+        re, im = stage_twiddles_int(q + ln2, cfg.twiddle_width,
+                                    cfg.twiddle_gen)
+        w_re[1 << q: 2 << q] = re.reshape(1 << q, n2)
+        w_im[1 << q: 2 << q] = im.reshape(1 << q, n2)
     return w_re, w_im
 
 
@@ -144,6 +163,51 @@ def fft_stages(x_re, x_im, cfg: FFTConfig, w_re, w_im, inverse=False,
                 vr[..., 0, :], vi[..., 0, :], vr[..., 1, :], vi[..., 1, :],
                 cfg, cfg.stage_input_width(s), p,
                 w_re[h: 2 * h], w_im[h: 2 * h])
+            xr = torch.stack([sr, yr], dim=-2).reshape(shp + (n,))
+            xi = torch.stack([si, yi], dim=-2).reshape(shp + (n,))
+    if natural and not inverse:
+        xr, xi = bitrev_last(xr), bitrev_last(xi)
+    return xr, xi
+
+
+def fft_stages_2d(x_re, x_im, cfg: FFTConfig, t_re, t_im, inverse=False,
+                  natural=True):
+    """The monolithic schedule's i1-factor stages along the last axis:
+    integer [..., C, n] -> int64 [..., C, n], n = cfg.n, with the 2-D
+    tables ``t_re``/``t_im`` [n, C] of ``pack_tables_2d`` (column c of the
+    tables goes with row c of the data).  Mirrors ``_stage_rows_2d`` /
+    ``_transform_rows_2d`` (``pallas_fft.py:379-430``): the butterflies of
+    ``fft_stages``, but every stage multiplies, the forward after the
+    butterfly at its output width, the inverse before it (conjugate
+    twiddle) at its input width.  ``natural``: the spectrum side in natural
+    order, else bit-reversed."""
+    n = cfg.n
+    xr, xi = x_re.long(), x_im.long()
+    if xr.shape[-1] != n:
+        raise ValueError(f"last dim {xr.shape[-1]} != n={n}")
+    if inverse and natural:
+        xr, xi = bitrev_last(xr), bitrev_last(xi)
+    if not cfg.bypass_fly:
+        shp = xr.shape[:-1]
+        cols = t_re.shape[1]
+        for s in range(cfg.stages):
+            h = 1 << cfg.stage_twiddle_order(s, inverse)
+            vr = xr.reshape(shp + (-1, 2, h))
+            vi = xi.reshape(shp + (-1, 2, h))
+            # [h, C] -> [C, 1, h], against [..., C, blocks, h]
+            wr = t_re[h: 2 * h].t().reshape(cols, 1, h)
+            wi = t_im[h: 2 * h].t().reshape(cols, 1, h)
+            in_w = cfg.stage_input_width(s)
+            ar, ai = vr[..., 0, :], vi[..., 0, :]
+            br, bi = vr[..., 1, :], vi[..., 1, :]
+            if inverse:
+                br, bi = cmult_exact(br, bi, wr, wi, cfg.twiddle_shift, in_w,
+                                     conj=True)
+                sr, si, yr, yi = _sum_diff(ar, ai, br, bi, cfg, in_w)
+            else:
+                sr, si, dr, di = _sum_diff(ar, ai, br, bi, cfg, in_w)
+                yr, yi = cmult_exact(dr, di, wr, wi, cfg.twiddle_shift,
+                                     in_w + 1 - cfg.scale)
             xr = torch.stack([sr, yr], dim=-2).reshape(shp + (n,))
             xi = torch.stack([si, yi], dim=-2).reshape(shp + (n,))
     if natural and not inverse:

@@ -1,5 +1,6 @@
-"""The CUDA kernel (csrc/fused_pass.cu) against its plain version on the
-card, and the port's plans on the card against golden.  Marked ``cuda``:
+"""The CUDA kernels (csrc/fused_pass.cu: the factor pass and the twiddle
+generator) against their plain versions on the card, and the port's plans
+on the card against golden.  Marked ``cuda``:
 each test skips where no CUDA device is present; on a machine with an H100
 run ``python -m pytest tests/test_torch_cuda.py`` (the first test builds
 the kernel into build/)."""
@@ -18,7 +19,10 @@ from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, circle_table,
                                               fused_pass,
                                               fused_pass_reference)
 from intfftk_tpu_torch.ops.single_pass import PallasFFTPlan
-from intfftk_tpu_torch.ops.transform import pack_tables
+from intfftk_tpu_torch.ops.transform import pack_tables, pack_tables_2d
+from intfftk_tpu_torch.ops.twiddle_synth import (EpiSynth, coarse_table,
+                                                 device_circle_table,
+                                                 synth_circle_block)
 from intfftk_tpu_torch.parallel import Channelizer
 
 pytestmark = pytest.mark.cuda
@@ -186,3 +190,134 @@ def test_channelizer_stream_on_card(dev, layout, inverse):
         np.concatenate([g[0] for g in got], axis=1).T, gr)
     np.testing.assert_array_equal(
         np.concatenate([g[1] for g in got], axis=1).T, gi)
+
+
+@pytest.mark.parametrize("n,n1,n2", [(1 << 12, 16, 256), (1 << 18, 512, 512),
+                                     (1 << 20, 1024, 1024)])
+@pytest.mark.parametrize("gen", ["auto", "taylor_new"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_generator_vs_plain(dev, n, n1, n2, gen, inverse):
+    """The generator kernel, one launch, == synth_circle_block == the host
+    circle table."""
+    cfg = FFTConfig(n=n, twiddle_gen=gen)
+    before = device_circle_table.launches
+    er, ei = device_circle_table(cfg, n, n1, n2, inverse, dev)
+    torch.cuda.synchronize()
+    assert device_circle_table.launches == before + 1
+    assert er.device.type == "cuda" and er.dtype == torch.int32
+    wr, wi = synth_circle_block(coarse_table(cfg, dev), n1, n2, 0, n, cfg,
+                                inverse)
+    assert torch.equal(er, wr) and torch.equal(ei, wi)
+    hr, hi = circle_table(cfg, n1, n2, inverse)
+    np.testing.assert_array_equal(er.cpu().numpy(), hr)
+    np.testing.assert_array_equal(ei.cpu().numpy(), hi)
+
+
+@pytest.mark.parametrize("mode,rounding", MODES)
+@pytest.mark.parametrize("r,c,nb,n", [(64, 40, 3, 1 << 12),
+                                      (256, 256, 2, 1 << 16),
+                                      (1024, 40, 3, 1 << 20),
+                                      (4096, 6, 2, 1 << 24)])
+@pytest.mark.parametrize("inverse,turned", [(False, False), (True, False),
+                                            (False, True), (True, True)],
+                         ids=["fwd", "inv", "fwd_turned", "inv_turned"])
+def test_inkernel_epilogue_vs_plain(dev, mode, rounding, r, c, nb, n,
+                                    inverse, turned):
+    """The in-kernel synthesis epilogue, ragged column tiles (40 columns
+    against a 32- or 16-column tile), int16 and int32 blocks, full-scale
+    adversarial items."""
+    cfg = FFTConfig(n=r, mode=mode, rounding=rounding, data_width=16,
+                    twiddle_width=16)
+    dt = torch.int16 if cfg.output_width <= 16 else torch.int32
+    shape = (nb, c, r) if turned else (nb, r, c)
+    xr, xi = _stimulus(shape, 16, seed=r + c + 2)
+    x = [torch.as_tensor(v).to(dt).to(dev) for v in (xr, xi)]
+    tables = tuple(torch.as_tensor(t, device=dev) for t in pack_tables(cfg))
+    syn = EpiSynth(*coarse_table(cfg, dev), n)
+    kw = dict(synth=syn, transpose_out=True, inverse=inverse,
+              transpose_in=turned)
+    before = fused_pass.launches
+    yr, yi = fused_pass(*x, cfg, tables, **kw)
+    torch.cuda.synchronize()
+    assert fused_pass.launches == before + 1
+    wr, wi = fused_pass_reference(*x, cfg, tables, **kw)
+    assert torch.equal(yr, wr) and torch.equal(yi, wi)
+
+
+@pytest.mark.parametrize("mode,rounding", MODES)
+@pytest.mark.parametrize("r,c,nb", [(8, 40, 3), (64, 40, 3), (256, 256, 2),
+                                    (1024, 48, 2)])
+@pytest.mark.parametrize("inverse,natural", [(False, True), (False, False),
+                                             (True, True), (True, False)],
+                         ids=["fwd", "fwd_raw", "inv", "inv_raw"])
+def test_2d_pass_vs_plain(dev, mode, rounding, r, c, nb, inverse, natural):
+    """The monolithic 2-D stage form (every stage multiplies, q = 0 and 1
+    included), a ragged column count taking a prefix of the tables."""
+    cfg = FFTConfig(n=r, mode=mode, rounding=rounding, data_width=16,
+                    twiddle_width=16)
+    dt = torch.int16 if cfg.output_width <= 16 else torch.int32
+    c2 = 1 << (c - 1).bit_length()
+    t2 = tuple(torch.as_tensor(t[:, :c]).contiguous().to(dev)
+               for t in pack_tables_2d(FFTConfig(n=r * c2), r, c2))
+    xr, xi = _stimulus((nb, r, c), 16, seed=r + c + 3)
+    x = [torch.as_tensor(v).to(dt).to(dev) for v in (xr, xi)]
+    for tout in (True, False):
+        kw = dict(tables_2d=t2, transpose_out=tout, inverse=inverse,
+                  natural=natural)
+        before = fused_pass.launches
+        yr, yi = fused_pass(*x, cfg, None, **kw)
+        torch.cuda.synchronize()
+        assert fused_pass.launches == before + 1
+        wr, wi = fused_pass_reference(*x, cfg, None, **kw)
+        assert torch.equal(yr, wr) and torch.equal(yi, wi)
+
+
+@pytest.mark.parametrize("epi_synth", ["host", "device", "inkernel"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_large_fft_epi_modes_on_card(dev, epi_synth, inverse):
+    """The 256K split pipeline in each epilogue mode: 2 launches per call,
+    one generator launch per device-mode plan, bit-equal to
+    four_step_int."""
+    cfg = FFTConfig(n=1 << 18, mode="scaled", rounding="round")
+    gen_before = device_circle_table.launches
+    plan = LargeFFTPlan(cfg, inverse=inverse, epi_synth=epi_synth,
+                        device=dev)
+    assert device_circle_table.launches == gen_before + (
+        epi_synth == "device")
+    xr, xi = _stimulus((2, 1 << 18), 16, seed=8)
+    before = fused_pass.launches
+    yr, yi = plan(torch.as_tensor(xr, device=dev),
+                  torch.as_tensor(xi, device=dev))
+    assert fused_pass.launches == before + 2
+    gr, gi = four_step_int(xr, xi, cfg, plan.n1, plan.n2, inverse=inverse)
+    np.testing.assert_array_equal(yr.cpu().numpy(), gr)
+    np.testing.assert_array_equal(yi.cpu().numpy(), gi)
+
+
+@pytest.mark.parametrize("n", [1 << 10, 1 << 16])
+@pytest.mark.parametrize("inverse,order", [(False, "natural"),
+                                           (True, "natural"), (False, "raw"),
+                                           (True, "raw")],
+                         ids=["fwd", "inv", "fwd_raw", "inv_raw"])
+def test_monolithic_on_card(dev, n, inverse, order):
+    """The monolithic schedule, 2 launches per call, bit-equal to fft_int
+    (in the plan's raw layout with order="raw")."""
+    cfg = FFTConfig(n=n, mode="scaled", rounding="round")
+    plan = LargeFFTPlan(cfg, inverse=inverse, order=order,
+                        schedule="monolithic", device=dev)
+    xr, xi = _stimulus((2, n), 16, seed=9)
+    o = plan.raw_spectrum_order()
+    if inverse and order == "raw":
+        nr, ni = np.empty_like(xr), np.empty_like(xi)
+        nr[:, o], ni[:, o] = xr, xi
+        gr, gi = fft_int(nr, ni, cfg, inverse=True)
+    else:
+        gr, gi = fft_int(xr, xi, cfg, inverse=inverse)
+        if order == "raw":
+            gr, gi = gr[:, o], gi[:, o]
+    before = fused_pass.launches
+    yr, yi = plan(torch.as_tensor(xr, device=dev),
+                  torch.as_tensor(xi, device=dev))
+    assert fused_pass.launches == before + 2
+    np.testing.assert_array_equal(yr.cpu().numpy(), gr)
+    np.testing.assert_array_equal(yi.cpu().numpy(), gi)

@@ -1,5 +1,6 @@
-"""The port's four-step slice (intfftk_tpu_torch.ops.fused_fft) against the
-JAX Pallas kernels in interpret mode and golden four_step_int, exactly.
+"""The port's large-n slices (intfftk_tpu_torch.ops.fused_fft) against the
+JAX Pallas kernels in interpret mode and golden four_step_int (four-step
+schedule) or fft_int (monolithic schedule), exactly.
 
 On the CPU ``fused_pass`` runs its plain version; the CUDA kernel is held
 against that same plain version on the card (tests/test_torch_cuda.py,
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from intfftk_tpu.config import FFTConfig
+from intfftk_tpu.golden import fft_int
 from intfftk_tpu.golden.four_step import four_step_int
 from intfftk_tpu.ops import pallas_fft as jp
 from intfftk_tpu_torch.convert import tables_from_jax
@@ -311,9 +313,8 @@ def test_tables_from_jax(inverse, order):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(schedule="monolithic"), dict(epi_synth=True),
     dict(cfg=FFTConfig(n=65536, mode="unscaled", data_width=20))],
-    ids=["monolithic", "epi_synth", "wide"])
+    ids=["wide"])
 def test_not_ported_raises(kw):
     cfg = kw.pop("cfg", FFTConfig(n=65536))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -330,7 +331,8 @@ def test_bad_arguments():
 def test_import_leaves_jax_out():
     """The port never imports JAX (a subprocess: conftest imports it)."""
     code = ("import sys, intfftk_tpu_torch, intfftk_tpu_torch.ops, "
-            "intfftk_tpu_torch.ops.single_pass, intfftk_tpu_torch.parallel, "
+            "intfftk_tpu_torch.ops.single_pass, "
+            "intfftk_tpu_torch.ops.twiddle_synth, intfftk_tpu_torch.parallel, "
             "intfftk_tpu_torch.runtime, intfftk_tpu_torch.convert, "
             "intfftk_tpu_torch.device; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
@@ -340,3 +342,174 @@ def test_import_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# ----------------------------------------------------- monolithic schedule
+
+@functools.cache
+def _jax_mono(cfg, inverse=False, order="natural"):
+    return jp.LargeFFTPlan(cfg, inverse=inverse, order=order,
+                           interpret=True, schedule="monolithic")
+
+
+def _mono_golden(xr, xi, cfg, plan):
+    """Golden fft_int bits of a monolithic plan on flat [B, n] input in its
+    own layout (raw spectrum in for the inverse, out for the forward)."""
+    if plan.order == "natural":
+        return fft_int(xr, xi, cfg, inverse=plan.inverse)
+    o = plan.raw_spectrum_order()
+    if plan.inverse:
+        nr, ni = np.empty_like(xr), np.empty_like(xi)
+        nr[:, o], ni[:, o] = xr, xi
+        return fft_int(nr, ni, cfg, inverse=True)
+    gr, gi = fft_int(xr, xi, cfg)
+    return gr[:, o], gi[:, o]
+
+
+def _check_mono(cfg, xr, xi, inverse=False, order="natural", jax=True):
+    """The monolithic plan's blocks == golden fft_int (== the JAX plan)."""
+    plan = LargeFFTPlan(cfg, inverse=inverse, order=order,
+                        schedule="monolithic")
+    assert plan.epi_mode is None
+    yr, yi = _port_blocks(plan, xr, xi)
+    gr, gi = _mono_golden(xr, xi, cfg, plan)
+    np.testing.assert_array_equal(yr, gr)
+    np.testing.assert_array_equal(yi, gi)
+    if jax:
+        jplan = _jax_mono(cfg, inverse, order)
+        assert (plan.n1, plan.n2, plan.io16) == (jplan.n1, jplan.n2,
+                                                 jplan.io16)
+        assert plan.block_in_shape == jplan.block_in_shape
+        assert plan.block_out_shape == jplan.block_out_shape
+        jr, ji = jplan(xr, xi)
+        np.testing.assert_array_equal(yr, np.asarray(jr, np.int64))
+        np.testing.assert_array_equal(yi, np.asarray(ji, np.int64))
+    return plan, (yr, yi)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("mode,rounding", MODES)
+def test_monolithic_modes(mode, rounding, inverse):
+    """n = 1024 (8 x 128) in every mode and both directions == fft_int ==
+    the JAX monolithic plan (tests/test_pallas.py:227-262)."""
+    dw = 12 if mode == "unscaled" else 14
+    cfg = FFTConfig(n=1 << 10, mode=mode, rounding=rounding, data_width=dw,
+                    twiddle_width=16)
+    xr, xi = _random((2, 1 << 10), w=dw - 1, seed=21)
+    plan, _ = _check_mono(cfg, xr, xi, inverse)
+    assert (plan.n1, plan.n2) == (8, 128)
+
+
+@pytest.mark.parametrize("adversarial", [False, True],
+                         ids=["random", "fullscale"])
+def test_monolithic_taylor_8k(adversarial):
+    """8k (64 x 128): top stage order 12 >= TAYLOR_STAGE, so the 2-D
+    tables hold Taylor-generated twiddles; the full-scale case is the
+    round-mode register wrap through the 2-D stages
+    (tests/test_pallas.py:265, :419)."""
+    cfg = FFTConfig(n=1 << 13, mode="scaled", rounding="round",
+                    data_width=16, twiddle_width=16)
+    xr, xi = (_adversarial((2, 1 << 13)) if adversarial
+              else _random((1, 1 << 13), seed=23))
+    _check_mono(cfg, xr, xi)
+
+
+def test_monolithic_roundtrip():
+    """Forward then inverse through the monolithic plans == the golden
+    monolithic roundtrip (tests/test_pallas.py:245-262)."""
+    cfg = FFTConfig(n=1 << 10, mode="scaled", rounding="round",
+                    data_width=14, twiddle_width=16)
+    xr, xi = _random((2, 1 << 10), w=13, seed=22)
+    _, (fr, fi) = _check_mono(cfg, xr, xi)
+    _, (rr, ri) = _check_mono(cfg, fr, fi, inverse=True)
+    hr, hi = fft_int(*fft_int(xr, xi, cfg), cfg, inverse=True)
+    np.testing.assert_array_equal(rr, hr)
+    np.testing.assert_array_equal(ri, hi)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_monolithic_raw(inverse):
+    """order="raw" at 8k (64 x 128, n1 != n2): no reorder; the forward's
+    raw layout is the JAX one, and the inverse consumes exactly the
+    forward's raw layout, bit-equal to the JAX kernel on the same input.
+    The JAX plan's raw_spectrum_order() for the monolithic inverse does
+    not describe its own kernel when n1 != n2 (ROADMAP §C)."""
+    cfg = FFTConfig(n=1 << 13, mode="scaled", rounding="round",
+                    data_width=16, twiddle_width=16)
+    xr, xi = _random((2, 1 << 13), seed=24)
+    plan, _ = _check_mono(cfg, xr, xi, inverse, "raw")
+    fwd = LargeFFTPlan(cfg, order="raw", schedule="monolithic")
+    np.testing.assert_array_equal(plan.raw_spectrum_order(),
+                                  fwd.raw_spectrum_order())
+    np.testing.assert_array_equal(fwd.raw_spectrum_order(),
+                                  _jax_mono(cfg, False,
+                                            "raw").raw_spectrum_order())
+
+
+def test_monolithic_raw_chain():
+    """A raw monolithic forward's output blocks are the raw monolithic
+    inverse's input blocks (same factors): fwd -> inv with no reorder ==
+    the golden natural composition."""
+    cfg = FFTConfig(n=1 << 13, mode="scaled", rounding="round",
+                    data_width=16, twiddle_width=16)
+    fwd = LargeFFTPlan(cfg, order="raw", schedule="monolithic")
+    inv = LargeFFTPlan(cfg, inverse=True, order="raw", schedule="monolithic")
+    assert inv.block_in_shape == fwd.block_out_shape
+    xr, xi = _adversarial((2, 1 << 13))
+    zr, zi = _port_blocks(inv, *_port_blocks(fwd, xr, xi))
+    hr, hi = fft_int(*fft_int(xr, xi, cfg), cfg, inverse=True)
+    np.testing.assert_array_equal(zr, hr)
+    np.testing.assert_array_equal(zi, hi)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_monolithic_64k(inverse):
+    """The port's monolithic plan at 64k (256 x 256), batch 1, int16
+    blocks, against fft_int; the flat entry point gives the same bits."""
+    cfg = FFTConfig(n=1 << 16, mode="scaled", rounding="round",
+                    data_width=16, twiddle_width=16)
+    xr, xi = _random((1, 1 << 16), seed=25)
+    xr[0, ::5] = -(1 << 15)
+    plan, (yr, yi) = _check_mono(cfg, xr, xi, inverse, jax=False)
+    assert (plan.n1, plan.n2, plan.io_dtype) == (256, 256, torch.int16)
+    fr, fi = plan(torch.as_tensor(xr), torch.as_tensor(xi))
+    np.testing.assert_array_equal(fr.numpy(), yr)
+    np.testing.assert_array_equal(fi.numpy(), yi)
+
+
+def test_monolithic_limits():
+    """The monolithic schedule reaches 512K, the reference core's limit;
+    above it, ValueError.  bypass_fly leaves the reorders alone."""
+    p = LargeFFTPlan(FFTConfig(n=1 << 19), schedule="monolithic")
+    assert (p.n1, p.n2, tuple(p.t2r.shape)) == (1024, 512, (1024, 512))
+    with pytest.raises(ValueError, match="fourstep"):
+        LargeFFTPlan(FFTConfig(n=1 << 20), schedule="monolithic")
+    with pytest.raises(ValueError):
+        LargeFFTPlan(FFTConfig(n=1 << 10), schedule="whole")
+    cfg = FFTConfig(n=1 << 10, bypass_fly=True)
+    xr, xi = _random((1, 1 << 10), seed=26)
+    for inverse in (False, True):
+        _check_mono(cfg, xr, xi, inverse, jax=False)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_tables_from_jax_monolithic(inverse):
+    """The JAX monolithic consts (wsr/wsi, the 2-D tables as er/ei, mrev)
+    convert to the port's wsr, wsi, t2r, t2i; mrev is dropped, and a plan
+    loaded with them gives the same bits."""
+    cfg = FFTConfig(n=1 << 13, mode="scaled", rounding="round")
+    jplan = _jax_mono(cfg, inverse)
+    tables = tables_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                    jplan.consts))
+    assert set(tables) == {"wsr", "wsi", "t2r", "t2i"}
+    plan = LargeFFTPlan(cfg, inverse=inverse, schedule="monolithic")
+    for name, t in tables.items():
+        assert torch.equal(getattr(plan, name), t), name
+    loaded = LargeFFTPlan(cfg, inverse=inverse, schedule="monolithic")
+    for name in tables:
+        getattr(loaded, name).zero_()
+    loaded.load_tables(tables)
+    xr, xi = _adversarial((1, 1 << 13))
+    for a, b in zip(_port_blocks(plan, xr, xi),
+                    _port_blocks(loaded, xr, xi)):
+        np.testing.assert_array_equal(a, b)

@@ -12,10 +12,12 @@ from intfftk_tpu.config import FFTConfig
 from intfftk_tpu.golden import fft_int, int_model, random_stimulus
 from intfftk_tpu.golden.float_model import bitrev_indices
 from intfftk_tpu.ops import transform as jt
+from intfftk_tpu.ops import pallas_fft as jp
 from intfftk_tpu.ops.pallas_fft import _pack_tables
 from intfftk_tpu.ops.transform import FFTPlan as JaxFFTPlan
 from intfftk_tpu_torch.ops import transform as tt
-from intfftk_tpu_torch.ops.transform import FFTPlan, bitrev_last, pack_tables
+from intfftk_tpu_torch.ops.transform import (FFTPlan, bitrev_last,
+                                             pack_tables, pack_tables_2d)
 
 MODES = [("unscaled", "truncate"), ("scaled", "truncate"), ("scaled", "round")]
 
@@ -149,6 +151,44 @@ def test_pack_tables_match_jax():
     cfg = FFTConfig(n=4096, twiddle_width=18)
     for ours, theirs in zip(pack_tables(cfg), _pack_tables(cfg, False)):
         np.testing.assert_array_equal(ours, theirs[:, 0])
+
+
+def test_pack_tables_2d_match_jax():
+    """The monolithic 2-D stage tables == ``_pack_tables_2d``, Taylor
+    stages included (64 x 128 at n = 8192)."""
+    cfg = FFTConfig(n=1 << 13, twiddle_width=16, twiddle_gen="taylor_new")
+    for ours, theirs in zip(pack_tables_2d(cfg, 64, 128),
+                            jp._pack_tables_2d(cfg, 64, 128)):
+        assert ours.dtype == np.int32
+        np.testing.assert_array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("natural", [True, False], ids=["natural", "raw"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("mode,rounding", MODES)
+def test_fft_stages_2d_vs_jax(mode, rounding, inverse, natural):
+    """fft_stages_2d on the [C, n1] view == JAX ``_transform_rows_2d`` on
+    the [n1, C] tile (every stage multiplies, q = 0 and 1 included), with
+    full-scale adversarial columns, 16 x 128 of n = 2048."""
+    n1, n2 = 16, 128
+    full = FFTConfig(n=n1 * n2, mode=mode, rounding=rounding, data_width=16,
+                     twiddle_width=16)
+    cfg = dataclasses.replace(full, n=n1)
+    t = pack_tables_2d(full, n1, n2)
+    re, im = random_stimulus(n1, 16, seed=11, batch=(n2,))
+    re[::4] = -(1 << 15)
+    re[::4, ::3] = (1 << 15) - 1
+    yr, yi = tt.fft_stages_2d(torch.as_tensor(re), torch.as_tensor(im), cfg,
+                              *(torch.as_tensor(v) for v in t),
+                              inverse=inverse, natural=natural)
+    import jax.numpy as jnp
+    jr, ji = jp._transform_rows_2d(
+        jnp.asarray(re.T, jnp.int32), jnp.asarray(im.T, jnp.int32), cfg,
+        inverse, *(jnp.asarray(v) for v in t),
+        jp._cmult_plans_all(cfg, inverse, 0),
+        spectrum_rows="natural" if natural else "bitrev")
+    np.testing.assert_array_equal(yr.numpy(), np.asarray(jr).T)
+    np.testing.assert_array_equal(yi.numpy(), np.asarray(ji).T)
 
 
 def test_bitrev_last_is_the_gather():
