@@ -49,9 +49,22 @@ Phases; any failure exits non-zero and prints no result line:
 9. the monolithic schedule: 64 x 64k and 2 x 512K, forward and inverse,
    bit-equal to fft_int, 2 launches per call; the 64k roundtrip and the
    64k raw order;
-10. timing with CUDA events over chained calls, kernel and plain version
-    in turns (plain, kernel, kernel, plain);
-11. a JSON line describing each ported kernel, then the result line
+10. the wide (> 32-bit) data path on int64 tiles: (a) every wide pass
+    form against its plain version (the config-2 passes at [8, 256, 256],
+    the widening pass at [64, 256, 256], ragged [3, m, 40] tiles at
+    m = 8 to 4096, full-scale 52-bit scaled/round data with 27-bit
+    twiddles); (b) the config-2 chain at batch 8 (bench_config2: raw
+    unscaled 32-bit forward to 48 bits, the exact-unity 25-bit spectrum
+    product, raw scaled/round inverse), exactly 4 launches, bit-equal to
+    four_step_int both ways, and its SNR; (c) the 64k unscaled 24-bit
+    plan, whose pass 2 widens to int64, at batch 64: 2 launches, bit-equal
+    to four_step_int; (d) PallasWideFFTPlan (K5) on an int64 [4096, 1024]
+    tile, fwd/inv x natural/bitrev: 1 launch per call, equal to the plain
+    version, 64 columns bit-equal to fft_int;
+11. timing with CUDA events, kernel and plain version in turns (plain,
+    kernel, kernel, plain), over chained calls (the wide path rereads one
+    fixed input);
+12. a JSON line describing each ported kernel, then the result line
     {"ok": true, "device": {...}} as the last line.
 """
 
@@ -147,12 +160,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from intfftk_tpu.config import FFTConfig, snr_db
     from intfftk_tpu.golden import fft_int
+    from intfftk_tpu.golden.float_model import bitrev_indices
     from intfftk_tpu.golden.four_step import four_step_int
     from intfftk_tpu_torch.ops import _build
     from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan,
                                                   circle_table, fused_pass,
                                                   fused_pass_reference)
-    from intfftk_tpu_torch.ops.single_pass import PallasFFTPlan
+    from intfftk_tpu_torch.ops.intmath import cmult_exact
+    from intfftk_tpu_torch.ops.single_pass import (PallasFFTPlan,
+                                                   PallasWideFFTPlan)
     from intfftk_tpu_torch.ops.transform import pack_tables, pack_tables_2d
     from intfftk_tpu_torch.ops.twiddle_synth import (EpiSynth, coarse_table,
                                                      device_circle_table,
@@ -188,7 +204,8 @@ def main() -> int:
     check((plan.n1, plan.n2, plan.io16) == (256, 256, True),
           "64k plan: 256 x 256 factors, int16 blocks")
     # largest |kernel - plain| over the comparisons of each ported kernel
-    max_err = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K6": 0}
+    max_err = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K6": 0, "K1w": 0,
+               "K2w": 0, "K5": 0}
 
     def same(a, b, what, kernel="K1"):
         err = max(int((x.long() - y.long()).abs().max())
@@ -215,7 +232,7 @@ def main() -> int:
 
     def blocks(p, xr, xi):
         shape = (xr.shape[0],) + p.block_in_shape
-        return [torch.as_tensor(x).to(p.io_dtype).reshape(shape).to(dev)
+        return [torch.as_tensor(x).to(p.in_dtype).reshape(shape).to(dev)
                 for x in (xr, xi)]
 
     for adv, what in ((False, "random"), (True, "random + adversarial")):
@@ -383,7 +400,7 @@ def main() -> int:
         check(fused_pass.launches == before + 2
               and all(np.array_equal(a.cpu().numpy(), b)
                       for a, b in zip(y, g)),
-              f"64k {mode}/{rnd} x 2 ({p.io_dtype}): bit-equal to "
+              f"64k {mode}/{rnd} x 2 ({p.in_dtype}): bit-equal to "
               f"four_step_int")
     t = np.arange(N)
     rng = np.random.default_rng(11)
@@ -691,7 +708,183 @@ def main() -> int:
           and equal(w, fft_int(xr, xi, cm512, inverse=True), 2),
           "monolithic 512K x 2: forward and inverse bit-equal to fft_int")
 
-    # ---- 10. timing, kernel and plain in turns
+    # ---- 10. the wide (> 32-bit) data path: int64 tiles
+    c2 = FFTConfig(n=N, mode="unscaled", data_width=32, twiddle_width=20)
+    c2i = dataclasses.replace(c2, mode="scaled", rounding="round",
+                              data_width=c2.output_width)
+    f2 = LargeFFTPlan(c2, order="raw", device=dev)
+    i2 = LargeFFTPlan(c2i, f2.n2, f2.n1, inverse=True, order="raw",
+                      device=dev)
+    c24 = FFTConfig(n=N, mode="unscaled", data_width=24, twiddle_width=16)
+    w24 = LargeFFTPlan(c24, device=dev)
+    check((f2.n1, f2.n2, f2.epi_mode, f2.wide_in, f2.wide1, f2.wide2)
+          == (256, 256, "host", False, True, True)
+          and (i2.wide_in, i2.wide1, i2.wide2) == (True, True, True)
+          and i2.block_in_shape == f2.block_out_shape
+          and (c2.output_width, c2i.output_width) == (48, 48),
+          "config-2 plans: 256 x 256, host table, int32 -> int64 -> int64 "
+          "forward (48 bits), int64 throughout the inverse")
+    check((w24.wide1, w24.wide2, w24.mid_dtype, w24.out_dtype)
+          == (False, True, torch.int32, torch.int64),
+          "64k unscaled 24-bit: pass 1 narrow (32 bits), pass 2 widens to "
+          "int64 (40 bits)")
+
+    # (a) every wide pass form against its plain version: the config-2
+    # passes at [8, 256, 256] and the widening pass at [64, 256, 256],
+    # random and full-scale stimuli at 32 and 48 bits
+    for p, w, nb in ((f2, 32, RT_BATCH), (i2, 48, RT_BATCH),
+                     (w24, 24, BATCH)):
+        for adv in (False, True):
+            x = blocks(p, *_stimulus(nb, N, 31, adversarial=adv, w=w))
+            for k, (c, kw) in enumerate(p.passes()):
+                ref = fused_pass_reference(*x, c, **kw)
+                same(fused_pass(*x, c, **kw), ref,
+                     f"{c.n}-row pass {k + 1} of {p.in_dtype} -> "
+                     f"{p.out_dtype} {'inverse' if p.inverse else 'forward'}"
+                     f" {p.order} [{nb}, {c.n}, {N // c.n}] {c.data_width} -> "
+                     f"{c.output_width} bits, adversarial {adv}",
+                     "K2w" if p is w24 else "K1w")
+                x = ref
+    # ragged tiles, m = 8 to 4096 (TC 32 down to 2 on the int64 tile), the
+    # widening pass on 32-bit data and the int64 pass on full-scale 52-bit
+    # scaled/round data with 27-bit twiddles (an 80-bit product-sum)
+    forms = ((False, False, True, True), (False, True, False, True),
+             (False, False, True, False), (True, False, True, True),
+             (True, False, False, False), (True, True, True, False),
+             (True, True, False, True))
+    for r, c, nb in ((8, 40, 3), (256, 40, 3), (512, 40, 3), (1024, 40, 3),
+                     (4096, 40, 2)):
+        for wide_in, inverse, natural, epi in forms:
+            w = 52 if wide_in else 32
+            cw = FFTConfig(n=r, mode="scaled" if wide_in else "unscaled",
+                           rounding="round" if wide_in else "truncate",
+                           data_width=w, twiddle_width=27)
+            tw = [torch.as_tensor(t, device=dev) for t in pack_tables(cw)]
+            e = ([torch.as_tensor(t, device=dev) for t in circle_table(
+                dataclasses.replace(cw, n=r * 64), r, c, inverse,
+                "natural" if natural else "raw")] if epi else None)
+            kw = dict(epi=e, transpose_out=epi, inverse=inverse,
+                      natural=natural, out_dtype=torch.int64)
+            x = [torch.as_tensor(v.reshape(nb, r, c)).to(
+                torch.int64 if wide_in else torch.int32).to(dev)
+                for v in _stimulus(nb, r * c, r + c, w=w)]
+            same(fused_pass(*x, cw, tw, **kw),
+                 fused_pass_reference(*x, cw, tw, **kw),
+                 f"wide pass [{nb}, {r}, {c}] {x[0].dtype} -> int64 "
+                 f"{cw.mode} {w} -> {cw.output_width} bits, inverse="
+                 f"{inverse} natural={natural} epilogue={epi}",
+                 "K1w" if wide_in else "K2w")
+
+    # (b) the config-2 chain at batch 8 (bench_config2): the raw unscaled
+    # forward, the exact-unity 25-bit spectrum product (y * 2^23) >> 23 at
+    # 48 bits (eager, intmath.cmult_exact), the raw scaled/round inverse
+    hr1 = torch.full(f2.block_out_shape, 1 << 23, dtype=torch.int64,
+                     device=dev)
+    hi1 = torch.zeros_like(hr1)
+
+    def product(yr, yi):
+        return cmult_exact(yr, yi, hr1, hi1, 23, c2.output_width,
+                           twiddle_width=25)
+
+    def c2_chain(a, b, pass_fn=fused_pass):
+        y = f2.apply_blocks(a, b, pass_fn=pass_fn)
+        return y, i2.apply_blocks(*product(*y), pass_fn=pass_fn)
+
+    rng = np.random.default_rng(0)
+    xr, xi = (rng.integers(-(1 << 27), 1 << 27, (RT_BATCH, N))
+              for _ in range(2))
+    xr[0], xi[0] = -(1 << 31), -(1 << 31)          # the adversarial item
+    xr[0, ::3] = (1 << 31) - 1
+    x = blocks(f2, xr, xi)
+    torch.cuda.synchronize()
+    fused_pass.launches = 0
+    y, z = c2_chain(*x)
+    torch.cuda.synchronize()
+    launches_c2 = fused_pass.launches
+    check(launches_c2 == 4, f"config-2 chain: {launches_c2} launches")
+    check(y[0].dtype == z[0].dtype == torch.int64
+          and tuple(z[0].shape) == (RT_BATCH,) + f2.block_in_shape,
+          "config-2 chain: int64 spectrum and output blocks")
+    check(all(torch.equal(a, b) for a, b in zip(product(*y), y)),
+          "the exact-unity spectrum product returns the spectrum")
+    t0 = time.perf_counter()
+    gr, gi = four_step_int(xr, xi, c2, f2.n1, f2.n2)
+    o = f2.raw_spectrum_order()
+    check(equal(y, (gr[:, o], gi[:, o]), RT_BATCH),
+          f"config-2 forward half x {RT_BATCH}: bit-equal to four_step_int "
+          f"(raw order, {c2.output_width} bits)")
+    hr2, hi2 = four_step_int(gr, gi, c2i, i2.n1, i2.n2, inverse=True)
+    golden_c2_s = time.perf_counter() - t0
+    check(equal(z, (hr2, hi2), RT_BATCH),
+          f"config-2 chain x {RT_BATCH}: bit-equal to four_step_int(inverse) "
+          f"of the golden forward")
+    zr, zi = flat(z, RT_BATCH)
+    c2_snr = snr_db(xr[1:] + 1j * xi[1:], zr[1:] + 1j * zi[1:])
+    print(f"  config-2 roundtrip SNR (unscaled forward, scaled/round "
+          f"inverse, against x; 7 random items): {c2_snr:.2f} dB; golden "
+          f"{golden_c2_s:.1f} s")
+    check(np.isfinite(c2_snr), "config-2 SNR finite")
+
+    # (c) the 64k widening pass 2 at batch 64
+    xr, xi = _stimulus(BATCH, N, 33, w=24)
+    x24 = blocks(w24, xr, xi)
+    torch.cuda.synchronize()
+    fused_pass.launches = 0
+    y = w24.apply_blocks(*x24)
+    torch.cuda.synchronize()
+    launches_w24 = fused_pass.launches
+    check(launches_w24 == 2, f"64k 24-bit widening: {launches_w24} "
+          f"launches")
+    check(y[0].dtype == torch.int64
+          and equal(y, four_step_int(xr, xi, c24, w24.n1, w24.n2), BATCH),
+          f"64k unscaled 24-bit x {BATCH}: int64, all items bit-equal to "
+          f"four_step_int")
+
+    # (d) K5: PallasWideFFTPlan on an int64 [4096, 1024] tile
+    c5 = FFTConfig(n=4096, mode="unscaled", data_width=32, twiddle_width=16)
+    rev = bitrev_indices(4096)
+    xr, xi = _stimulus(1024, 4096, 34, w=32)            # [B, n]
+    x5 = [torch.as_tensor(v.T.copy(), device=dev) for v in (xr, xi)]
+    cols = np.arange(0, 1024, 16)                       # 64 golden columns
+    k5 = {}
+
+    def plain_wide(p, xr, xi):
+        """The plain version of a PallasWideFFTPlan call, on the card."""
+        n, shp = p.cfg.n, xr.shape
+        yr, yi = fused_pass_reference(
+            xr.reshape(1, n, -1), xi.reshape(1, n, -1), p.cfg,
+            (p.w_re, p.w_im), inverse=p.inverse,
+            natural=p.order == "natural", transpose_out=False,
+            out_dtype=torch.int64)
+        return yr.reshape(shp), yi.reshape(shp)
+
+    torch.cuda.synchronize()
+    fused_pass.launches = 0
+    for inverse in (False, True):
+        for order in ("natural", "bitrev"):
+            p = PallasWideFFTPlan(c5, inverse=inverse, order=order,
+                                  device=dev)
+            k5[inverse, order] = p
+            before = fused_pass.launches
+            y = p(*x5)
+            torch.cuda.synchronize()
+            what = f"K5 [4096, 1024] int64 inverse={inverse} {order}"
+            check(fused_pass.launches == before + 1
+                  and y[0].dtype == torch.int64, f"{what}: 1 launch")
+            same(y, plain_wide(p, *x5), what, "K5")
+            src = ((xr[cols][:, rev], xi[cols][:, rev])
+                   if order == "bitrev" and inverse
+                   else (xr[cols], xi[cols]))
+            g = fft_int(*src, c5, inverse=inverse)
+            if order == "bitrev" and not inverse:
+                g = [v[:, rev] for v in g]
+            check(all(np.array_equal(v.cpu().numpy()[:, cols], h.T)
+                      for v, h in zip(y, g)),
+                  f"{what}: 64 columns bit-equal to fft_int "
+                  f"({c5.output_width} bits)")
+    launches_k5 = fused_pass.launches
+
+    # ---- 11. timing, kernel and plain in turns
     x = blocks(plan, *_stimulus(BATCH, N, 5))
     k_ms, p_ms, ms = _turns(lambda a, b: plan.apply_blocks(a, b),
                             lambda a, b: plain_blocks(plan, a, b), *x,
@@ -811,9 +1004,48 @@ def main() -> int:
         pass_fn=fused_pass_reference), *x, CHAIN, 10)
     report("monolithic 512K flat [2, 524288] int16 forward", 2 * N512K,
            *mono512_ms, moved=2 * N512K * io_bytes)
+
+    # the wide path: int64 outputs do not feed the next call's int32
+    # input, so each timed call rereads one fixed input
+    def fixed(fn):
+        return lambda a, b: (fn(a, b), (a, b))[1]
+
+    rng = np.random.default_rng(0)
+    x = blocks(f2, *(rng.integers(-(1 << 27), 1 << 27, (RT_BATCH, N))
+                     for _ in range(2)))
+    c2_ms = _turns(fixed(c2_chain), fixed(
+        lambda u, v: c2_chain(u, v, pass_fn=fused_pass_reference)), *x,
+        CHAIN, 3)
+    report(f"config-2 chain [{RT_BATCH}, {f2.n1}, {f2.n2}] int32 -> int64 "
+           f"(4 launches + the eager product)", 2 * RT_BATCH * N, *c2_ms)
+    y = f2.apply_blocks(*x)
+    steps = {"forward pass 1 (int32 -> int64, host table)": (f2, 0, x),
+             "forward pass 2 (int64)": (f2, 1, fused_pass(
+                 *x, f2.cfg1, **f2.passes()[0][1])),
+             "inverse pass 1 (int64, host table)": (i2, 0, y),
+             "inverse pass 2 (int64)": (i2, 1, fused_pass(
+                 *y, i2.cfg1, **i2.passes()[0][1]))}
+    step_ms = {what: _event_ms(fixed(
+        lambda u, v, c=p.passes()[k][0], kw=p.passes()[k][1]: fused_pass(
+            u, v, c, **kw)), *xs) for what, (p, k, xs) in steps.items()}
+    step_ms["eager spectrum product"] = _event_ms(fixed(product), *y)
+    print("  config-2 chain steps (ms): " + ", ".join(
+        f"{what} {t:.4f}" for what, t in step_ms.items()))
+    w24_ms = _turns(fixed(w24.apply_blocks), fixed(
+        lambda u, v: plain_blocks(w24, u, v)), *x24, CHAIN, 3)
+    report(f"64k unscaled 24-bit [{BATCH}, {w24.n1}, {w24.n2}] int32 -> "
+           f"int64 apply_blocks (2 launches)", BATCH * N, *w24_ms,
+           moved=BATCH * N * 2 * (4 + 4 + 4 + 8))
+    k5_ms = {}
+    for (inverse, order), p in k5.items():
+        k5_ms[inverse, order] = _turns(fixed(p), fixed(
+            lambda u, v, p=p: plain_wide(p, u, v)), *x5, CHAIN, 3)
+        report(f"K5 PallasWideFFTPlan [4096, 1024] int64 inverse={inverse} "
+               f"{order}", 4096 * 1024, *k5_ms[inverse, order],
+               moved=4096 * 1024 * 2 * 2 * 8)
     check("jax" not in sys.modules, "no JAX module was imported")
 
-    # ---- 11. results
+    # ---- 12. results
     src = "intfftk_tpu_torch/csrc/fused_pass.cu"
     mean = lambda layout, k=0: sum(ch_ms[layout, inverse][k]
                                    for inverse in (False, True)) / 2
@@ -885,7 +1117,22 @@ def main() -> int:
                  "inverse (timed: forward)", "route": "cuda", "source": src,
          "replaces": k3, "launches": launches_mono512,
          "max_abs_err": max_err["K3"], "ms": mono512_ms[0],
-         "plain_ms": mono512_ms[1]}]
+         "plain_ms": mono512_ms[1]},
+        {"name": "fused_pass: K1/K2 wide, config-2 chain (4 launches)",
+         "route": "cuda", "source": src,
+         "replaces": "intfftk_tpu/ops/pallas_fft.py:1255",
+         "launches": launches_c2, "max_abs_err": max_err["K1w"],
+         "ms": c2_ms[0], "plain_ms": c2_ms[1]},
+        {"name": "fused_pass: K2 widening pass (64k unscaled 24-bit)",
+         "route": "cuda", "source": src, "replaces": k2,
+         "launches": launches_w24, "max_abs_err": max_err["K2w"],
+         "ms": w24_ms[0], "plain_ms": w24_ms[1]},
+        {"name": "fused_pass: K5 PallasWideFFTPlan [4096, 1024]",
+         "route": "cuda", "source": src,
+         "replaces": "intfftk_tpu/ops/pallas_fft.py:742",
+         "launches": launches_k5, "max_abs_err": max_err["K5"],
+         "ms": sum(t[0] for t in k5_ms.values()) / len(k5_ms),
+         "plain_ms": sum(t[1] for t in k5_ms.values()) / len(k5_ms)}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

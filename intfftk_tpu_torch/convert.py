@@ -3,8 +3,9 @@
 The JAX plans thread their tables through jit as ``plan.consts``
 (``intfftk_tpu/ops/pallas_fft.py``):
 
-* ``PallasFFTPlan`` and ``FusedAxisFFT`` (:826, :1464): the packed stage
-  tables ``w_re``/``w_im`` as [n, 1] columns;
+* ``PallasFFTPlan``, ``FusedAxisFFT`` and ``PallasWideFFTPlan`` (:826,
+  :1464, :739): the packed stage tables ``w_re``/``w_im`` as [n, 1]
+  columns;
 * ``LargeFFTPlan`` (:1639-1710), four-step schedule, in any direction and
   order: the packed stage tables of both factors, under ``"w"`` as
   ``w1r``, ``w1i``, ``w2r``, ``w2i`` (the whole-fused kernel,
@@ -14,7 +15,8 @@ The JAX plans thread their tables through jit as ``plan.consts``
   in the split pipeline's device mode, :1668-1676), or, in its in-kernel
   mode, no table but the coarse table ``p1["tw_tbl"]``, packed
   (re & 0xFFFF) | (im << 16) into [4, 128] (``twiddle_synth.
-  packed_coarse``);
+  packed_coarse``); a wide plan (``wide1``/``wide2``) has the same int32
+  tables;
 * ``LargeFFTPlan``, monolithic schedule (:1639-1659): the standard
   factor's packed tables under ``"w"`` as ``wsr``/``wsi``, the 2-D stage
   tables as ``er``/``ei`` [n1, n2], and ``mrev``, the lane gather's index
@@ -24,13 +26,36 @@ The JAX plans thread their tables through jit as ``plan.consts``
 port's counterpart: ``LargeFFTPlan.load_tables`` (the four-step's
 ``w1r`` ... ``ei``, or ``coarse_re``/``coarse_im``; the monolithic
 ``wsr``, ``wsi``, ``t2r``, ``t2i``), or ``load_state_dict`` of
-``PallasFFTPlan``/``FusedAxisFFT``.
+``PallasFFTPlan``/``FusedAxisFFT``/``PallasWideFFTPlan``.
+
+The JAX wide path carries a value as two int32 planes, v = hi * 2^24 + lo
+with lo in [0, 2^24) (``intfftk_tpu/ops/wideint.py:13-16``); the port
+carries int64.  ``int64_from_planes`` and ``planes_from_int64`` convert
+between the two, so plane-level JAX functions can be fed and read back.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+#: Bits of the JAX wide path's low plane (``wideint.LO_BITS``).
+LO_BITS = 24
+
+
+def int64_from_planes(lo, hi) -> torch.Tensor:
+    """JAX (lo, hi) int32 planes -> the int64 tensor hi * 2^24 + lo."""
+    lo, hi = (torch.from_numpy(np.array(p, np.int64)) for p in (lo, hi))
+    return (hi << LO_BITS) + lo
+
+
+def planes_from_int64(x) -> tuple[np.ndarray, np.ndarray]:
+    """int64 values (a tensor or an array) -> JAX (lo, hi) int32 planes,
+    exact for values in [-2^55, 2^55), where hi fits int32."""
+    x = np.asarray(torch.as_tensor(x).cpu(), np.int64)
+    return ((x & ((1 << LO_BITS) - 1)).astype(np.int32),
+            (x >> LO_BITS).astype(np.int32))
 
 
 def _vec(a) -> torch.Tensor:

@@ -24,7 +24,14 @@
 //     ("nb"), or on [1, B, n] with the transposed load and store ("bn");
 //   * synth_circle_block (twiddle_synth.py:126; inside _FusedPass and as
 //     the XLA generator device_circle_table, :103): synth_twiddle below,
-//     run by the epilogue and by the generator kernel circle_table_kernel.
+//     run by the epilogue and by the generator kernel circle_table_kernel;
+//   * the wide (> 32-bit) forms of _FusedFourStep._kernel and
+//     _FusedPass._kernel (wide_in / wide1 / wide2, :1268-1307, :982-1044)
+//     and PallasWideFFTPlan._kernel (:742, pallas_call at :764), whose
+//     stages _transform_wide / _stage_wide (:577-713) carry data as two
+//     int32 limb planes because the TPU has no int64.  Here the same
+//     numerics run on an int64 tile: the widening pass loads int32 into it,
+//     the wide pass loads int64, and both store int64.
 //
 // What it computes, for each batch item b and column c of x[b, :, c]
 // (R = m rows, m a power of two, 8 <= m <= 4096):
@@ -47,8 +54,8 @@
 //      twiddle W_n^(+-k*col) is synthesized here (col = the global column)
 //      from the 4 KiB table staged in shared memory, so no O(N) array
 //      exists;
-//   5. a store to out[b, c, k] (transpose_out) or out[b, k, c], int16 or
-//      int32.
+//   5. a store to out[b, c, k] (transpose_out) or out[b, k, c], int16,
+//      int32 or int64.
 //
 // What bounds it on this card: device-memory bytes set the floor.  At the
 // 64k path's [64, 256, 256] int16 blocks each pass reads 16 MiB and writes
@@ -72,10 +79,17 @@
 // parameters, so the forward body carries no inverse branch and the
 // standard stages no 2-D one.
 //
-// Numerics: every sum is formed in uint32 (modular, no signed overflow)
-// and wrapped to the stage's output width with a shift pair, so the result
-// equals the golden model's int64 arithmetic followed by its wrap; the
-// complex products are exact 64-bit sums floor-shifted and then wrapped.
+// Numerics: every sum is formed in the tile's unsigned type (uint32, or
+// uint64 on the int64 tile: modular, no signed overflow) and wrapped to
+// the stage's output width with a shift pair, so the result equals the
+// golden model's arithmetic followed by its wrap; the complex products are
+// exact product-sums (64-bit on the int32 tile, __int128 on the int64
+// tile: a 52-bit datum times a 27-bit twiddle, summed, is 80 bits),
+// floor-shifted and then wrapped.  The tile type is a template parameter,
+// so the int32 instantiations are the narrow kernel unchanged.  An int64
+// tile holds twice the bytes: TC halves from m = 512 on (TC = 2 at
+// m = 4096, 192 KiB), and it takes neither the in-kernel synthesis nor the
+// 2-D stage tables (the JAX package has no wide form of either).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -108,28 +122,49 @@ struct SynthParams {
 
 constexpr int kCoarse = 512;     // entries of the coarse quarter table
 
-// Low w bits of v as a signed w-bit value, 1 <= w <= 32.
-__device__ __forceinline__ int32_t wrap32(uint32_t v, int w) {
-  const int sh = 32 - w;
-  return static_cast<int32_t>(v << sh) >> sh;
+// The arithmetic types of a tile type V: its unsigned twin U, in which
+// sums wrap, and the product type P, which holds a complex product-sum of
+// a V datum and an int32 twiddle exactly.
+template <typename V>
+struct Arith;
+template <>
+struct Arith<int32_t> {
+  using U = uint32_t;
+  using P = long long;           // |data| < 2^31, |twiddle| < 2^26
+};
+template <>
+struct Arith<int64_t> {
+  using U = uint64_t;
+  using P = __int128;            // |data| < 2^63, |twiddle| < 2^26
+};
+
+// Low w bits of v as a signed w-bit value, 1 <= w <= the bits of V.
+template <typename V>
+__device__ __forceinline__ V wrap(typename Arith<V>::U v, int w) {
+  const int sh = 8 * static_cast<int>(sizeof(V)) - w;
+  return static_cast<V>(v << sh) >> sh;
 }
 
 // -x for x >= 0, -x - 1 for x < 0 (int_dif2_fly.vhd:281-304): exact at
-// INT32_MIN.
-__device__ __forceinline__ int32_t neg_guarded(int32_t x) {
-  return static_cast<int32_t>(static_cast<uint32_t>(x >> 31) -
-                              static_cast<uint32_t>(x));
+// the most-negative value.
+template <typename V>
+__device__ __forceinline__ V neg_guarded(V x) {
+  using U = typename Arith<V>::U;
+  return static_cast<V>(static_cast<U>(x >> (8 * sizeof(V) - 1)) -
+                        static_cast<U>(x));
 }
 
-// (br + j*bi) * (c + j*d) >> sh, wrapped to w bits.  |data| < 2^31 and
-// |twiddle| < 2^26 keep each 64-bit product-sum exact.
-__device__ __forceinline__ void cmult(int32_t br, int32_t bi, int32_t c,
-                                      int32_t d, int sh, int w, int32_t& yr,
-                                      int32_t& yi) {
-  const long long pr = (long long)br * c - (long long)bi * d;
-  const long long pi = (long long)bi * c + (long long)br * d;
-  yr = wrap32(static_cast<uint32_t>(pr >> sh), w);
-  yi = wrap32(static_cast<uint32_t>(pi >> sh), w);
+// (br + j*bi) * (c + j*d) >> sh, wrapped to w bits; each product-sum is
+// exact in P before the floor shift.
+template <typename V>
+__device__ __forceinline__ void cmult(V br, V bi, int32_t c, int32_t d,
+                                      int sh, int w, V& yr, V& yi) {
+  using P = typename Arith<V>::P;
+  using U = typename Arith<V>::U;
+  const P pr = static_cast<P>(br) * c - static_cast<P>(bi) * d;
+  const P pi = static_cast<P>(bi) * c + static_cast<P>(br) * d;
+  yr = wrap<V>(static_cast<U>(pr >> sh), w);
+  yi = wrap<V>(static_cast<U>(pi >> sh), w);
 }
 
 // Sum and difference with the mode's scale and rounding, wrapped to out_w
@@ -137,27 +172,28 @@ __device__ __forceinline__ void cmult(int32_t br, int32_t bi, int32_t c,
 // of A with B*W (int_dit2_fly.vhd:142-217) are the same arithmetic.  The
 // round-mode difference reaches +2^(w-1) at (max, min) and wraps to
 // -2^(w-1).
-__device__ __forceinline__ void bfly(int32_t a, int32_t b, int in_w,
-                                     const PassParams& p, int32_t& s,
-                                     int32_t& d) {
+template <typename V>
+__device__ __forceinline__ void bfly(V a, V b, int in_w, const PassParams& p,
+                                     V& s, V& d) {
+  using U = typename Arith<V>::U;
   const int out_w = in_w + 1 - p.scale;
-  uint32_t su, du;
+  U su, du;
   if (p.scale && !p.round) {
-    su = static_cast<uint32_t>(a >> 1) + static_cast<uint32_t>(b >> 1);
-    du = static_cast<uint32_t>(a >> 1) - static_cast<uint32_t>(b >> 1);
+    su = static_cast<U>(a >> 1) + static_cast<U>(b >> 1);
+    du = static_cast<U>(a >> 1) - static_cast<U>(b >> 1);
   } else if (p.scale) {
     // round_half_up(a +- b) without the wider sum
     // (intmath.add_round_half_up / sub_round_half_up)
-    su = static_cast<uint32_t>(a >> 1) + static_cast<uint32_t>(b >> 1) +
-         static_cast<uint32_t>((a | b) & 1);
-    du = static_cast<uint32_t>(a >> 1) - static_cast<uint32_t>(b >> 1) +
-         static_cast<uint32_t>(a & ~b & 1);
+    su = static_cast<U>(a >> 1) + static_cast<U>(b >> 1) +
+         static_cast<U>((a | b) & 1);
+    du = static_cast<U>(a >> 1) - static_cast<U>(b >> 1) +
+         static_cast<U>(a & ~b & 1);
   } else {
-    su = static_cast<uint32_t>(a) + static_cast<uint32_t>(b);
-    du = static_cast<uint32_t>(a) - static_cast<uint32_t>(b);
+    su = static_cast<U>(a) + static_cast<U>(b);
+    du = static_cast<U>(a) - static_cast<U>(b);
   }
-  s = wrap32(su, out_w);
-  d = wrap32(du, out_w);
+  s = wrap<V>(su, out_w);
+  d = wrap<V>(du, out_w);
 }
 
 // W_n^m for m in [0, n) from the coarse quarter table (re, im): bit-equal
@@ -209,9 +245,11 @@ circle_table_kernel(const int32_t* __restrict__ cre,
   ei[g] = wi;
 }
 
-template <typename T, bool kInverse, bool kTwoD>
+// Tin / Tout: the element types of x and y; V: the tile's (int32, or
+// int64 for the wide forms).
+template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD>
 __global__ void __launch_bounds__(kThreads)
-fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
+fused_pass_kernel(const Tin* __restrict__ x_re, const Tin* __restrict__ x_im,
                   const int32_t* __restrict__ w_re,
                   const int32_t* __restrict__ w_im,
                   const int32_t* __restrict__ t2_re,
@@ -219,17 +257,19 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
                   const int32_t* __restrict__ e_re,
                   const int32_t* __restrict__ e_im,
                   const int32_t* __restrict__ c_re,
-                  const int32_t* __restrict__ c_im, T* __restrict__ y_re,
-                  T* __restrict__ y_im, const PassParams p,
+                  const int32_t* __restrict__ c_im, Tout* __restrict__ y_re,
+                  Tout* __restrict__ y_im, const PassParams p,
                   const SynthParams syn) {
-  extern __shared__ int32_t smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* const smem = reinterpret_cast<V*>(smem_raw);
   const int m = p.rows, tc = p.tc, ld = tc + 1;
-  int32_t* s_re = smem;
-  int32_t* s_im = smem + m * ld;
-  // the coarse table of the in-kernel epilogue, after the two planes
-  int32_t* s_cre = smem + 2 * m * ld;
+  V* s_re = smem;
+  V* s_im = smem + m * ld;
+  // the coarse table of the in-kernel epilogue, after the two planes; the
+  // int64 tile never synthesizes
+  int32_t* s_cre = reinterpret_cast<int32_t*>(smem + 2 * m * ld);
   int32_t* s_cim = s_cre + kCoarse;
-  const bool synth = c_re != nullptr;
+  const bool synth = sizeof(V) == 4 && c_re != nullptr;
   const int b = blockIdx.y;
   const int c0 = blockIdx.x * tc;
   const size_t item = static_cast<size_t>(b) * m * p.cols;
@@ -251,7 +291,7 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
       c = u & (tc - 1);
     }
     const int col = c0 + c;
-    int32_t vr = 0, vi = 0;
+    V vr = 0, vi = 0;
     if (col < p.cols) {
       const size_t g = item + (p.transpose_in
                                    ? static_cast<size_t>(col) * m + r
@@ -291,12 +331,12 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
         tr = __ldg(t2_re + g);
         ti = __ldg(t2_im + g);
       }
-      int32_t sr, si, dr, di;
+      V sr, si, dr, di;
       if (kInverse) {
         // B times conj(W) first, wrapped to in_w; W = -j on the odd index
         // of order 1 makes it B * j = (neg_guarded(bi), br)
-        const int32_t br = s_re[j], bi = s_im[j];
-        int32_t bwr = br, bwi = bi;
+        const V br = s_re[j], bi = s_im[j];
+        V bwr = br, bwi = bi;
         if (kTwoD) {
           cmult(br, bi, tr, -ti, p.tw_shift, in_w, bwr, bwi);
         } else if (q == 1) {
@@ -311,7 +351,7 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
         bfly(s_re[i], bwr, in_w, p, sr, dr);
         bfly(s_im[i], bwi, in_w, p, si, di);
       } else {
-        int32_t yr, yi;
+        V yr, yi;
         bfly(s_re[i], s_re[j], in_w, p, sr, yr);
         bfly(s_im[i], s_im[j], in_w, p, si, yi);
         dr = yr;
@@ -357,7 +397,7 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
           wr = __ldg(e_re + g);
           wi = __ldg(e_im + g);
         }
-        int32_t yr, yi;
+        V yr, yi;
         cmult(s_re[a], s_im[a], wr, wi, p.tw_shift, ow, yr, yi);
         s_re[a] = yr;
         s_im[a] = yi;
@@ -373,8 +413,8 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
       if (col < p.cols) {
         const int a = (rev_out ? (__brev(k) >> rev_sh) : k) * ld + c;
         const size_t g = item + static_cast<size_t>(col) * m + k;
-        y_re[g] = static_cast<T>(s_re[a]);
-        y_im[g] = static_cast<T>(s_im[a]);
+        y_re[g] = static_cast<Tout>(s_re[a]);
+        y_im[g] = static_cast<Tout>(s_im[a]);
       }
     }
   } else {
@@ -383,8 +423,8 @@ fused_pass_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
       if (col < p.cols) {
         const int a = (rev_out ? (__brev(k) >> rev_sh) : k) * ld + c;
         const size_t g = item + static_cast<size_t>(k) * p.cols + col;
-        y_re[g] = static_cast<T>(s_re[a]);
-        y_im[g] = static_cast<T>(s_im[a]);
+        y_re[g] = static_cast<Tout>(s_re[a]);
+        y_im[g] = static_cast<Tout>(s_im[a]);
       }
     }
   }
@@ -404,44 +444,51 @@ struct PassPtrs {
   void *y_re, *y_im;
 };
 
-template <typename T, bool kInverse, bool kTwoD>
+template <typename Tin, typename Tout, typename V, bool kInverse,
+          bool kTwoD>
 cudaError_t launch(const PassPtrs& a, PassParams p, const SynthParams& syn,
                    cudaStream_t stream) {
-  // TC columns per CTA: 32 up to m = 512, then fewer so that m = 4096
-  // still fits (2 planes x 4096 x 5 words x 4 B = 160 KiB), plus the
-  // 4 KiB coarse table of the in-kernel epilogue
-  p.tc = p.rows <= 512 ? 32 : 16384 / p.rows;
+  // TC columns per CTA: 32, and fewer from 64 KiB of tile per plane on, so
+  // that m = 4096 fits: 16384 / m on the int32 tile (2 planes x 4096 x 5
+  // words x 4 B = 160 KiB, plus the 4 KiB coarse table of the in-kernel
+  // epilogue), 8192 / m on the int64 tile (2 x 4096 x 3 x 8 B = 192 KiB)
+  const int fit = 65536 / (p.rows * static_cast<int>(sizeof(V)));
+  p.tc = fit < 32 ? fit : 32;
   p.log_tc = log2_exact(p.tc);
-  const size_t smem = (2u * p.rows * (p.tc + 1) +
-                       (a.c_re != nullptr ? 2u * kCoarse : 0u)) *
-                      sizeof(int32_t);
+  const size_t smem = 2u * p.rows * (p.tc + 1) * sizeof(V) +
+                      (a.c_re != nullptr ? 2u * kCoarse * sizeof(int32_t)
+                                         : 0u);
+  const auto kernel = fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_pass_kernel<T, kInverse, kTwoD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.cols + p.tc - 1) / p.tc, p.batch);
   const auto i32 = [](const void* v) {
     return static_cast<const int32_t*>(v);
   };
-  fused_pass_kernel<T, kInverse, kTwoD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.x_re), static_cast<const T*>(a.x_im),
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const Tin*>(a.x_re), static_cast<const Tin*>(a.x_im),
       i32(a.w_re), i32(a.w_im), i32(a.t2_re), i32(a.t2_im), i32(a.e_re),
-      i32(a.e_im), i32(a.c_re), i32(a.c_im), static_cast<T*>(a.y_re),
-      static_cast<T*>(a.y_im), p, syn);
+      i32(a.e_im), i32(a.c_re), i32(a.c_im), static_cast<Tout*>(a.y_re),
+      static_cast<Tout*>(a.y_im), p, syn);
   return cudaGetLastError();
 }
 
 // The direction and the 2-D stage tables are template parameters, so the
-// standard stages carry no branch of the other forms.
-template <typename T>
+// standard stages carry no branch of the other forms.  The int64 tile has
+// no 2-D form (the caller checks).
+template <typename Tin, typename Tout, typename V>
 cudaError_t launch_dir(int inverse, const PassPtrs& a, const PassParams& p,
                        const SynthParams& syn, cudaStream_t stream) {
-  if (a.t2_re != nullptr) {
-    return inverse ? launch<T, true, true>(a, p, syn, stream)
-                   : launch<T, false, true>(a, p, syn, stream);
+  if constexpr (sizeof(V) == 4) {
+    if (a.t2_re != nullptr) {
+      return inverse ? launch<Tin, Tout, V, true, true>(a, p, syn, stream)
+                     : launch<Tin, Tout, V, false, true>(a, p, syn, stream);
+    }
   }
-  return inverse ? launch<T, true, false>(a, p, syn, stream)
-                 : launch<T, false, false>(a, p, syn, stream);
+  return inverse ? launch<Tin, Tout, V, true, false>(a, p, syn, stream)
+                 : launch<Tin, Tout, V, false, false>(a, p, syn, stream);
 }
 
 // A synthesis block [rows, cols] of size n = 2^log_n: every index
@@ -458,23 +505,31 @@ bool synth_ok(const SynthParams& s, int rows, int cols) {
 // Pointers are device pointers.  Stage tables: w_re/w_im [rows], or, when
 // t2_re/t2_im are given, 2-D tables [rows, cols] (w may be null then).
 // Epilogue: e_re/e_im [rows, cols], or the coarse table c_re/c_im [512]
-// with the synthesis constants, or neither (both null).
+// with the synthesis constants, or neither (both null).  in_size and
+// out_size are the bytes of an element of x and y: (2, 2) and (4, 4) run
+// on the int32 tile with outputs of <= 32 bits; (4, 8), the widening pass,
+// and (8, 8) on the int64 tile with outputs of <= 64 bits, no 2-D tables
+// and no synthesis.
 // Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int intfft_fused_pass(
     const void* x_re, const void* x_im, void* y_re, void* y_im,
     const void* w_re, const void* w_im, const void* t2_re, const void* t2_im,
     const void* e_re, const void* e_im, const void* c_re, const void* c_im,
-    int batch, int rows, int cols, int io16, int data_width, int scale,
-    int round, int tw_shift, int bypass, int inverse, int natural,
-    int transpose_in, int transpose_out, int synth_log_n, int mathpi,
-    int xshift, int sh_cnt, int device, void* stream) {
+    int batch, int rows, int cols, int in_size, int out_size,
+    int data_width, int scale, int round, int tw_shift, int bypass,
+    int inverse, int natural, int transpose_in, int transpose_out,
+    int synth_log_n, int mathpi, int xshift, int sh_cnt, int device,
+    void* stream) {
   const int log_rows = log2_exact(rows);
   const SynthParams syn{synth_log_n, mathpi, xshift, sh_cnt};
+  const bool narrow = in_size == out_size && (in_size == 2 || in_size == 4);
+  const bool wide = out_size == 8 && (in_size == 4 || in_size == 8);
   if (log_rows < 3 || log_rows > 12 || batch < 1 || batch > 65535 ||
-      cols < 1 || data_width < 1 ||
-      data_width + (1 - scale) * log_rows > 32 ||
+      cols < 1 || data_width < 1 || !(narrow || wide) ||
+      data_width + (1 - scale) * log_rows > (wide ? 64 : 32) ||
       (t2_re == nullptr && w_re == nullptr) ||
       (e_re != nullptr && c_re != nullptr) ||
+      (wide && (t2_re != nullptr || c_re != nullptr)) ||
       (c_re != nullptr && !synth_ok(syn, rows, cols))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -486,8 +541,15 @@ extern "C" int intfft_fused_pass(
   const PassPtrs a{x_re, x_im, w_re, w_im, t2_re, t2_im, e_re, e_im,
                    c_re, c_im, y_re, y_im};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = io16 ? launch_dir<int16_t>(inverse, a, p, syn, s)
-             : launch_dir<int32_t>(inverse, a, p, syn, s);
+  if (in_size == 2) {
+    err = launch_dir<int16_t, int16_t, int32_t>(inverse, a, p, syn, s);
+  } else if (!wide) {
+    err = launch_dir<int32_t, int32_t, int32_t>(inverse, a, p, syn, s);
+  } else if (in_size == 4) {
+    err = launch_dir<int32_t, int64_t, int64_t>(inverse, a, p, syn, s);
+  } else {
+    err = launch_dir<int64_t, int64_t, int64_t>(inverse, a, p, syn, s);
+  }
   return static_cast<int>(err);
 }
 

@@ -2,10 +2,11 @@
 
 from .fused_fft import LargeFFTPlan, fused_pass, fused_pass_reference
 from .intmath import cmult_exact, neg_guarded, round_half_up, wrap_width
-from .single_pass import FusedAxisFFT, PallasFFTPlan
-from .transform import FFTPlan, fft, fft_ifft_pair, ifft, make_plan
+from .single_pass import FusedAxisFFT, PallasFFTPlan, PallasWideFFTPlan
+from .transform import (FFTPlan, WideFFTPlan, fft, fft_ifft_pair, ifft,
+                        make_plan)
 
 __all__ = ["LargeFFTPlan", "fused_pass", "fused_pass_reference",
            "cmult_exact", "neg_guarded", "round_half_up", "wrap_width",
-           "FusedAxisFFT", "PallasFFTPlan", "FFTPlan", "fft",
-           "fft_ifft_pair", "ifft", "make_plan"]
+           "FusedAxisFFT", "PallasFFTPlan", "PallasWideFFTPlan", "FFTPlan",
+           "WideFFTPlan", "fft", "fft_ifft_pair", "ifft", "make_plan"]

@@ -69,7 +69,7 @@ def library():
     so, _ = build()
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.intfft_fused_pass.argtypes = [ptr] * 12 + [i32] * 18 + [ptr]
+    lib.intfft_fused_pass.argtypes = [ptr] * 12 + [i32] * 19 + [ptr]
     lib.intfft_fused_pass.restype = i32
     lib.intfft_circle_table.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.intfft_circle_table.restype = i32

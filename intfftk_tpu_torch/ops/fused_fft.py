@@ -19,6 +19,12 @@ into one Pallas kernel up to its VMEM knee and splits them above it: a
 always the split one.  The single-pass engines of ``single_pass.py`` run
 it once.
 
+Data paths wider than 32 bits (the JAX ``wide_in``/``wide1``/``wide2``
+forms, carried there as two int32 planes) are int64 blocks here: a pass
+reads int16, int32 or int64 and stores int16, int32 or int64
+(``PASS_DTYPES``), widening int32 -> int64 in the kernel where its data
+path first outgrows 32 bits.
+
 ``fused_pass`` launches ``csrc/fused_pass.cu`` for a CUDA tensor and runs
 its plain PyTorch version ``fused_pass_reference`` for a CPU tensor; there
 is no other route and no fallback.
@@ -39,7 +45,7 @@ from intfftk_tpu.golden.twiddle import circle_twiddles_int
 from ..device import use_kernel
 from . import _build
 from .intmath import cmult_exact
-from .transform import (check_narrow, fft_stages, fft_stages_2d, pack_tables,
+from .transform import (check_width, fft_stages, fft_stages_2d, pack_tables,
                         pack_tables_2d)
 from .twiddle_synth import (EpiSynth, can_synth, check_block, coarse_table,
                             device_circle_table, synth_circle_block,
@@ -52,6 +58,18 @@ MIN_ROWS, MAX_ROWS = 8, 4096
 MAX_MONOLITHIC = 1 << 19
 #: Where a four-step plan's inter-factor twiddles come from.
 EPI_MODES = ("auto", "host", "device", "inkernel")
+#: The (input, output) block dtypes of one pass: narrow with int16 or int32
+#: storage, widening, and wide.
+PASS_DTYPES = ((torch.int16, torch.int16), (torch.int32, torch.int32),
+               (torch.int32, torch.int64), (torch.int64, torch.int64))
+
+
+def block_dtype(width: int, io16: bool) -> torch.dtype:
+    """Block dtype of data of ``width`` bits: int64 above 32 bits, int16
+    where the whole plan fits 16 (``io16``), else int32."""
+    if width > 32:
+        return torch.int64
+    return torch.int16 if io16 else torch.int32
 
 
 def circle_table(cfg: FFTConfig, n1: int, n2: int, inverse: bool = False,
@@ -77,8 +95,8 @@ def circle_table(cfg: FFTConfig, n1: int, n2: int, inverse: bool = False,
 
 
 def _check_pass(x_re, x_im, cfg: FFTConfig, tables, epi, synth, tables_2d,
-                natural, transpose_in):
-    check_narrow(cfg)
+                natural, transpose_in, out_dtype):
+    check_width(cfg)
     if not MIN_ROWS <= cfg.n <= MAX_ROWS:
         raise ValueError(f"factor size {cfg.n} outside [{MIN_ROWS}, "
                          f"{MAX_ROWS}]")
@@ -87,9 +105,10 @@ def _check_pass(x_re, x_im, cfg: FFTConfig, tables, epi, synth, tables_2d,
     if epi is not None and synth is not None:
         raise ValueError("give either an epilogue table or synth")
     axis = 2 if transpose_in else 1
+    if (x_re.dtype, out_dtype) not in PASS_DTYPES:
+        raise TypeError(f"a pass takes (in, out) blocks {PASS_DTYPES}, got "
+                        f"({x_re.dtype}, {out_dtype})")
     for x in (x_re, x_im):
-        if x.dtype not in (torch.int16, torch.int32):
-            raise TypeError(f"blocks must be int16 or int32, got {x.dtype}")
         if x.dim() != 3 or x.shape[axis] != cfg.n:
             want = "[B, C, {}]" if transpose_in else "[B, {}, C]"
             raise ValueError(f"expected {want.format(cfg.n)} blocks, got "
@@ -98,9 +117,15 @@ def _check_pass(x_re, x_im, cfg: FFTConfig, tables, epi, synth, tables_2d,
             raise ValueError("blocks must be contiguous")
     if x_im.shape != x_re.shape or x_im.dtype != x_re.dtype:
         raise ValueError("re and im blocks differ in shape or dtype")
-    if x_re.dtype == torch.int16 and cfg.output_width > 16:
-        raise ValueError(f"int16 blocks need a data path of <= 16 bits, "
-                         f"this factor's output is {cfg.output_width}")
+    bits = torch.iinfo(out_dtype).bits
+    if cfg.output_width > bits:
+        raise ValueError(f"{out_dtype} blocks hold <= {bits} "
+                         f"bits, this factor's output is {cfg.output_width}")
+    if out_dtype == torch.int64 and (synth is not None
+                                     or tables_2d is not None):
+        raise ValueError("int64 blocks take neither the in-kernel synthesis "
+                         "nor the 2-D stage tables (the JAX package has "
+                         "no wide form of either)")
     dev = x_re.device
     cols = x_re.shape[3 - axis]
     want = []
@@ -127,12 +152,13 @@ def _check_pass(x_re, x_im, cfg: FFTConfig, tables, epi, synth, tables_2d,
 def fused_pass_reference(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
                          synth: EpiSynth | None = None, tables_2d=None,
                          transpose_out: bool, inverse: bool = False,
-                         natural: bool = True, transpose_in: bool = False):
+                         natural: bool = True, transpose_in: bool = False,
+                         out_dtype: torch.dtype | None = None):
     """Plain PyTorch version of ``fused_pass`` (any device): the eager
     stages of ``transform.fft_stages`` (or ``fft_stages_2d``) on the
     [B, C, R] view, the epilogue (``synth``: its table from
     ``synth_circle_block``) through ``intmath.cmult_exact``, then the store
-    layout."""
+    layout and dtype."""
     xt = (lambda x: x) if transpose_in else (lambda x: x.transpose(1, 2))
     if tables_2d is not None:
         yr, yi = fft_stages_2d(xt(x_re), xt(x_im), cfg, *tables_2d,
@@ -146,16 +172,19 @@ def fused_pass_reference(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
     if epi is not None:
         er, ei = epi
         yr, yi = cmult_exact(yr, yi, er.t(), ei.t(), cfg.twiddle_shift,
-                             cfg.output_width)
+                             cfg.output_width,
+                             twiddle_width=cfg.twiddle_width)
     if not transpose_out:
         yr, yi = yr.transpose(1, 2), yi.transpose(1, 2)
-    return (yr.to(x_re.dtype).contiguous(), yi.to(x_re.dtype).contiguous())
+    dt = out_dtype or x_re.dtype
+    return yr.to(dt).contiguous(), yi.to(dt).contiguous()
 
 
 def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
                synth: EpiSynth | None = None, tables_2d=None,
                transpose_out: bool, inverse: bool = False,
-               natural: bool = True, transpose_in: bool = False):
+               natural: bool = True, transpose_in: bool = False,
+               out_dtype: torch.dtype | None = None):
     """One factor pass along R = cfg.n of [B, R, C] blocks, or of [B, C, R]
     blocks with ``transpose_in``.
 
@@ -170,27 +199,31 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
     ``cfg.twiddle_shift`` and wrapped to ``cfg.output_width``: ``epi``,
     (er, ei) int32 [R, C] tables; or ``synth``, W_n^(+-k*j) synthesized
     in the kernel from the coarse table (natural order only).  Returns
-    [B, C, R] when ``transpose_out`` else [B, R, C], in the input's dtype
-    (int16 or int32).
+    [B, C, R] when ``transpose_out`` else [B, R, C], in ``out_dtype`` (the
+    input's dtype by default): int16 -> int16, int32 -> int32, int32 ->
+    int64 (the widening pass) or int64 -> int64 (``PASS_DTYPES``).  int64
+    blocks carry outputs up to 64 bits, with a table epilogue or none.
 
     A CUDA tensor launches the kernel on the current stream (no
     synchronisation) and adds one to ``fused_pass.launches``; a CPU tensor
     runs ``fused_pass_reference``."""
+    out_dtype = out_dtype or x_re.dtype
     _check_pass(x_re, x_im, cfg, tables, epi, synth, tables_2d, natural,
-                transpose_in)
+                transpose_in, out_dtype)
     dev = x_re.device
     if not use_kernel(dev):
         return fused_pass_reference(x_re, x_im, cfg, tables, epi=epi,
                                     synth=synth, tables_2d=tables_2d,
                                     transpose_out=transpose_out,
                                     inverse=inverse, natural=natural,
-                                    transpose_in=transpose_in)
+                                    transpose_in=transpose_in,
+                                    out_dtype=out_dtype)
     nb = x_re.shape[0]
     r = cfg.n
     c = x_re.shape[1] if transpose_in else x_re.shape[2]
     oshape = (nb, c, r) if transpose_out else (nb, r, c)
-    y_re = torch.empty(oshape, dtype=x_re.dtype, device=dev)
-    y_im = torch.empty(oshape, dtype=x_re.dtype, device=dev)
+    y_re = torch.empty(oshape, dtype=out_dtype, device=dev)
+    y_im = torch.empty(oshape, dtype=out_dtype, device=dev)
     ptrs = lambda pair: ((pair[0].data_ptr(), pair[1].data_ptr())
                          if pair is not None else (None, None))
     prm = synth_params(cfg, synth.n) if synth is not None else (0, 0, 0, 0)
@@ -199,7 +232,8 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
         x_re.data_ptr(), x_im.data_ptr(), y_re.data_ptr(), y_im.data_ptr(),
         *ptrs(tables), *ptrs(tables_2d), *ptrs(epi),
         *ptrs(synth[:2] if synth is not None else None),
-        nb, r, c, int(x_re.dtype == torch.int16), cfg.data_width, cfg.scale,
+        nb, r, c, x_re.element_size(), y_re.element_size(), cfg.data_width,
+        cfg.scale,
         int(cfg.rounding == "round"), cfg.twiddle_shift, int(cfg.bypass_fly),
         int(inverse), int(natural), int(transpose_in), int(transpose_out),
         *prm, dev.index, torch.cuda.current_stream(dev).cuda_stream)
@@ -234,10 +268,11 @@ class LargeFFTPlan(nn.Module):
     * ``"inkernel"``: no table: pass 1 synthesizes each twiddle in its
       epilogue from the coarse table, on every call; the plan holds no
       ``er``/``ei``;
-    * ``"auto"``: ``"device"`` where ``can_synth(cfg, order)`` holds,
-      else ``"host"``.  ``"device"`` and ``"inkernel"`` raise ValueError
-      where it does not hold (raw order, twiddles wider than 16 bits,
-      ROM twiddles, n < 4096).
+    * ``"auto"``: ``"device"`` where ``can_synth(cfg, order)`` holds and
+      pass 1 is narrow, else ``"host"``.  ``"device"`` and ``"inkernel"``
+      raise ValueError where it does not hold (raw order, twiddles wider
+      than 16 bits, ROM twiddles, n < 4096) and under ``wide1``: the JAX
+      plan never synthesizes for a wide pass 1 (``pallas_fft.py:1617``).
 
     ``schedule="monolithic"`` (n <= 512K): bits identical to the single
     full-size core, ``golden.fft_int`` (per-stage rounding, full-size
@@ -264,9 +299,14 @@ class LargeFFTPlan(nn.Module):
     the monolithic raw inverse with the same factors.
 
     Blocks are int16 when every width on the data path fits 16 bits
-    (``io16``, as ``pallas_fft.py:1566-1570``), else int32.  The tables
-    are buffers on ``device``.  Data paths wider than 32 bits raise
-    NotImplementedError (ROADMAP Queue A, 'Wide/unscaled path').
+    (``io16``, as ``pallas_fft.py:1566-1570``), else int32; a side wider
+    than 32 bits is int64 (``pallas_fft.py:1563-1565``):
+    the input under ``wide_in`` (data wider than 32 bits), pass 1's output
+    under ``wide1``, pass 2's under ``wide2``.  ``in_dtype`` and
+    ``out_dtype`` are the blocks of ``apply_blocks``.  Outputs wider than
+    64 bits raise NotImplementedError, and so does the monolithic schedule
+    on a data path wider than 32 bits, as in JAX
+    (``pallas_fft.py:1167-1171``).  The tables are buffers on ``device``.
     """
 
     def __init__(self, cfg: FFTConfig, n1: int | None = None,
@@ -309,7 +349,11 @@ class LargeFFTPlan(nn.Module):
             self.cfg1 = dataclasses.replace(cfg, n=first)
             self.cfg2 = dataclasses.replace(
                 cfg, n=second, data_width=self.cfg1.output_width)
-            check_narrow(self.cfg2)
+            if self.cfg2.output_width > 32:
+                raise NotImplementedError(
+                    "the monolithic schedule carries data paths of <= 32 "
+                    "bits, as the JAX one does; use schedule='fourstep' or "
+                    "the staged WideFFTPlan")
             std = self.cfg1 if inverse else self.cfg2
             tables["wsr"], tables["wsi"] = pack_tables(std)
             tables["t2r"], tables["t2i"] = pack_tables_2d(cfg, n1, n2)
@@ -317,14 +361,16 @@ class LargeFFTPlan(nn.Module):
             self.cfg1 = dataclasses.replace(cfg, n=n1)
             self.cfg2 = dataclasses.replace(
                 cfg, n=n2, data_width=self.cfg1.output_width)
-            check_narrow(self.cfg2)       # its output is the widest width
-            synth_ok = can_synth(cfg, order)
+            check_width(self.cfg2)        # its output is the widest width
+            synth_ok = (can_synth(cfg, order)
+                        and self.cfg1.output_width <= 32)
             mode = (("device" if synth_ok else "host")
                     if epi_synth == "auto" else epi_synth)
             if mode != "host" and not synth_ok:
                 raise ValueError(
                     f"epi_synth={mode!r} needs natural order, Taylor "
-                    f"twiddles of <= 16 bits and n >= 4096 (can_synth)")
+                    f"twiddles of <= 16 bits, n >= 4096 (can_synth) and a "
+                    f"pass 1 of <= 32 bits")
             self.epi_mode = mode
             tables["w1r"], tables["w1i"] = pack_tables(self.cfg1)
             tables["w2r"], tables["w2i"] = pack_tables(self.cfg2)
@@ -338,7 +384,12 @@ class LargeFFTPlan(nn.Module):
                 tables["coarse_re"], tables["coarse_im"] = coarse_table(cfg)
         self.io16 = max(cfg.data_width, self.cfg1.output_width,
                         self.cfg2.output_width) <= 16
-        self.io_dtype = torch.int16 if self.io16 else torch.int32
+        self.wide_in = cfg.data_width > 32
+        self.wide1 = self.cfg1.output_width > 32
+        self.wide2 = self.cfg2.output_width > 32
+        self.in_dtype = block_dtype(cfg.data_width, self.io16)
+        self.mid_dtype = block_dtype(self.cfg1.output_width, self.io16)
+        self.out_dtype = block_dtype(self.cfg2.output_width, self.io16)
         for name, arr in tables.items():
             self.register_buffer(name, torch.as_tensor(arr, device=device))
 
@@ -402,27 +453,29 @@ class LargeFFTPlan(nn.Module):
                 epi = dict(epi=(self.er, self.ei))
             one = dict(tables=(self.w1r, self.w1i), **epi)
             two = dict(tables=(self.w2r, self.w2i))
-        return [(self.cfg1, dict(one, transpose_out=True, **kw)),
-                (self.cfg2, dict(two, transpose_out=False, **kw))]
+        return [(self.cfg1, dict(one, transpose_out=True,
+                                 out_dtype=self.mid_dtype, **kw)),
+                (self.cfg2, dict(two, transpose_out=False,
+                                 out_dtype=self.out_dtype, **kw))]
 
     def apply_blocks(self, xr, xi, pass_fn=fused_pass):
-        """[B, *block_in_shape] blocks in ``io_dtype`` -> [B,
-        *block_out_shape] blocks: two ``fused_pass`` calls, every reorder
-        inside them (``pass_fn=fused_pass_reference``: the plain version
-        on any device)."""
+        """[B, *block_in_shape] blocks in ``in_dtype`` -> [B,
+        *block_out_shape] blocks in ``out_dtype``: two ``fused_pass``
+        calls, every reorder inside them (``pass_fn=fused_pass_reference``:
+        the plain version on any device)."""
         for cfg, kw in self.passes():
             xr, xi = pass_fn(xr, xi, cfg, **kw)
         return xr, xi
 
     def forward(self, x_re, x_im):
-        """Flat [B, n] integers -> flat [B, n] in ``io_dtype``, on the
+        """Flat [B, n] integers -> flat [B, n] in ``out_dtype``, on the
         device of the input (natural order, or the raw layout of
         ``block_in_shape``/``block_out_shape`` with ``order="raw"``)."""
         if x_re.dim() != 2 or x_re.shape[-1] != self.cfg.n:
             raise ValueError(f"expected [B, n={self.cfg.n}], got "
                              f"{tuple(x_re.shape)}")
         nb = x_re.shape[0]
-        blk = lambda x: x.to(self.io_dtype).reshape(
+        blk = lambda x: x.to(self.in_dtype).reshape(
             (nb,) + self.block_in_shape).contiguous()
         yr, yi = self.apply_blocks(blk(x_re), blk(x_im))
         return yr.reshape(nb, self.cfg.n), yi.reshape(nb, self.cfg.n)

@@ -2,10 +2,12 @@
 
 Counterpart of ``intfftk_tpu/ops/transform.py`` (``dif_stage``,
 ``dit_stage``, ``fft_stages``, ``FFTPlan``, ``make_plan``, ``fft``,
-``ifft``, ``fft_ifft_pair``), narrow only (output width <= 32 bits).  It
-runs on int64 tensors on any device: it is the CPU path of the port and
-the building block of the plain versions the CUDA kernels are held
-against.  Bit-identical to ``intfftk_tpu.golden.fft_int``.
+``ifft``, ``fft_ifft_pair``, ``WideFFTPlan``).  It runs on int64 tensors
+on any device, so one code path carries every data width up to 64 bits:
+the wide plan is the same stages, with the products split where one int64
+product-sum could overflow (``intmath.cmult_exact``).  It is the CPU path
+of the port and the building block of the plain versions the CUDA kernels
+are held against.  Bit-identical to ``intfftk_tpu.golden.fft_int``.
 
 Stage structure (forward DIF ``int_fftNk.vhd:184-279``, inverse DIT
 ``int_ifftNk.vhd``): view [..., blocks, 2, h] -> butterfly lane 0 against
@@ -30,13 +32,18 @@ from intfftk_tpu.golden.twiddle import stage_twiddles_int
 from .intmath import cmult_exact, neg_guarded, round_half_up, wrap_width
 
 
-def check_narrow(cfg: FFTConfig):
-    """The port carries data paths of at most 32 bits so far."""
-    if cfg.output_width > 32:
+#: The widest data path the port carries: its int64 register.
+MAX_WIDTH = 64
+
+
+def check_width(cfg: FFTConfig):
+    """The port carries every data path up to its int64 register; an
+    output wider than 64 bits raises NotImplementedError.  (The JAX
+    package's two int32 planes hold 56-bit values: ROADMAP §C.)"""
+    if cfg.output_width > MAX_WIDTH:
         raise NotImplementedError(
-            f"data paths wider than 32 bits (output width "
-            f"{cfg.output_width}) are not ported yet: ROADMAP Queue A, "
-            f"'Wide/unscaled path'")
+            f"an output of {cfg.output_width} bits does not fit the int64 "
+            f"register the port carries (at most {MAX_WIDTH} bits)")
 
 
 def pack_tables(cfg: FFTConfig):
@@ -114,7 +121,8 @@ def dif_stage(ar, ai, br, bi, cfg: FFTConfig, in_w: int, p: int,
         yi = torch.stack([di[..., 0], neg_guarded(dr[..., 1])], dim=-1)
     else:
         yr, yi = cmult_exact(dr, di, w_re, w_im, cfg.twiddle_shift,
-                             in_w + 1 - cfg.scale)
+                             in_w + 1 - cfg.scale,
+                             twiddle_width=cfg.twiddle_width)
     return sr, si, yr, yi
 
 
@@ -131,7 +139,7 @@ def dit_stage(ar, ai, br, bi, cfg: FFTConfig, in_w: int, p: int,
         bwi = torch.stack([bi[..., 0], br[..., 1]], dim=-1)
     else:
         bwr, bwi = cmult_exact(br, bi, w_re, w_im, cfg.twiddle_shift, in_w,
-                               conj=True)
+                               conj=True, twiddle_width=cfg.twiddle_width)
     return _sum_diff(ar, ai, bwr, bwi, cfg, in_w)
 
 
@@ -202,12 +210,14 @@ def fft_stages_2d(x_re, x_im, cfg: FFTConfig, t_re, t_im, inverse=False,
             br, bi = vr[..., 1, :], vi[..., 1, :]
             if inverse:
                 br, bi = cmult_exact(br, bi, wr, wi, cfg.twiddle_shift, in_w,
-                                     conj=True)
+                                     conj=True,
+                                     twiddle_width=cfg.twiddle_width)
                 sr, si, yr, yi = _sum_diff(ar, ai, br, bi, cfg, in_w)
             else:
                 sr, si, dr, di = _sum_diff(ar, ai, br, bi, cfg, in_w)
                 yr, yi = cmult_exact(dr, di, wr, wi, cfg.twiddle_shift,
-                                     in_w + 1 - cfg.scale)
+                                     in_w + 1 - cfg.scale,
+                                     twiddle_width=cfg.twiddle_width)
             xr = torch.stack([sr, yr], dim=-2).reshape(shp + (n,))
             xi = torch.stack([si, yi], dim=-2).reshape(shp + (n,))
     if natural and not inverse:
@@ -224,7 +234,7 @@ class FFTPlan(nn.Module):
     def __init__(self, cfg: FFTConfig, inverse: bool = False,
                  device: torch.device | str | None = None):
         super().__init__()
-        check_narrow(cfg)
+        check_width(cfg)
         self.cfg, self.inverse = cfg, inverse
         w_re, w_im = pack_tables(cfg)
         self.register_buffer("w_re", torch.as_tensor(w_re, device=device))
@@ -235,14 +245,24 @@ class FFTPlan(nn.Module):
                           inverse=self.inverse)
 
 
+class WideFFTPlan(FFTPlan):
+    """The plan of a data path wider than 32 bits (output 33..64 bits):
+    unscaled growth and the widened FFT->IFFT pair input
+    (``int_fft_ifft_pair.vhd:261``); counterpart of the JAX
+    ``WideFFTPlan`` (``intfftk_tpu/ops/transform.py:329-374``).  The
+    stages are ``FFTPlan``'s on int64 tensors; where a product could
+    overflow int64, ``cmult_exact`` splits it.  Outputs above 64 bits
+    raise NotImplementedError."""
+
+
 # ----------------------------------------------------------- functional API
 
 def make_plan(cfg: FFTConfig, inverse: bool = False,
               device: torch.device | str | None = None) -> FFTPlan:
-    """The staged plan of ``cfg``; a data path wider than 32 bits raises
-    NotImplementedError (the JAX package's ``WideFFTPlan`` is not ported
-    yet)."""
-    return FFTPlan(cfg, inverse=inverse, device=device)
+    """The staged plan of ``cfg``: ``FFTPlan`` up to 32 bits,
+    ``WideFFTPlan`` above (the JAX dispatch, ``transform.py:379-385``)."""
+    cls = WideFFTPlan if cfg.output_width > 32 else FFTPlan
+    return cls(cfg, inverse=inverse, device=device)
 
 
 def _run(x_re, x_im, cfg: FFTConfig, inverse: bool):
@@ -271,6 +291,6 @@ def fft_ifft_pair(x_re, x_im, cfg: FFTConfig, fly_fwd: bool = True,
     fwd_cfg = cfg if fly_fwd else dataclasses.replace(cfg, bypass_fly=True)
     icfg = dataclasses.replace(cfg, data_width=cfg.output_width,
                                bypass_fly=not fly_inv or cfg.bypass_fly)
-    inv = make_plan(icfg, inverse=True)     # raises before any work if wide
+    inv = make_plan(icfg, inverse=True)   # raises before any work if > 64
     yr, yi = _run(x_re, x_im, fwd_cfg, False)
     return inv.to(yr.device)(yr, yi)

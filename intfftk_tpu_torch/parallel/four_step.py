@@ -32,9 +32,10 @@ def resolve_kernel(kernel: str, device: torch.device | str | None,
         raise ValueError(f"bad kernel {kernel!r}")
     if kernel == "xla" and use_kernel(device or "cpu"):
         raise NotImplementedError(
-            "no kernel on the card for this config (n > 4096 or a data "
-            "path wider than 32 bits) and the staged path runs on the CPU "
-            "only: ROADMAP Queue A, 'Wide/unscaled path'")
+            "no engine on the card for this config: the local transform "
+            "takes n <= 4096 and outputs of <= 32 bits; wider channels go "
+            "to the staged path, as the JAX package routes them to its "
+            "XLA one, and the staged path runs on the CPU only")
     return kernel
 
 

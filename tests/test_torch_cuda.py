@@ -18,7 +18,7 @@ from intfftk_tpu.golden.four_step import four_step_int
 from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, circle_table,
                                               fused_pass,
                                               fused_pass_reference)
-from intfftk_tpu_torch.ops.single_pass import PallasFFTPlan
+from intfftk_tpu_torch.ops.single_pass import PallasFFTPlan, PallasWideFFTPlan
 from intfftk_tpu_torch.ops.transform import pack_tables, pack_tables_2d
 from intfftk_tpu_torch.ops.twiddle_synth import (EpiSynth, coarse_table,
                                                  device_circle_table,
@@ -321,3 +321,91 @@ def test_monolithic_on_card(dev, n, inverse, order):
     assert fused_pass.launches == before + 2
     np.testing.assert_array_equal(yr.cpu().numpy(), gr)
     np.testing.assert_array_equal(yi.cpu().numpy(), gi)
+
+
+# ------------------------------------------------- the wide (int64) forms
+
+@pytest.mark.parametrize("mode,rounding", MODES)
+@pytest.mark.parametrize("r,c,nb", [(8, 40, 3), (256, 40, 3), (512, 24, 2),
+                                    (4096, 6, 2)])
+@pytest.mark.parametrize("wide_in,inverse,natural,epi", [
+    (False, False, True, True), (False, True, False, True),
+    (False, False, True, False), (True, False, True, True),
+    (True, False, False, False), (True, True, True, False),
+    (True, True, False, True)],
+    ids=["widen_fwd_epi", "widen_inv_raw_epi", "widen_fwd", "wide_fwd_epi",
+         "wide_fwd_raw", "wide_inv", "wide_inv_raw_epi"])
+def test_wide_pass_vs_plain(dev, mode, rounding, r, c, nb, wide_in, inverse,
+                            natural, epi):
+    """The int64-tile forms: int32 -> int64 (the widening pass, with and
+    without the epilogue) and int64 -> int64, both directions and orders;
+    ragged column tiles, m = 8/256/512/4096 (the TC change), full-scale
+    52-bit data with 27-bit twiddles (the 80-bit product-sum) or 32-bit
+    data into the widening pass."""
+    lr = r.bit_length() - 1
+    dw = 32 if not wide_in else (52 if mode == "scaled" else 52 - lr)
+    cfg = FFTConfig(n=r, mode=mode, rounding=rounding, data_width=dw,
+                    twiddle_width=27)
+    xr, xi = _stimulus((nb, r, c), dw, seed=r + c + 4)
+    in_dt = torch.int64 if wide_in else torch.int32
+    x = [torch.as_tensor(v).to(in_dt).to(dev) for v in (xr, xi)]
+    tables = tuple(torch.as_tensor(t, device=dev) for t in pack_tables(cfg))
+    e = (tuple(torch.as_tensor(t, device=dev) for t in circle_table(
+        dataclasses.replace(cfg, n=r * 64), r, c, inverse,
+        "natural" if natural else "raw")) if epi else None)
+    kw = dict(epi=e, transpose_out=epi, inverse=inverse, natural=natural,
+              out_dtype=torch.int64)
+    before = fused_pass.launches
+    yr, yi = fused_pass(*x, cfg, tables, **kw)
+    torch.cuda.synchronize()
+    assert fused_pass.launches == before + 1 and yr.dtype == torch.int64
+    wr, wi = fused_pass_reference(*x, cfg, tables, **kw)
+    assert torch.equal(yr, wr) and torch.equal(yi, wi)
+
+
+@pytest.mark.parametrize("n", [8, 1024, 4096])
+@pytest.mark.parametrize("order", ["natural", "bitrev"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_pallas_wide_plan_on_card(dev, inverse, order, n):
+    """PallasWideFFTPlan (K5), one launch per call, ragged batches 3 and
+    200, unscaled 32-bit data (output 35..44 bits), against golden
+    fft_int."""
+    cfg = FFTConfig(n=n, mode="unscaled", data_width=32)
+    plan = PallasWideFFTPlan(cfg, inverse=inverse, order=order, device=dev)
+    rev = bitrev_indices(n)
+    for b in (3, 200):
+        xr, xi = _stimulus((b, n), 32, seed=b + n + 1)
+        src = (xr[:, rev], xi[:, rev]) if order == "bitrev" and inverse \
+            else (xr, xi)
+        gr, gi = fft_int(*src, cfg, inverse=inverse)
+        if order == "bitrev" and not inverse:
+            gr, gi = gr[:, rev], gi[:, rev]
+        before = fused_pass.launches
+        yr, yi = plan(torch.as_tensor(xr.T.copy(), device=dev),
+                      torch.as_tensor(xi.T.copy(), device=dev))
+        assert fused_pass.launches == before + 1
+        np.testing.assert_array_equal(yr.cpu().numpy(), gr.T)
+        np.testing.assert_array_equal(yi.cpu().numpy(), gi.T)
+
+
+def test_large_wide_chain_on_card(dev):
+    """The config-2 chain at n = 4096: the raw unscaled 32-bit forward (44
+    bits out) then the raw scaled/round inverse at 44 bits, 4 launches,
+    against the golden composition."""
+    cfg = FFTConfig(n=4096, mode="unscaled", data_width=32, twiddle_width=20)
+    icfg = dataclasses.replace(cfg, mode="scaled", rounding="round",
+                               data_width=cfg.output_width)
+    fwd = LargeFFTPlan(cfg, order="raw", device=dev)
+    inv = LargeFFTPlan(icfg, fwd.n2, fwd.n1, inverse=True, order="raw",
+                       device=dev)
+    xr, xi = _stimulus((3, 4096), 32, seed=10)
+    before = fused_pass.launches
+    y = fwd(torch.as_tensor(xr, device=dev), torch.as_tensor(xi, device=dev))
+    z = inv(*y)
+    assert fused_pass.launches == before + 4 and z[0].dtype == torch.int64
+    gr, gi = four_step_int(xr, xi, cfg, fwd.n1, fwd.n2)
+    o = fwd.raw_spectrum_order()
+    np.testing.assert_array_equal(y[0].cpu().numpy(), gr[:, o])
+    hr, hi = four_step_int(gr, gi, icfg, inv.n1, inv.n2, inverse=True)
+    np.testing.assert_array_equal(z[0].cpu().numpy(), hr)
+    np.testing.assert_array_equal(z[1].cpu().numpy(), hi)

@@ -58,10 +58,10 @@ def _port_blocks(plan, xr, xi):
     """Run the port's block contract on flat [B, n] numpy input and return
     the flat natural spectrum as int64 numpy."""
     nb = xr.shape[0]
-    blk = lambda x: torch.as_tensor(x).to(plan.io_dtype).reshape(
+    blk = lambda x: torch.as_tensor(x).to(plan.in_dtype).reshape(
         (nb,) + plan.block_in_shape).contiguous()
     yr, yi = plan.apply_blocks(blk(xr), blk(xi))
-    assert yr.dtype == plan.io_dtype
+    assert yr.dtype == plan.out_dtype
     assert tuple(yr.shape) == (nb,) + plan.block_out_shape
     return (yr.reshape(nb, -1).numpy().astype(np.int64),
             yi.reshape(nb, -1).numpy().astype(np.int64))
@@ -135,8 +135,9 @@ def test_fused_pass_rejects():
     cfg = FFTConfig(n=64)
     tables = tuple(torch.as_tensor(t) for t in pack_tables(cfg))
     x = torch.zeros(2, 64, 8, dtype=torch.int32)
-    with pytest.raises(TypeError):
-        fused_pass(x.long(), x.long(), cfg, tables, transpose_out=False)
+    with pytest.raises(TypeError):           # int64 -> int32 is no pass
+        fused_pass(x.long(), x.long(), cfg, tables, transpose_out=False,
+                   out_dtype=torch.int32)
     with pytest.raises(ValueError):
         fused_pass(x[:, :32], x[:, :32], cfg, tables, transpose_out=False)
     with pytest.raises(ValueError):
@@ -316,9 +317,18 @@ def test_tables_from_jax(inverse, order):
     dict(cfg=FFTConfig(n=65536, mode="unscaled", data_width=20))],
     ids=["wide"])
 def test_not_ported_raises(kw):
+    """A wide four-step plan is built (here pass 2 widens: 20 -> 28 -> 36
+    bits, int32 -> int32 -> int64 blocks); the monolithic schedule keeps
+    refusing a wide data path, as the JAX one does."""
     cfg = kw.pop("cfg", FFTConfig(n=65536))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LargeFFTPlan(cfg, **kw)
+    plan = LargeFFTPlan(cfg, **kw)
+    assert (plan.wide_in, plan.wide1, plan.wide2) == (False, False, True)
+    assert (plan.in_dtype, plan.mid_dtype, plan.out_dtype) == (
+        torch.int32, torch.int32, torch.int64)
+    assert [kw["out_dtype"] for _, kw in plan.passes()] == [torch.int32,
+                                                            torch.int64]
+    with pytest.raises(NotImplementedError, match="monolithic"):
+        LargeFFTPlan(cfg, schedule="monolithic", **kw)
 
 
 def test_bad_arguments():
@@ -471,7 +481,7 @@ def test_monolithic_64k(inverse):
     xr, xi = _random((1, 1 << 16), seed=25)
     xr[0, ::5] = -(1 << 15)
     plan, (yr, yi) = _check_mono(cfg, xr, xi, inverse, jax=False)
-    assert (plan.n1, plan.n2, plan.io_dtype) == (256, 256, torch.int16)
+    assert (plan.n1, plan.n2, plan.in_dtype) == (256, 256, torch.int16)
     fr, fi = plan(torch.as_tensor(xr), torch.as_tensor(xi))
     np.testing.assert_array_equal(fr.numpy(), yr)
     np.testing.assert_array_equal(fi.numpy(), yi)

@@ -158,7 +158,7 @@ def test_tables_from_jax(cls):
 def test_guards():
     with pytest.raises(NotImplementedError):
         PallasFFTPlan(FFTConfig(n=8192))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="PallasWideFFTPlan"):
         FusedAxisFFT(FFTConfig(n=4096, mode="unscaled", data_width=24))
     with pytest.raises(ValueError):
         PallasFFTPlan(FFTConfig(n=64), layout="cn")

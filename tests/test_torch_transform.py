@@ -198,16 +198,34 @@ def test_bitrev_last_is_the_gather():
 
 
 def test_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FFTPlan(FFTConfig(n=64, mode="unscaled", data_width=30))
+    """A 36-bit data path is carried now (the wide plan, golden bits); an
+    output above the int64 register (65 bits) is not and raises."""
+    cfg = FFTConfig(n=64, mode="unscaled", data_width=30)
+    re, im = random_stimulus(64, 30, seed=9, batch=(2,))
+    re[0, ::2] = -(1 << 29)
+    plan = FFTPlan(cfg)
+    assert isinstance(tt.make_plan(cfg), tt.WideFFTPlan)
+    yr, yi = plan(torch.as_tensor(re), torch.as_tensor(im))
+    gr, gi = fft_int(re, im, cfg)
+    np.testing.assert_array_equal(yr.numpy(), gr)
+    np.testing.assert_array_equal(yi.numpy(), gi)
+    with pytest.raises(NotImplementedError, match="int64"):
+        FFTPlan(FFTConfig(n=8192, mode="unscaled", data_width=52))
 
 
 def test_wide_pair_raises():
-    """The unscaled pair's inverse side outgrows 32 bits (16 + 2 * 10):
-    the wide plan is not ported yet."""
+    """The unscaled pair's inverse side outgrows 32 bits (16 + 2 * 10 = 36):
+    it runs on the wide plan, bit-equal to the golden composition.  A pair
+    whose inverse outgrows 64 bits (64k, 36-bit data: 52 -> 68) raises
+    before any work."""
     cfg = FFTConfig(n=1024, mode="unscaled")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.make_plan(dataclasses.replace(cfg, data_width=cfg.output_width),
-                     inverse=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.fft_ifft_pair(np.zeros((1, 1024)), np.zeros((1, 1024)), cfg)
+    icfg = dataclasses.replace(cfg, data_width=cfg.output_width)
+    assert isinstance(tt.make_plan(icfg, inverse=True), tt.WideFFTPlan)
+    re, im = random_stimulus(1024, 16, seed=10, batch=(1,))
+    yr, yi = tt.fft_ifft_pair(re, im, cfg)
+    gr, gi = fft_int(*fft_int(re, im, cfg), icfg, inverse=True)
+    np.testing.assert_array_equal(yr.numpy(), gr)
+    np.testing.assert_array_equal(yi.numpy(), gi)
+    big = FFTConfig(n=1 << 16, mode="unscaled", data_width=36)
+    with pytest.raises(NotImplementedError, match="int64"):
+        tt.fft_ifft_pair(np.zeros((1, 1 << 16)), np.zeros((1, 1 << 16)), big)
