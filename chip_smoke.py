@@ -61,10 +61,32 @@ Phases; any failure exits non-zero and prints no result line:
     to four_step_int; (d) PallasWideFFTPlan (K5) on an int64 [4096, 1024]
     tile, fwd/inv x natural/bitrev: 1 launch per call, equal to the plain
     version, 64 columns bit-equal to fft_int;
-11. timing with CUDA events, kernel and plain version in turns (plain,
+11. the ceiling probes (csrc/probe.cu, K7-K9): every chain body on int32,
+    the int16 add chain and its packed form, and the copy, each equal to
+    its plain version (torch.equal) at the shapes the probe tool uses;
+    then the tool's own run (tools.probe_vpu.measure_all, one reading of
+    each chain) with its two guards, both fatal: time linear in the chain
+    length within 5 %, and no chain above SMs x 128 lanes x the maximum SM
+    clock x its ops per instruction at full fusion; the copy held below
+    the card's memory peak; one line of ceilings with the card's name and
+    power limit; the SASS instruction
+    count of each chain loop where cuobjdump exists (information only);
+12. overlap-save convolution at its published size (bench_config4: 64k
+    blocks, 8193 real taps, 16-bit twiddles, a 44-bit product and a 25-bit
+    taps spectrum, seed 1, taps and data in +-2^13) at T = 4 and T = 64
+    payloads, built on the card by default (no device argument): exactly
+    4 launches per call, bit-equal to golden overlap_save_int, kernel ==
+    plain on the card, and the SNR against the float FFT convolution; the
+    n = 4096 single-pass engine pair at 513 taps, 2 launches;
+13. timing with CUDA events, kernel and plain version in turns (plain,
     kernel, kernel, plain), over chained calls (the wide path rereads one
-    fixed input);
-12. a JSON line describing each ported kernel, then the result line
+    fixed input); every timed path beside its bound: the larger of its
+    integer ops over the integer ceiling measured in phase 11 and its
+    bytes (each input read once, each output written once) over the
+    card's memory peak (memory clock x bus width, not the copy kernel's
+    own reading); the config-2 chain and the convolution also with the
+    host's time to issue one call beside the device time;
+14. a JSON line describing each ported kernel, then the result line
     {"ok": true, "device": {...}} as the last line.
 """
 
@@ -139,6 +161,29 @@ def _event_ms(fn, xr, xi, calls=CHAIN, warmup=3):
     return start.elapsed_time(end) / calls
 
 
+def _paced(fn, xr, xi, calls=CHAIN):
+    """(device ms, host ms) per call of a chained fn: the time between two
+    CUDA events around ``calls`` calls, and the host's clock from the first
+    call to the return of the last, before any wait.  Where the two agree
+    the card ran each call as it arrived and the host sets the pace; where
+    the host is done long before the card, the card does."""
+    import torch
+
+    for _ in range(3):
+        xr, xi = fn(xr, xi)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        xr, xi = fn(xr, xi)
+    host = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls, host * 1e3 / calls
+
+
 def _turns(kernel, plain, xr, xi, calls, plain_calls):
     """Kernel and plain version in turns (plain, kernel, kernel, plain):
     the two mean times and the per-turn times."""
@@ -158,10 +203,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from intfftk_tpu.config import FFTConfig, snr_db
-    from intfftk_tpu.golden import fft_int
-    from intfftk_tpu.golden.float_model import bitrev_indices
-    from intfftk_tpu.golden.four_step import four_step_int
+    from intfftk_tpu_torch.config import FFTConfig, snr_db
+    from intfftk_tpu_torch.golden import (fft_int, make_conv_spec,
+                                          overlap_save_int)
+    from intfftk_tpu_torch.golden.float_model import bitrev_indices
+    from intfftk_tpu_torch.golden.four_step import four_step_int
     from intfftk_tpu_torch.ops import _build
     from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan,
                                                   circle_table, fused_pass,
@@ -173,7 +219,14 @@ def main() -> int:
     from intfftk_tpu_torch.ops.twiddle_synth import (EpiSynth, coarse_table,
                                                      device_circle_table,
                                                      synth_circle_block)
-    from intfftk_tpu_torch.parallel import Channelizer
+    from intfftk_tpu_torch.parallel import Channelizer, OverlapSaveConv
+    from intfftk_tpu_torch.tools import probe_vpu
+    from intfftk_tpu_torch.tools.probe_vpu import (chain_reference,
+                                                   copy_reference,
+                                                   probe_chain, probe_copy)
+    from intfftk_tpu_torch.utils.roofline import (OPS_PER_SAMPLE_STAGE,
+                                                  KernelCost, fft_cost,
+                                                  large_fft_cost)
 
     # ---- 1. toolchain and build
     dev = torch.device("cuda", 0)
@@ -205,7 +258,7 @@ def main() -> int:
           "64k plan: 256 x 256 factors, int16 blocks")
     # largest |kernel - plain| over the comparisons of each ported kernel
     max_err = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K6": 0, "K1w": 0,
-               "K2w": 0, "K5": 0}
+               "K2w": 0, "K5": 0, "K7": 0, "K8": 0, "K9": 0, "conv": 0}
 
     def same(a, b, what, kernel="K1"):
         err = max(int((x.long() - y.long()).abs().max())
@@ -824,6 +877,9 @@ def main() -> int:
           f"inverse, against x; 7 random items): {c2_snr:.2f} dB; golden "
           f"{golden_c2_s:.1f} s")
     check(np.isfinite(c2_snr), "config-2 SNR finite")
+    # the chain timed here too, before the probes and the convolution have
+    # run, beside the host's time to issue it (see the timing phase)
+    c2_early = _paced(lambda a, b: (c2_chain(a, b), (a, b))[1], *x)
 
     # (c) the 64k widening pass 2 at batch 64
     xr, xi = _stimulus(BATCH, N, 33, w=24)
@@ -884,7 +940,147 @@ def main() -> int:
                   f"({c5.output_width} bits)")
     launches_k5 = fused_pass.launches
 
-    # ---- 11. timing, kernel and plain in turns
+    # ---- 11. the ceiling probes (K7-K9)
+    x32 = probe_vpu.chain_input(torch.int32, dev)
+    x16 = probe_vpu.chain_input(torch.int16, dev)
+    for body in probe_vpu.INT32_BODIES:
+        for k in (1, 5, 64):
+            same((probe_chain(body, x32, k),),
+                 (chain_reference(body, x32, k),),
+                 f"K7 chain {body} x {k} on int32 [{x32.numel()}]", "K7")
+    for body in probe_vpu.INT16_BODIES:
+        for k in (1, 5, 64):
+            same((probe_chain(body, x16, k),),
+                 (chain_reference(body, x16, k),),
+                 f"K9 chain {body} x {k} on int16 [{x16.numel()}]", "K9")
+    xc = torch.arange(-(1 << 25), 1 << 25, dtype=torch.int32, device=dev)
+    oc = torch.empty_like(xc)
+    same((probe_copy(xc, out=oc),), (copy_reference(xc),),
+         f"K8 copy o = x + 1 over {xc.numel() * 4} bytes", "K8")
+    torch.cuda.synchronize()
+    probe_chain.launches = probe_chain.launches_int16 = 0
+    probe_copy.launches = 0
+    try:
+        ceilings = probe_vpu.measure_all(device=dev)
+    except probe_vpu.GuardError as e:
+        raise SmokeFailure(f"probe guard: {e}") from e
+    torch.cuda.synchronize()
+    probe_launches = (probe_chain.launches - probe_chain.launches_int16,
+                      probe_copy.launches, probe_chain.launches_int16)
+    check(all(c > 0 for c in probe_launches),
+          f"the probe tool launched chain_kernel {probe_launches[0]} times "
+          f"on int32 and {probe_launches[2]} on int16, copy_kernel "
+          f"{probe_launches[1]} times; every chain linear in K "
+          f"within {probe_vpu.LINEAR_TOL:.0%} at the first reading and below "
+          f"the instruction peak "
+          f"{probe_vpu.lane_rate_peak(dev) / 1e12:.2f} T lane-instr/s x "
+          f"ops per instruction; the copy below the memory peak")
+    print(f"ceilings on {card}: " + json.dumps(
+        {k: v if v is None else round(v, 1) for k, v in ceilings.items()}))
+    #: the roofline denominators of this run: the better mixed chain as
+    #: measured, and the card's memory clock x bus width
+    ceil = probe_vpu.ceilings_from(ceilings)
+    print(f"  the bounds' ceilings: {ceil[0] / 1e12:.3f} T int ops/s "
+          f"(measured), {ceil[1] / 1e12:.3f} TB/s (memory clock x bus "
+          f"width); the copy kernel reached "
+          f"{ceilings['hbm_bytes_per_s'] / 1e12:.3f} TB/s, "
+          f"{ceilings['hbm_bytes_per_s'] / ceil[1]:.1%} of it")
+    sass = probe_vpu.sass_loop_counts(so)
+    if sass is None:
+        print("  SASS counts: no cuobjdump in this toolkit")
+    else:
+        by_index = {b.index: (name, b) for name, b in probe_vpu.BODIES.items()}
+        print("  SASS instructions in each chain loop (8 chains per thread "
+              "+ the loop's own), against source ops: " + ", ".join(
+                  f"{by_index[i][0]}/{t}: {c} for 8 x {by_index[i][1].ops}"
+                  for (i, t), c in sorted(sass.items())))
+
+    # ---- 12. overlap-save convolution (config 4)
+    spec = make_conv_spec(n=N, taps_len=(1 << 13) + 1, twiddle_width=16,
+                          max_product_width=44, max_spectrum_width=25)
+    rng = np.random.default_rng(1)
+    m = spec.taps_len
+    h_re = rng.integers(-(1 << 13), 1 << 13, m)
+    h_im = np.zeros(m, np.int64)
+    conv = OverlapSaveConv(spec, h_re, h_im)        # on the card by default
+    check(conv.hr.device == dev and conv.large and conv.wide
+          and (spec.product_width, spec.spectrum_width, spec.product_shift)
+          == (44, 25, 14)
+          and (conv.fwd.in_dtype, conv.fwd.out_dtype, conv.inv.in_dtype,
+               conv.inv.out_dtype) == (torch.int32, torch.int32,
+                                       torch.int64, torch.int64)
+          and conv.inv.block_in_shape == conv.fwd.block_out_shape,
+          "config-4 plan on the card: raw 256 x 256 pair, int32 forward "
+          "(32 bits), 44-bit product, int64 inverse")
+    conv_x, conv_launches, conv_snr = {}, {}, {}
+    for payloads in (4, 64):
+        t = spec.payload * payloads
+        x_re = rng.integers(-(1 << 13), 1 << 13, t)
+        x_im = rng.integers(-(1 << 13), 1 << 13, t)
+        x = [torch.as_tensor(v, dtype=torch.int32, device=dev)
+             for v in (x_re, x_im)]
+        conv_x[payloads] = x
+        torch.cuda.synchronize()
+        fused_pass.launches = 0
+        y = conv(*x)
+        torch.cuda.synchronize()
+        conv_launches[payloads] = fused_pass.launches
+        what = f"config 4, T = {payloads} payloads ({t} samples)"
+        check(conv_launches[payloads] == 4 and y[0].dtype == torch.int64
+              and tuple(y[0].shape) == (t,),
+              f"{what}: {conv_launches[payloads]} launches, int64 [{t}]")
+        same(y, conv(*x, pass_fn=fused_pass_reference), what, "conv")
+        t0 = time.perf_counter()
+        g = overlap_save_int(x_re, x_im, h_re, h_im, spec)
+        golden_s = time.perf_counter() - t0
+        check(all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(y, g)),
+              f"{what}: bit-equal to overlap_save_int ({golden_s:.1f} s of "
+              f"golden)")
+        size = 1 << (t + m).bit_length()
+        ref = np.fft.ifft(np.fft.fft(x_re + 1j * x_im, size)
+                          * np.fft.fft(h_re, size))[:t]
+        conv_snr[payloads] = snr_db(
+            ref / float(1 << spec.scale_log2),
+            y[0].cpu().numpy() + 1j * y[1].cpu().numpy())
+        check(np.isfinite(conv_snr[payloads]) and conv_snr[payloads] > 40,
+              f"{what}: SNR {conv_snr[payloads]:.2f} dB against the float "
+              f"FFT convolution")
+    # the single-pass engine pair (n <= 4096), 2 launches per call
+    spec4k = make_conv_spec(n=4096, taps_len=513)
+    h4 = rng.integers(-(1 << 13), 1 << 13, (2, 513))
+    x4 = rng.integers(-(1 << 13), 1 << 13, (2, 3, 8 * spec4k.payload))
+    conv4k = OverlapSaveConv(spec4k, *h4)
+    torch.cuda.synchronize()
+    fused_pass.launches = 0
+    y = conv4k(*x4)
+    torch.cuda.synchronize()
+    g = overlap_save_int(*x4, *h4, spec4k)
+    check(fused_pass.launches == 2 and y[0].dtype == torch.int32
+          and all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(y, g)),
+          f"convolution n = 4096, 513 taps, [3, {x4.shape[-1]}]: "
+          f"{fused_pass.launches} launches, bit-equal to overlap_save_int")
+
+    # ---- 13. timing, kernel and plain in turns
+    def bound(cost):
+        """(bound in ms, which ceiling sets it) of a KernelCost against
+        this run's ceilings (``ceil``)."""
+        ops_s, bytes_s = cost.int_ops / ceil[0], cost.hbm_bytes / ceil[1]
+        return (max(ops_s, bytes_s) * 1e3,
+                "operations" if ops_s >= bytes_s else "bytes")
+
+    def work(samples, stage_equiv, nbytes):
+        """The cost of a chain of transforms as one function: 12 ops per
+        sample per stage-equivalent (a stage, an inter-factor twiddle or a
+        pointwise product), and the bytes of its first input and last
+        output."""
+        return KernelCost(OPS_PER_SAMPLE_STAGE * samples * stage_equiv,
+                          nbytes)
+
+    def share(k_ms, cost):
+        b, by = bound(cost)
+        return (f"; bound {b:.4f} ms ({by}), time / bound "
+                f"{k_ms / b:.2f}")
+
     x = blocks(plan, *_stimulus(BATCH, N, 5))
     k_ms, p_ms, ms = _turns(lambda a, b: plan.apply_blocks(a, b),
                             lambda a, b: plain_blocks(plan, a, b), *x,
@@ -896,13 +1092,14 @@ def main() -> int:
         a, b, plan.cfg2, (plan.w2r, plan.w2i), transpose_out=False), *x)
     samples = BATCH * N
     moved = 2 * 2 * 2 * samples * 2        # 2 passes x (in + out) x re/im
+    cost_64k = large_fft_cost(N, BATCH, itemsize=2)
     print(f"timing on {card}, CUDA events, mean of chained calls:")
     print(f"  64k [64, 256, 256] int16 apply_blocks: kernel {k_ms:.4f} "
           f"ms/call ({ms['kernel'][0]:.4f}, {ms['kernel'][1]:.4f}), "
           f"{samples / k_ms / 1e3:.1f} Msamples/s, "
           f"{moved / k_ms / 1e6:.1f} GB/s; pass 1 {pass1:.4f} ms, pass 2 "
           f"{pass2:.4f} ms; plain {p_ms:.4f} ms ({ms['plain'][0]:.4f}, "
-          f"{ms['plain'][1]:.4f})")
+          f"{ms['plain'][1]:.4f})" + share(k_ms, cost_64k))
 
     def roundtrip(a, b):
         return inv.apply_blocks(*fwd.apply_blocks(a, b))
@@ -911,17 +1108,20 @@ def main() -> int:
         return plain_blocks(inv, *plain_blocks(fwd, a, b))
 
     x = blocks(fwd, *_stimulus(RT_BATCH, N, 14))
+    # two transforms with their inter-factor twiddles; int16 in and out
+    cost_rt = work(RT_BATCH * N, 2 * 17, RT_BATCH * N * 2 * (2 + 2))
     rt_ms, rt_plain, rms = _turns(roundtrip, roundtrip_plain, *x, CHAIN,
                                   10)
     print(f"  64k raw roundtrip [8, 256, 256] int16 (4 launches): kernel "
           f"{rt_ms:.4f} ms ({rms['kernel'][0]:.4f}, {rms['kernel'][1]:.4f}),"
           f" {2 * RT_BATCH * N / rt_ms / 1e3:.1f} Msamples/s of transforms;"
           f" plain {rt_plain:.4f} ms ({rms['plain'][0]:.4f}, "
-          f"{rms['plain'][1]:.4f})")
+          f"{rms['plain'][1]:.4f})" + share(rt_ms, cost_rt))
 
     ch_ms = {}
     csamples = CH * CH_N
     cbytes = csamples * 2 * 4 * 2          # re/im x int32 x (in + out)
+    cost_ch = fft_cost(CH_N, CH)
     for (layout, inverse), chz in chans.items():
         src = (hr, hi) if layout == "cn" else (hr.T, hi.T)
         xr, xi = chz.shard(src[0]), chz.shard(src[1])
@@ -933,23 +1133,25 @@ def main() -> int:
               f"int32: kernel {km:.4f} ms ({cms['kernel'][0]:.4f}, "
               f"{cms['kernel'][1]:.4f}), {csamples / km / 1e3:.1f} "
               f"Msamples/s, {cbytes / km / 1e6:.1f} GB/s; plain {pm:.4f} ms"
-              f" ({cms['plain'][0]:.4f}, {cms['plain'][1]:.4f})")
+              f" ({cms['plain'][0]:.4f}, {cms['plain'][1]:.4f})"
+              + share(km, cost_ch))
     for layout, st in stream_stats.items():
         print(f"  streamed Channelizer {layout} (lane_tile 512, depth 4): "
               f"wall {st['wall_s'] * 1e3:.2f} ms for {CH} channels, "
               f"{st['msamples_per_s']:.1f} Msamples/s")
 
-    def report(what, samples, k, pl, turns, moved=None):
+    def report(what, samples, k, pl, turns, moved=None, cost=None):
         gbs = f", {moved / k / 1e6:.1f} GB/s" if moved else ""
         print(f"  {what}: kernel {k:.4f} ms ({turns['kernel'][0]:.4f}, "
               f"{turns['kernel'][1]:.4f}), {samples / k / 1e3:.1f} "
               f"Msamples/s{gbs}; plain {pl:.4f} ms ({turns['plain'][0]:.4f}, "
-              f"{turns['plain'][1]:.4f})")
+              f"{turns['plain'][1]:.4f})" + (share(k, cost) if cost else ""))
 
     # int16 re/im in and out of two passes, per transformed sample
     io_bytes = 2 * 2 * 2 * 2
     x = blocks(chains["host"][0], *_stimulus(B1M, N1M, 24))
     chain_ms = {}
+    cost_1m = work(2 * B1M * N1M, 21, B1M * N1M * 2 * (2 + 2))
     for mode, (a, b, _) in chains.items():
         chain_ms[mode] = _turns(
             lambda u, v, a=a, b=b: b.apply_blocks(*a.apply_blocks(u, v)),
@@ -957,7 +1159,8 @@ def main() -> int:
             *x, 20, 2)
         report(f"1M block chain [4, 1024, 1024] int16, plan a + plan b "
                f"(4 launches), epi_mode {mode}", 2 * B1M * N1M,
-               *chain_ms[mode], moved=2 * B1M * N1M * io_bytes)
+               *chain_ms[mode], moved=2 * B1M * N1M * io_bytes,
+               cost=cost_1m)
     pass1_1m = {}
     for mode, (a, _, _) in chains.items():
         c, kw = a.passes()[0]             # [4, 1024, 1024] in and out
@@ -966,6 +1169,9 @@ def main() -> int:
     print("  1M pass 1 alone (ms): " + ", ".join(
         f"{m} {t:.4f}" for m, t in pass1_1m.items()))
     gen_ms = {}
+    # the generator: about 25 integer ops per entry (the hand count of
+    # csrc/fused_pass.cu) and 8 bytes written
+    cost_gen = {n: KernelCost(25.0 * n, 8.0 * n) for n in (N1M, N16M)}
     for n, n1 in ((N1M, 1024), (N16M, 4096)):
         c = dataclasses.replace(c1m, n=n)
         co = coarse_table(c, dev)
@@ -975,13 +1181,20 @@ def main() -> int:
             lambda u, v, c=c, n=n, n1=n1, co=co: synth_circle_block(
                 co, n1, n1, 0, n, c, False), None, None, 20, 2)
         report(f"generator, one [{n1}, {n1}] table (n = {n}; coarse table "
-               f"on the card)", n, *gen_ms[n], moved=8 * n)
+               f"on the card)", n, *gen_ms[n], moved=8 * n,
+               cost=cost_gen[n])
     x = x512
+    cost_512k = large_fft_cost(N512K, B512K, itemsize=2)
+    cost_16m = large_fft_cost(N16M, 1, itemsize=2)
+    # monolithic: the single full-size core's stages, no epilogue
+    cost_mono = work(BATCH * N, 16, BATCH * N * 2 * (2 + 2))
+    cost_mono512 = work(2 * N512K, 19, 2 * N512K * 2 * (2 + 2))
     k512 = _turns(p512, lambda u, v: p512.apply_blocks(
         *(t.reshape((B512K,) + p512.block_in_shape) for t in (u, v)),
         pass_fn=fused_pass_reference), *x, 20, 2)
     report(f"512K flat [{B512K}, {N512K}] int16 forward (2 launches)",
-           B512K * N512K, *k512, moved=B512K * N512K * io_bytes)
+           B512K * N512K, *k512, moved=B512K * N512K * io_bytes,
+           cost=cost_512k)
     xr, xi = _stimulus(1, N16M, 26)
     p16["host"] = (LargeFFTPlan(c16, epi_synth="host", device=dev), None)
     ms16 = {}
@@ -991,19 +1204,19 @@ def main() -> int:
                             lambda u, v, p=p: plain_blocks(p, u, v),
                             *blocks(p, xr, xi), 10, 1)
         report(f"16M [1, 4096, 4096] int16 apply_blocks, epi_mode {mode}",
-               N16M, *ms16[mode], moved=N16M * io_bytes)
+               N16M, *ms16[mode], moved=N16M * io_bytes, cost=cost_16m)
     x = blocks(mono, *_stimulus(BATCH, N, 28))
     mono_ms = _turns(lambda u, v: mono.apply_blocks(u, v),
                      lambda u, v: plain_blocks(mono, u, v), *x, CHAIN, 10)
     report("monolithic 64k [64, 256, 256] int16 apply_blocks", BATCH * N,
-           *mono_ms, moved=BATCH * N * io_bytes)
+           *mono_ms, moved=BATCH * N * io_bytes, cost=cost_mono)
     x = [torch.as_tensor(v, dtype=torch.int16, device=dev)
          for v in _stimulus(2, N512K, 29)]
     mono512_ms = _turns(m512, lambda u, v: m512.apply_blocks(
         *(t.reshape((2,) + m512.block_in_shape) for t in (u, v)),
         pass_fn=fused_pass_reference), *x, CHAIN, 10)
     report("monolithic 512K flat [2, 524288] int16 forward", 2 * N512K,
-           *mono512_ms, moved=2 * N512K * io_bytes)
+           *mono512_ms, moved=2 * N512K * io_bytes, cost=cost_mono512)
 
     # the wide path: int64 outputs do not feed the next call's int32
     # input, so each timed call rereads one fixed input
@@ -1013,11 +1226,25 @@ def main() -> int:
     rng = np.random.default_rng(0)
     x = blocks(f2, *(rng.integers(-(1 << 27), 1 << 27, (RT_BATCH, N))
                      for _ in range(2)))
+    # two transforms, their twiddles and the product; int32 in, int64 out,
+    # the [n] int64 spectrum table read once.  The bound counts 32-bit
+    # ops; the int64 tile does 64-bit sums and 128-bit products for each.
+    cost_c2 = work(RT_BATCH * N, 2 * 17 + 1,
+                   RT_BATCH * N * 2 * (4 + 8) + N * 2 * 8)
+    cost_w24 = KernelCost(large_fft_cost(N, BATCH).int_ops,
+                          BATCH * N * 2 * (4 + 8))
+    cost_k5 = KernelCost(fft_cost(4096, 1024).int_ops,
+                         4096 * 1024 * 2 * (8 + 8))
     c2_ms = _turns(fixed(c2_chain), fixed(
         lambda u, v: c2_chain(u, v, pass_fn=fused_pass_reference)), *x,
         CHAIN, 3)
     report(f"config-2 chain [{RT_BATCH}, {f2.n1}, {f2.n2}] int32 -> int64 "
-           f"(4 launches + the eager product)", 2 * RT_BATCH * N, *c2_ms)
+           f"(4 launches + the eager product)", 2 * RT_BATCH * N, *c2_ms,
+           cost=cost_c2)
+    c2_late = _paced(fixed(c2_chain), *x)
+    print(f"  config-2 chain, device ms / host ms to issue one call: "
+          f"{c2_early[0]:.4f} / {c2_early[1]:.4f} before the probe and "
+          f"convolution phases, {c2_late[0]:.4f} / {c2_late[1]:.4f} here")
     y = f2.apply_blocks(*x)
     steps = {"forward pass 1 (int32 -> int64, host table)": (f2, 0, x),
              "forward pass 2 (int64)": (f2, 1, fused_pass(
@@ -1035,104 +1262,178 @@ def main() -> int:
         lambda u, v: plain_blocks(w24, u, v)), *x24, CHAIN, 3)
     report(f"64k unscaled 24-bit [{BATCH}, {w24.n1}, {w24.n2}] int32 -> "
            f"int64 apply_blocks (2 launches)", BATCH * N, *w24_ms,
-           moved=BATCH * N * 2 * (4 + 4 + 4 + 8))
+           moved=BATCH * N * 2 * (4 + 4 + 4 + 8), cost=cost_w24)
     k5_ms = {}
     for (inverse, order), p in k5.items():
         k5_ms[inverse, order] = _turns(fixed(p), fixed(
             lambda u, v, p=p: plain_wide(p, u, v)), *x5, CHAIN, 3)
         report(f"K5 PallasWideFFTPlan [4096, 1024] int64 inverse={inverse} "
                f"{order}", 4096 * 1024, *k5_ms[inverse, order],
-               moved=4096 * 1024 * 2 * 2 * 8)
-    check("jax" not in sys.modules, "no JAX module was imported")
+               moved=4096 * 1024 * 2 * 2 * 8, cost=cost_k5)
 
-    # ---- 12. results
+    # config 4: per block a forward, the product and an inverse; the
+    # int32 signal in, the int64 payload out, the [n] int32 taps spectrum
+    conv_ms, cost_conv = {}, {}
+    for payloads, x in conv_x.items():
+        t = spec.payload * payloads
+        cost_conv[payloads] = work(payloads * N, 2 * 17 + 1,
+                                   t * 2 * (4 + 8) + N * 2 * 4)
+        conv_ms[payloads] = _turns(fixed(conv), fixed(
+            lambda u, v: conv(u, v, pass_fn=fused_pass_reference)), *x,
+            CHAIN if payloads == 4 else 20, 2)
+        report(f"config 4 overlap-save, T = {payloads} payloads [{t}] int32 "
+               f"-> int64 (4 launches + windows, product, cut; payload "
+               f"samples)", t, *conv_ms[payloads],
+               cost=cost_conv[payloads])
+        paced = _paced(fixed(conv), *x, calls=20)
+        print(f"    device ms / host ms to issue one call: {paced[0]:.4f} / "
+              f"{paced[1]:.4f}")
+
+    # the T = 64 call's steps, each alone on a fixed input
+    x = conv_x[64]
+    t = x[0].shape[-1]
+
+    def windows(v):
+        e = torch.nn.functional.pad(v.reshape(1, t), (m - 1, 0))
+        return e.unfold(-1, N, spec.payload).reshape(
+            (-1,) + conv.fwd.block_in_shape).contiguous()
+
+    def conv_product(u, v):
+        return cmult_exact(u, v, conv.hr, conv.hi, spec.product_shift,
+                           spec.product_width,
+                           twiddle_width=spec.spectrum_width)
+
+    def cut(v):
+        return v.reshape(-1, N)[:, m - 1:].reshape(t)
+
+    b = [windows(v) for v in x]
+    f = conv.fwd.apply_blocks(*b)
+    pq = conv_product(*f)
+    z = conv.inv.apply_blocks(*pq)
+    conv_steps = {what: _event_ms(fixed(fn), *xs, calls=20)
+                  for what, fn, xs in (
+        ("windows (pad, unfold, copy)",
+         lambda u, v: (windows(u), windows(v)), x),
+        ("forward (int32, 2 launches)", conv.fwd.apply_blocks, b),
+        ("product (eager, 44 bits)", conv_product, f),
+        ("inverse (int64, 2 launches)", conv.inv.apply_blocks, pq),
+        ("cut", lambda u, v: (cut(u), cut(v)), z))}
+    print("  config 4, T = 64 payloads, steps (ms): " + ", ".join(
+        f"{what} {ms:.4f}" for what, ms in conv_steps.items()))
+
+    # the probes at the tool's shape: a chain of K_ROW iterations
+    K_ROW = 256
+    probe_ms, cost_probe = {}, {}
+    for name, body, xs in (("K7", "stagemix10", x32), ("K9", "add", x16)):
+        probe_ms[name] = _turns(
+            fixed(lambda u, v, b=body: probe_chain(b, u, K_ROW)),
+            fixed(lambda u, v, b=body: chain_reference(b, u, K_ROW)),
+            xs, None, 20, 2)
+        cost_probe[name] = KernelCost(
+            xs.numel() * probe_vpu.BODIES[body].ops * K_ROW,
+            2 * xs.numel() * xs.element_size())
+        report(f"{name} chain {body} x {K_ROW} on {xs.dtype} "
+               f"[{xs.numel()}]", xs.numel(), *probe_ms[name],
+               cost=cost_probe[name])
+    probe_ms["K8"] = _turns(fixed(lambda u, v: probe_copy(u, out=oc)),
+                            fixed(lambda u, v: copy_reference(u)), xc, None,
+                            20, 5)
+    add_ms = _event_ms(fixed(lambda u, v: torch.add(u, 1, out=oc)), xc, None,
+                       calls=20)
+    cost_probe["K8"] = KernelCost(xc.numel(), 2 * xc.numel() * 4)
+    report(f"K8 copy o = x + 1 over {xc.numel() * 4} bytes each way "
+           f"(torch.add: {add_ms:.4f} ms)", xc.numel(), *probe_ms["K8"],
+           moved=2 * xc.numel() * 4, cost=cost_probe["K8"])
+    check("jax" not in sys.modules and not any(
+        m == "intfftk_tpu" or m.startswith("intfftk_tpu.")
+        for m in sys.modules),
+        "neither JAX nor the JAX package was imported")
+
+    # ---- 14. results
     src = "intfftk_tpu_torch/csrc/fused_pass.cu"
+    psrc = "intfftk_tpu_torch/csrc/probe.cu"
     mean = lambda layout, k=0: sum(ch_ms[layout, inverse][k]
                                    for inverse in (False, True)) / 2
-    kernels = [
-        {"name": "fused_pass: K1 four-step, forward natural (64k "
-                 "apply_blocks)", "route": "cuda", "source": src,
-         "replaces": "intfftk_tpu/ops/pallas_fft.py:1255",
-         "launches": launches_64k, "max_abs_err": max_err["K1"],
-         "ms": k_ms, "plain_ms": p_ms},
-        {"name": "fused_pass: K1 four-step, raw forward + raw inverse "
-                 "(64k roundtrip)", "route": "cuda", "source": src,
-         "replaces": "intfftk_tpu/ops/pallas_fft.py:1255",
-         "launches": launches_rt, "max_abs_err": max_err["K1"],
-         "ms": rt_ms, "plain_ms": rt_plain},
-        {"name": "fused_pass: K2 transposed load and store (Channelizer cn, "
-                 "fwd + inv)", "route": "cuda", "source": src,
-         "replaces": "intfftk_tpu/ops/pallas_fft.py:965",
-         "launches": ch_launches["cn"], "max_abs_err": max_err["K2"],
-         "ms": mean("cn"), "plain_ms": mean("cn", 1)},
-        {"name": "fused_pass: K4 single pass [n, B] (Channelizer nc, "
-                 "fwd + inv)", "route": "cuda", "source": src,
-         "replaces": "intfftk_tpu/ops/pallas_fft.py:829",
-         "launches": ch_launches["nc"], "max_abs_err": max_err["K4"],
-         "ms": mean("nc"), "plain_ms": mean("nc", 1)}]
+    k1 = "intfftk_tpu/ops/pallas_fft.py:1255"
     k2 = "intfftk_tpu/ops/pallas_fft.py:965"
     k6 = "intfftk_tpu/ops/twiddle_synth.py:126"
     k3 = "intfftk_tpu/ops/pallas_fft.py:1204"
-    for mode in EPI_MODES:
+    kernels = []
+
+    def row(name, replaces, launches, err, ms, plain_ms, cost, source=src,
+            library_ms=None):
+        """One kernel row; the bound is of the timed call's work against
+        this run's ceilings."""
+        b_ms, by = bound(cost)
         kernels.append(
-            {"name": f"fused_pass: K2 split pipeline, 1M block chain "
-                     f"(plans a + b), epi_mode {mode}"
-                     + (" (K6 in the epilogue)" if mode == "inkernel" else ""),
-             "route": "cuda", "source": src,
-             "replaces": k6 if mode == "inkernel" else k2,
-             "launches": path_launches[mode][0],
-             "max_abs_err": max_err["K6" if mode == "inkernel" else "K2"],
-             "ms": chain_ms[mode][0], "plain_ms": chain_ms[mode][1]})
-    kernels += [
-        {"name": "circle_table_kernel: K6 generator, one [1024, 1024] table "
-                 "(1M device-mode plans a + b)", "route": "cuda",
-         "source": src, "replaces": k6,
-         "launches": path_launches["device"][1], "max_abs_err": max_err["K6"],
-         "ms": gen_ms[N1M][0], "plain_ms": gen_ms[N1M][1]},
-        {"name": "circle_table_kernel: K6 generator, one [4096, 4096] table "
-                 "(16M device-mode plan)", "route": "cuda", "source": src,
-         "replaces": k6, "launches": path_launches["16M device"][1],
-         "max_abs_err": max_err["K6"],
-         "ms": gen_ms[N16M][0], "plain_ms": gen_ms[N16M][1]},
-        {"name": "fused_pass: K2 split pipeline, 512K flat forward + inverse "
-                 "(timed: forward)", "route": "cuda", "source": src,
-         "replaces": k2, "launches": launches_512k,
-         "max_abs_err": max_err["K2"], "ms": k512[0], "plain_ms": k512[1]},
-        {"name": "fused_pass: K2 split pipeline, 16M, epi_mode device",
-         "route": "cuda", "source": src, "replaces": k2,
-         "launches": path_launches["16M device"][0],
-         "max_abs_err": max_err["K2"], "ms": ms16["device"][0],
-         "plain_ms": ms16["device"][1]},
-        {"name": "fused_pass: K6 in-kernel epilogue, 16M, epi_mode inkernel",
-         "route": "cuda", "source": src, "replaces": k6,
-         "launches": path_launches["16M inkernel"][0],
-         "max_abs_err": max_err["K6"], "ms": ms16["inkernel"][0],
-         "plain_ms": ms16["inkernel"][1]},
-        {"name": "fused_pass: K3 monolithic schedule, 64k x 64 "
-                 "apply_blocks", "route": "cuda", "source": src,
-         "replaces": k3, "launches": launches_mono,
-         "max_abs_err": max_err["K3"], "ms": mono_ms[0],
-         "plain_ms": mono_ms[1]},
-        {"name": "fused_pass: K3 monolithic schedule, 512K x 2 forward + "
-                 "inverse (timed: forward)", "route": "cuda", "source": src,
-         "replaces": k3, "launches": launches_mono512,
-         "max_abs_err": max_err["K3"], "ms": mono512_ms[0],
-         "plain_ms": mono512_ms[1]},
-        {"name": "fused_pass: K1/K2 wide, config-2 chain (4 launches)",
-         "route": "cuda", "source": src,
-         "replaces": "intfftk_tpu/ops/pallas_fft.py:1255",
-         "launches": launches_c2, "max_abs_err": max_err["K1w"],
-         "ms": c2_ms[0], "plain_ms": c2_ms[1]},
-        {"name": "fused_pass: K2 widening pass (64k unscaled 24-bit)",
-         "route": "cuda", "source": src, "replaces": k2,
-         "launches": launches_w24, "max_abs_err": max_err["K2w"],
-         "ms": w24_ms[0], "plain_ms": w24_ms[1]},
-        {"name": "fused_pass: K5 PallasWideFFTPlan [4096, 1024]",
-         "route": "cuda", "source": src,
-         "replaces": "intfftk_tpu/ops/pallas_fft.py:742",
-         "launches": launches_k5, "max_abs_err": max_err["K5"],
-         "ms": sum(t[0] for t in k5_ms.values()) / len(k5_ms),
-         "plain_ms": sum(t[1] for t in k5_ms.values()) / len(k5_ms)}]
+            {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max_err[err], "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms})
+
+    row("fused_pass: K1 four-step, forward natural (64k apply_blocks)", k1,
+        launches_64k, "K1", k_ms, p_ms, cost_64k)
+    row("fused_pass: K1 four-step, raw forward + raw inverse (64k "
+        "roundtrip)", k1, launches_rt, "K1", rt_ms, rt_plain, cost_rt)
+    row("fused_pass: K2 transposed load and store (Channelizer cn, fwd + "
+        "inv; timed: one call)", k2, ch_launches["cn"], "K2", mean("cn"),
+        mean("cn", 1), cost_ch)
+    row("fused_pass: K4 single pass [n, B] (Channelizer nc, fwd + inv; "
+        "timed: one call)", "intfftk_tpu/ops/pallas_fft.py:829",
+        ch_launches["nc"], "K4", mean("nc"), mean("nc", 1), cost_ch)
+    for mode in EPI_MODES:
+        row(f"fused_pass: K2 split pipeline, 1M block chain (plans a + b), "
+            f"epi_mode {mode}"
+            + (" (K6 in the epilogue)" if mode == "inkernel" else ""),
+            k6 if mode == "inkernel" else k2, path_launches[mode][0],
+            "K6" if mode == "inkernel" else "K2", *chain_ms[mode][:2],
+            cost_1m)
+    row("circle_table_kernel: K6 generator, one [1024, 1024] table (1M "
+        "device-mode plans a + b)", k6, path_launches["device"][1], "K6",
+        *gen_ms[N1M][:2], cost_gen[N1M])
+    row("circle_table_kernel: K6 generator, one [4096, 4096] table (16M "
+        "device-mode plan)", k6, path_launches["16M device"][1], "K6",
+        *gen_ms[N16M][:2], cost_gen[N16M])
+    row("fused_pass: K2 split pipeline, 512K flat forward + inverse (timed: "
+        "forward)", k2, launches_512k, "K2", *k512[:2], cost_512k)
+    row("fused_pass: K2 split pipeline, 16M, epi_mode device", k2,
+        path_launches["16M device"][0], "K2", *ms16["device"][:2], cost_16m)
+    row("fused_pass: K6 in-kernel epilogue, 16M, epi_mode inkernel", k6,
+        path_launches["16M inkernel"][0], "K6", *ms16["inkernel"][:2],
+        cost_16m)
+    row("fused_pass: K3 monolithic schedule, 64k x 64 apply_blocks", k3,
+        launches_mono, "K3", *mono_ms[:2], cost_mono)
+    row("fused_pass: K3 monolithic schedule, 512K x 2 forward + inverse "
+        "(timed: forward)", k3, launches_mono512, "K3", *mono512_ms[:2],
+        cost_mono512)
+    row("fused_pass: K1/K2 wide, config-2 chain (4 launches)", k1,
+        launches_c2, "K1w", *c2_ms[:2], cost_c2)
+    row("fused_pass: K2 widening pass (64k unscaled 24-bit)", k2,
+        launches_w24, "K2w", *w24_ms[:2], cost_w24)
+    row("fused_pass: K5 PallasWideFFTPlan [4096, 1024] (4 plans; timed: "
+        "one call)", "intfftk_tpu/ops/pallas_fft.py:742", launches_k5, "K5",
+        sum(t[0] for t in k5_ms.values()) / len(k5_ms),
+        sum(t[1] for t in k5_ms.values()) / len(k5_ms), cost_k5)
+    for payloads in conv_x:
+        row(f"fused_pass: K1 raw forward + wide raw inverse, config-4 "
+            f"overlap-save convolution, T = {payloads} payloads (4 launches)",
+            k1, conv_launches[payloads], "conv", *conv_ms[payloads][:2],
+            cost_conv[payloads])
+    row(f"chain_kernel: K7 dependent op chain, all ten int32 bodies "
+        f"(launches: the probe tool's run; timed: stagemix10 x {K_ROW})",
+        "tools/probe_vpu.py:49", probe_launches[0], "K7",
+        *probe_ms["K7"][:2], cost_probe["K7"], source=psrc)
+    row("copy_kernel: K8 o = x + 1 over 2^28 bytes each way",
+        "tools/probe_vpu.py:135", probe_launches[1], "K8",
+        *probe_ms["K8"][:2], cost_probe["K8"], source=psrc,
+        library_ms=add_ms)
+    row(f"chain_kernel: K9 int16 add chain, plain and packed (launches: the "
+        f"probe tool's run; timed: add x {K_ROW})", "tools/probe_vpu.py:226",
+        probe_launches[2], "K9", *probe_ms["K9"][:2], cost_probe["K9"],
+        source=psrc)
+    print(f"ceilings of the bounds on {card}: {ceil[0] / 1e12:.3f} T int "
+          f"ops/s (measured in this run), {ceil[1] / 1e12:.3f} TB/s (the "
+          f"card's memory clock x bus width)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
 """intfftk_tpu_torch — the PyTorch/CUDA port of intfftk_tpu for NVIDIA Hopper.
 
-The JAX package ``intfftk_tpu`` stays the reference.  This package shares
-its NumPy specification (``intfftk_tpu.config``, the twiddle tables and the
-golden models, none of which imports JAX) and ports the compute path:
+The JAX package ``intfftk_tpu`` stays the reference.  This package imports
+``torch``, never ``jax``, and nothing of ``intfftk_tpu``: it keeps its own
+copy of the NumPy specification (``config``, ``golden``: the twiddle tables
+and the golden models, name for name; ``convert.config_from_jax`` and
+``conv_spec_from_jax`` carry a JAX-package config across) and ports the
+compute path:
 
 * ``ops.intmath``     — the exact butterfly arithmetic on int32/int64
   tensors, products of data up to 64 bits included;
@@ -20,15 +23,22 @@ golden models, none of which imports JAX) and ports the compute path:
 * ``ops.single_pass`` — ``PallasFFTPlan`` and ``FusedAxisFFT``, the
   n <= 4096 engines, and ``PallasWideFFTPlan``, their int64 twin for data
   paths of 33..64 bits, one launch per call;
-* ``parallel``        — ``Channelizer`` on one device;
+* ``parallel``        — ``Channelizer`` and ``OverlapSaveConv`` (overlap-save
+  convolution: forward, frequency product, inverse) on one device;
 * ``runtime``         — ``StreamExecutor`` on CUDA streams;
+* ``tools.probe_vpu`` — the card's integer-instruction and device-memory
+  ceilings, measured by the hand-written kernels of ``csrc/probe.cu``
+  (dependent op chains, a streaming copy); ``utils.roofline``, the cost
+  model that turns them into each kernel's bound;
 * ``device``          — where a call runs: the kernel on an sm_90 card, the
-  plain version on the CPU.
+  plain version on the CPU.  Whatever owns buffers takes ``device=None``
+  as the current CUDA device (``device.resolve``) and raises where there
+  is none: the CPU is taken only with ``device="cpu"``.
 
-Outputs are bit-identical to ``intfftk_tpu.golden`` and to the JAX plans.
+Outputs are bit-identical to ``golden`` and to the JAX plans.
 """
 
-from intfftk_tpu.config import FFTConfig, snr_db
+from .config import FFTConfig, snr_db
 
 from .ops import PallasWideFFTPlan, WideFFTPlan
 

@@ -1,4 +1,9 @@
-"""Carry a JAX plan's tables across to the port.
+"""Carry a JAX plan's config and tables across to the port.
+
+The port keeps its own copy of the spec, so its ``FFTConfig`` and
+``ConvSpec`` are other classes than the JAX package's, with the same
+fields.  ``config_from_jax`` and ``conv_spec_from_jax`` rebuild one from
+the other field by field; neither names a JAX-package class.
 
 The JAX plans thread their tables through jit as ``plan.consts``
 (``intfftk_tpu/ops/pallas_fft.py``):
@@ -36,8 +41,41 @@ between the two, so plane-level JAX functions can be fed and read back.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from .config import FFTConfig
+from .golden.convolve import ConvSpec
+
+
+def _fields(obj, cls) -> dict:
+    """The fields of dataclass instance ``obj`` that ``cls`` declares; a
+    field ``cls`` lacks, or ``obj`` lacks, raises."""
+    have = {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    want = {f.name for f in dataclasses.fields(cls)}
+    if set(have) != want:
+        raise TypeError(f"{type(obj).__name__} has fields {sorted(have)}, "
+                        f"{cls.__name__} takes {sorted(want)}")
+    return have
+
+
+def config_from_jax(cfg) -> FFTConfig:
+    """The port's ``FFTConfig`` with the fields of a JAX-package one (or of
+    any dataclass with the same fields; the port's own passes through)."""
+    if isinstance(cfg, FFTConfig):
+        return cfg
+    return FFTConfig(**_fields(cfg, FFTConfig))
+
+
+def conv_spec_from_jax(spec) -> ConvSpec:
+    """The port's ``ConvSpec`` with the fields of a JAX-package one, its
+    ``cfg`` through ``config_from_jax``."""
+    if isinstance(spec, ConvSpec):
+        return spec
+    return ConvSpec(**dict(_fields(spec, ConvSpec),
+                           cfg=config_from_jax(spec.cfg)))
 
 
 #: Bits of the JAX wide path's low plane (``wideint.LO_BITS``).

@@ -6,6 +6,11 @@ Counterpart of ``intfftk_tpu.ops.pallas_fft.infer_interpret`` and
 decides, never global state: a CUDA tensor takes the kernel path and must
 live on an sm_90 card; a CPU tensor takes the plain PyTorch version.  Any
 other device raises.
+
+Whatever owns buffers or a device (the plans, ``Channelizer``,
+``StreamExecutor``, ``OverlapSaveConv``) takes a ``device`` argument and
+passes it through ``resolve``: left out, it is the current CUDA device;
+the CPU is taken only when the caller asks for it with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -33,3 +38,23 @@ def use_kernel(device: torch.device | str) -> bool:
             f"{torch.cuda.get_device_name(device)} is sm_{cap[0]}{cap[1]}; "
             f"the kernels are built for sm_90a (Hopper)")
     return True
+
+
+def resolve(device: torch.device | str | None = None) -> torch.device:
+    """The device an entry point builds on: ``device`` itself, or with
+    ``None`` the current CUDA device.  There is no fallback: with ``None``
+    and no CUDA device this raises RuntimeError (pass ``device="cpu"`` to
+    run the plain version on the CPU), and a CUDA device must pass
+    ``use_kernel``'s sm_90 check."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                'no CUDA device: the port runs on the card unless the '
+                'caller asks for the CPU; pass device="cpu" to run the '
+                'plain version there')
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    use_kernel(device)
+    return device

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernel library from the sources in ``csrc/``.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain ``extern "C"`` interface, loaded with ``ctypes``.  The
+library with a plain ``extern "C"`` interface, loaded with ``ctypes``:
+one ``nvcc -c`` per source, all started together, then one link.  The
 build happens at first use, into ``build/torch_kernels/<hash>/`` at the
 root of the checkout, keyed on a hash of the sources and the flags, so a
 changed source builds anew and an unchanged one loads at once.  Nothing
@@ -15,12 +16,12 @@ import functools
 import os
 from pathlib import Path
 
-SOURCES = ("fused_pass.cu",)
+SOURCES = ("fused_pass.cu", "probe.cu")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libintfft_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -51,14 +52,33 @@ def build() -> tuple[Path, str]:
     if so.exists():
         return so, ""
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
-                           f"\n{res.stdout}{res.stderr}")
-    os.replace(tmp, so)       # atomic: a concurrent build never sees half
-    return so, res.stdout + res.stderr
+    nvcc, pid = find_nvcc(), os.getpid()
+    objs = [so.with_name(f".{s.stem}.{pid}.o") for s in srcs]
+    tmp = so.with_name(f".{LIB_NAME}.{pid}.tmp")
+
+    def start(cmd):
+        return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+
+    def finish(cmd, proc, out):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+        return out
+
+    try:
+        # one compile per source, all started together, then the link
+        jobs = [start([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)])
+                for s, o in zip(srcs, objs)]
+        outs = [proc.communicate()[0] for _, proc in jobs]
+        log = "".join(finish(*job, out) for job, out in zip(jobs, outs))
+        link = start([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        log += finish(*link, link[1].communicate()[0])
+        os.replace(tmp, so)   # atomic: a concurrent build never sees half
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return so, log
 
 
 @functools.cache
@@ -73,6 +93,15 @@ def library():
     lib.intfft_fused_pass.restype = i32
     lib.intfft_circle_table.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.intfft_circle_table.restype = i32
+    i64 = ctypes.c_longlong
+    lib.intfft_probe_chain.argtypes = [ptr, ptr, i64] + [i32] * 4 + [ptr]
+    lib.intfft_probe_chain.restype = i32
+    lib.intfft_probe_copy.argtypes = [ptr, ptr, i64, i32, i32, ptr]
+    lib.intfft_probe_copy.restype = i32
+    lib.intfft_probe_cta_elems.argtypes = []
+    lib.intfft_probe_cta_elems.restype = i32
+    lib.intfft_probe_mem_peak.argtypes = [i32]
+    lib.intfft_probe_mem_peak.restype = i64
     lib.intfft_error_string.argtypes = [i32]
     lib.intfft_error_string.restype = ctypes.c_char_p
     return lib

@@ -38,11 +38,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from intfftk_tpu.config import FFTConfig
-from intfftk_tpu.golden.float_model import bitrev_indices
-from intfftk_tpu.golden.twiddle import circle_twiddles_int
+from ..config import FFTConfig
+from ..golden.float_model import bitrev_indices
+from ..golden.twiddle import circle_twiddles_int
 
-from ..device import use_kernel
+from ..device import resolve, use_kernel
 from . import _build
 from .intmath import cmult_exact
 from .transform import (check_width, fft_stages, fft_stages_2d, pack_tables,
@@ -306,7 +306,9 @@ class LargeFFTPlan(nn.Module):
     ``out_dtype`` are the blocks of ``apply_blocks``.  Outputs wider than
     64 bits raise NotImplementedError, and so does the monolithic schedule
     on a data path wider than 32 bits, as in JAX
-    (``pallas_fft.py:1167-1171``).  The tables are buffers on ``device``.
+    (``pallas_fft.py:1167-1171``).  The tables are buffers on ``device``:
+    the current CUDA device unless the caller names one (``device="cpu"``
+    for the plain version; ``device.resolve``).
     """
 
     def __init__(self, cfg: FFTConfig, n1: int | None = None,
@@ -315,6 +317,7 @@ class LargeFFTPlan(nn.Module):
                  epi_synth: str = "auto",
                  device: torch.device | str | None = None):
         super().__init__()
+        device = resolve(device)
         if order not in ("natural", "raw"):
             raise ValueError(f"bad order {order!r}")
         if schedule not in ("fourstep", "monolithic"):

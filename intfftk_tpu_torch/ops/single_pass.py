@@ -22,8 +22,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from intfftk_tpu.config import FFTConfig
+from ..config import FFTConfig
 
+from ..device import resolve
 from .fused_fft import MAX_ROWS, fused_pass
 from .transform import check_width, pack_tables
 
@@ -49,7 +50,8 @@ class FusedAxisFFT(nn.Module):
     ``inverse``: the unnormalised inverse; ``order``: "natural" spectrum,
     or "bitrev", the raw core contract (the forward emits a bit-reversed
     spectrum, the inverse consumes one).  The packed stage tables are
-    buffers ``w_re``/``w_im`` on ``device``."""
+    buffers ``w_re``/``w_im`` on ``device`` (the current CUDA device
+    unless the caller names one; ``device="cpu"`` for the plain version)."""
 
     def __init__(self, cfg: FFTConfig, inverse: bool = False,
                  order: str = "natural",
@@ -58,6 +60,7 @@ class FusedAxisFFT(nn.Module):
         _check_single(cfg, order, wide=False)
         self.cfg, self.inverse, self.order = cfg, inverse, order
         w_re, w_im = pack_tables(cfg)
+        device = resolve(device)
         self.register_buffer("w_re", torch.as_tensor(w_re, device=device))
         self.register_buffer("w_im", torch.as_tensor(w_im, device=device))
 
@@ -122,6 +125,7 @@ class PallasWideFFTPlan(nn.Module):
         _check_single(cfg, order, wide=True)
         self.cfg, self.inverse, self.order = cfg, inverse, order
         w_re, w_im = pack_tables(cfg)
+        device = resolve(device)
         self.register_buffer("w_re", torch.as_tensor(w_re, device=device))
         self.register_buffer("w_im", torch.as_tensor(w_im, device=device))
 

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from intfftk_tpu.config import FFTConfig
-from intfftk_tpu.golden.twiddle import stage_twiddles_int
+from ..config import FFTConfig
+from ..golden.twiddle import stage_twiddles_int
 
 from .intmath import cmult_exact, neg_guarded, round_half_up, wrap_width
 

@@ -27,10 +27,10 @@ from typing import NamedTuple
 
 import torch
 
-from intfftk_tpu.config import FFTConfig, TAYLOR_COARSE_BITS, TAYLOR_STAGE
-from intfftk_tpu.golden.twiddle import quarter_table, taylor_mathpi
+from ..config import FFTConfig, TAYLOR_COARSE_BITS, TAYLOR_STAGE
+from ..golden.twiddle import quarter_table, taylor_mathpi
 
-from ..device import use_kernel
+from ..device import resolve, use_kernel
 from . import _build
 
 
@@ -63,7 +63,8 @@ def can_synth(cfg: FFTConfig, order: str) -> bool:
 
 
 def coarse_table(cfg: FFTConfig, device=None):
-    """The 512-entry coarse quarter table as two int32 [512] tensors."""
+    """The 512-entry coarse quarter table as two int32 [512] tensors, on
+    ``device`` or, left out, on the host for the caller to place."""
     qre, qim = quarter_table(TAYLOR_COARSE_BITS, cfg.twiddle_width)
     return (torch.as_tensor(qre, dtype=torch.int32, device=device),
             torch.as_tensor(qim, dtype=torch.int32, device=device))
@@ -134,10 +135,11 @@ def device_circle_table(cfg: FFTConfig, n: int, n1: int, n2: int,
     """The [n1, n2] epilogue table generated on ``device`` from the 4 KiB
     coarse table: one launch of the generator kernel on a CUDA device
     (counted in ``device_circle_table.launches``), ``synth_circle_block``
-    on the CPU.  No O(N) array is built on the host.  ``coarse``: the
+    on the CPU.  No O(N) array is built on the host.  ``device``: the
+    current CUDA device unless named (``device.resolve``).  ``coarse``: the
     tensors of ``coarse_table`` already on the device (else uploaded)."""
     if coarse is None:
-        coarse = coarse_table(cfg, device)
+        coarse = coarse_table(cfg, resolve(device))
     dev = coarse[0].device
     if not use_kernel(dev):
         return synth_circle_block(coarse, n1, n2, 0, n, cfg, inverse)

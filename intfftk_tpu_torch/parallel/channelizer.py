@@ -14,14 +14,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from intfftk_tpu.config import FFTConfig
+from ..config import FFTConfig
 
+from ..device import resolve
 from ..ops.single_pass import PallasFFTPlan
 from .four_step import local_plan, resolve_kernel
 
 
 class Channelizer(nn.Module):
-    """Batched integer FFT over channels on ``device``.
+    """Batched integer FFT over channels on ``device`` (the current CUDA
+    device unless the caller names one; ``device="cpu"`` for the CPU).
 
     ``layout="cn"``: int32 [channels, ..., n], the transform along the last
     axis (``FusedAxisFFT``: the kernel reads each tile turned);
@@ -38,7 +40,7 @@ class Channelizer(nn.Module):
         if layout not in ("cn", "nc"):
             raise ValueError(f"bad layout {layout!r}")
         self.cfg, self.layout = cfg, layout
-        self.device = torch.device(device or "cpu")
+        self.device = resolve(device)
         self.kernel = resolve_kernel(kernel, self.device, cfg)
         if layout == "nc":
             if self.kernel != "pallas":

@@ -29,6 +29,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..device import resolve
+
 
 class _Slot:
     """One staging slot: pinned int32 [n, lane_tile] tiles in and out, and
@@ -52,18 +54,19 @@ class StreamExecutor:
     """Feed arbitrary-size batches of transforms through a plan.
 
     ``plan``: any callable (x_re, x_im) -> (y_re, y_im) over int32 [n, B]
-    tiles on ``device`` (e.g. ``PallasFFTPlan(layout="nb")``).
+    tiles on ``device`` (e.g. ``PallasFFTPlan(layout="nb")``); ``device``
+    is the current CUDA device unless the caller names one.
     ``lane_tile``: transforms per dispatch.  Chunks are [n, c] arrays with
     any c >= 1; blocks come out as int32 numpy [n, c'] arrays."""
 
     def __init__(self, plan, n: int, lane_tile: int = 128, depth: int = 2,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         if lane_tile < 1 or depth < 1:
             raise ValueError(f"lane_tile {lane_tile} and depth {depth} "
                              f"must be >= 1")
         self.plan, self.n = plan, n
         self.lane_tile, self.depth = lane_tile, depth
-        self.device = torch.device(device)
+        self.device = resolve(device)
         # compacting pack buffer: incoming chunks are copied once into
         # [n, cap]; when the write head outruns cap, the (< lane_tile)
         # unpacked remainder moves to the front

@@ -12,6 +12,7 @@ from intfftk_tpu.config import FFTConfig
 from intfftk_tpu.golden import fft_int, random_stimulus
 from intfftk_tpu.parallel.channelizer import Channelizer as JaxChannelizer
 from intfftk_tpu.parallel.mesh import CHANNEL_AXIS
+from intfftk_tpu_torch.convert import config_from_jax as P
 from intfftk_tpu_torch.ops.fused_fft import fused_pass
 from intfftk_tpu_torch.ops.single_pass import FusedAxisFFT, PallasFFTPlan
 from intfftk_tpu_torch.ops.transform import FFTPlan
@@ -41,7 +42,7 @@ def test_channelizer_vs_jax(mode, rounding, layout, inverse):
     gr, gi = fft_int(re, im, cfg, inverse=inverse)
     if layout == "nc":
         re, im, gr, gi = re.T, im.T, gr.T, gi.T
-    port = Channelizer(cfg, inverse=inverse, layout=layout)
+    port = Channelizer(P(cfg), inverse=inverse, layout=layout, device="cpu")
     assert port.kernel == "pallas"
     xr, xi = port.shard(re), port.shard(im)
     assert xr.dtype == torch.int32 and xr.device.type == "cpu"
@@ -64,7 +65,7 @@ def test_channelizer_4096(inverse):
     channels of a [4, 2, n] batch ("cn" takes any leading shape)."""
     cfg = FFTConfig(n=4096, mode="scaled", rounding="round")
     re, im = _stimulus(8, 4096, seed=3)
-    port = Channelizer(cfg, inverse=inverse)
+    port = Channelizer(P(cfg), inverse=inverse, device="cpu")
     yr, yi = port(port.shard(re.reshape(4, 2, 4096)),
                   port.shard(im.reshape(4, 2, 4096)))
     gr, gi = fft_int(re, im, cfg, inverse=inverse)
@@ -77,7 +78,7 @@ def test_channelizer_staged_engine(inverse):
     """kernel="xla": the staged engine, on the CPU, same bits, int32."""
     cfg = FFTConfig(n=64, mode="scaled", rounding="truncate")
     re, im = _stimulus(16, 64, seed=4)
-    port = Channelizer(cfg, inverse=inverse, kernel="xla")
+    port = Channelizer(P(cfg), inverse=inverse, kernel="xla", device="cpu")
     assert isinstance(port.plan, FFTPlan)
     yr, yi = port(port.shard(re), port.shard(im))
     gr, gi = fft_int(re, im, cfg, inverse=inverse)
@@ -88,16 +89,16 @@ def test_channelizer_staged_engine(inverse):
 
 def test_engine_choice():
     small, big = FFTConfig(n=4096), FFTConfig(n=8192)
-    assert resolve_kernel("auto", "cpu", small) == "pallas"
-    assert resolve_kernel("auto", None, small, big) == "xla"
-    assert resolve_kernel("xla", "cpu", small) == "xla"
+    assert resolve_kernel("auto", "cpu", P(small)) == "pallas"
+    assert resolve_kernel("auto", "cpu", P(small), P(big)) == "xla"
+    assert resolve_kernel("xla", "cpu", P(small)) == "xla"
     with pytest.raises(ValueError):
-        resolve_kernel("mosaic", "cpu", small)
-    assert isinstance(local_plan(small, True, "pallas"), FusedAxisFFT)
-    assert isinstance(local_plan(small, True, "xla"), FFTPlan)
-    nc = Channelizer(FFTConfig(n=64), layout="nc")
+        resolve_kernel("mosaic", "cpu", P(small))
+    assert isinstance(local_plan(P(small), True, "pallas", device="cpu"), FusedAxisFFT)
+    assert isinstance(local_plan(P(small), True, "xla", device="cpu"), FFTPlan)
+    nc = Channelizer(P(FFTConfig(n=64)), layout="nc", device="cpu")
     assert isinstance(nc.plan, PallasFFTPlan) and nc.plan.layout == "nb"
     with pytest.raises(NotImplementedError):
-        Channelizer(FFTConfig(n=64), kernel="xla", layout="nc")
+        Channelizer(P(FFTConfig(n=64)), kernel="xla", layout="nc", device="cpu")
     with pytest.raises(ValueError):
-        Channelizer(FFTConfig(n=64), layout="bn")
+        Channelizer(P(FFTConfig(n=64)), layout="bn", device="cpu")

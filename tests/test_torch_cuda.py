@@ -1,6 +1,7 @@
 """The CUDA kernels (csrc/fused_pass.cu: the factor pass and the twiddle
-generator) against their plain versions on the card, and the port's plans
-on the card against golden.  Marked ``cuda``:
+generator; csrc/probe.cu: the ceiling probes) against their plain versions
+on the card, and the port's plans and its convolution on the card against
+golden.  Marked ``cuda``:
 each test skips where no CUDA device is present; on a machine with an H100
 run ``python -m pytest tests/test_torch_cuda.py`` (the first test builds
 the kernel into build/)."""
@@ -11,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from intfftk_tpu.config import FFTConfig
-from intfftk_tpu.golden import fft_int
-from intfftk_tpu.golden.float_model import bitrev_indices
-from intfftk_tpu.golden.four_step import four_step_int
+from intfftk_tpu_torch.config import FFTConfig
+from intfftk_tpu_torch.golden import (fft_int, make_conv_spec,
+                                      overlap_save_int)
+from intfftk_tpu_torch.golden.float_model import bitrev_indices
+from intfftk_tpu_torch.golden.four_step import four_step_int
 from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, circle_table,
                                               fused_pass,
                                               fused_pass_reference)
@@ -23,7 +25,8 @@ from intfftk_tpu_torch.ops.transform import pack_tables, pack_tables_2d
 from intfftk_tpu_torch.ops.twiddle_synth import (EpiSynth, coarse_table,
                                                  device_circle_table,
                                                  synth_circle_block)
-from intfftk_tpu_torch.parallel import Channelizer
+from intfftk_tpu_torch.parallel import Channelizer, OverlapSaveConv
+from intfftk_tpu_torch.tools import probe_vpu as pv
 
 pytestmark = pytest.mark.cuda
 MODES = [("unscaled", "truncate"), ("scaled", "truncate"), ("scaled", "round")]
@@ -409,3 +412,109 @@ def test_large_wide_chain_on_card(dev):
     hr, hi = four_step_int(gr, gi, icfg, inv.n1, inv.n2, inverse=True)
     np.testing.assert_array_equal(z[0].cpu().numpy(), hr)
     np.testing.assert_array_equal(z[1].cpu().numpy(), hi)
+
+
+@pytest.mark.parametrize("k", [0, 1, 5, 64])
+@pytest.mark.parametrize("body", pv.INT32_BODIES)
+def test_probe_chain_int32_on_card(dev, body, k):
+    """K7: every chain body equal to its plain version, two CTAs."""
+    n = 2 * pv.cta_elems()
+    x = torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
+                      device=dev, generator=torch.Generator(
+                          device=dev).manual_seed(k))
+    before = pv.probe_chain.launches
+    y = pv.probe_chain(body, x, k)
+    torch.cuda.synchronize()
+    assert pv.probe_chain.launches == before + 1
+    assert torch.equal(y, pv.chain_reference(body, x, k))
+
+
+@pytest.mark.parametrize("k", [0, 1, 5, 64])
+@pytest.mark.parametrize("body", pv.INT16_BODIES)
+def test_probe_chain_int16_on_card(dev, body, k):
+    """K9: the int16 add chain, one element and two per register."""
+    n = 4 * pv.cta_elems()
+    x = torch.randint(-(1 << 15), 1 << 15, (n,), dtype=torch.int16,
+                      device=dev, generator=torch.Generator(
+                          device=dev).manual_seed(k))
+    before = pv.probe_chain.launches_int16
+    y = pv.probe_chain(body, x, k)
+    torch.cuda.synchronize()
+    assert pv.probe_chain.launches_int16 == before + 1
+    assert torch.equal(y, pv.chain_reference(body, x, k))
+
+
+def test_probe_copy_and_refusals_on_card(dev):
+    """K8: o = x + 1, the wrap at INT32_MAX included; what the kernels do
+    not take raises."""
+    x = torch.arange(-(1 << 20), 1 << 20, dtype=torch.int32, device=dev)
+    x[:2] = torch.tensor([2**31 - 1, -(2**31)], dtype=torch.int32)
+    before = pv.probe_copy.launches
+    y = pv.probe_copy(x)
+    torch.cuda.synchronize()
+    assert pv.probe_copy.launches == before + 1
+    assert torch.equal(y, pv.copy_reference(x))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pv.probe_copy(x[:6].clone())
+    with pytest.raises(ValueError, match="multiple of"):
+        pv.probe_chain("add", x[:100].clone(), 1)
+    with pytest.raises(ValueError, match="multiple of"):
+        pv.probe_chain("add_packed", torch.zeros(
+            pv.cta_elems(), dtype=torch.int16, device=dev), 1)
+
+
+def test_probe_guards_on_card(dev):
+    """A short reading of each mixed chain passes both guards, the copy
+    reads below the card's memory peak, and the ceilings are the better
+    chain and that peak."""
+    peak = pv.lane_rate_peak(dev)
+    x = pv.chain_input(torch.int32, dev)
+    for body in ("mixed7", "stagemix10"):
+        r = pv.chain_ops_per_s(body, target_ms=pv.TARGET_MS_QUICK, x=x)
+        pv.check_reading(r, peak)
+        assert r.ops_per_s > 0 and r.ks[2] % pv.K_BASE[2] == 0
+    assert 1e12 < pv.probe_hbm(1 << 26, dev) <= pv.memory_peak(dev) < 1e13
+    ops, byts = pv.same_session_ceilings(quick=True, device=dev)
+    assert ops > 1e13 and byts == pv.memory_peak(dev)
+
+
+@pytest.mark.parametrize("case", ["n256_complex", "n4096_batched",
+                                  "n16k_wide"])
+def test_convolution_on_card(dev, case):
+    """OverlapSaveConv on the card against golden overlap_save_int: the
+    single-pass pair (2 launches) and the four-step pair with a 44-bit
+    product (4 launches)."""
+    kw, batch, launches, dtype = {
+        "n256_complex": (dict(n=256, taps_len=33, data_width=12,
+                              taps_width=12), (), 2, torch.int32),
+        "n4096_batched": (dict(n=4096, taps_len=513, rounding="round"), (3,),
+                          2, torch.int32),
+        "n16k_wide": (dict(n=1 << 14, taps_len=(1 << 11) + 1,
+                           twiddle_width=16, max_product_width=44,
+                           max_spectrum_width=25), (), 4, torch.int64),
+    }[case]
+    spec = make_conv_spec(**kw)
+    rng = np.random.default_rng(spec.n)
+    lim = 1 << (spec.taps_width - 2)
+    h = rng.integers(-lim, lim, (2, spec.taps_len))
+    x = rng.integers(-lim, lim, (2,) + batch + (3 * spec.payload,))
+    conv = OverlapSaveConv(spec, *h, device=dev)
+    before = fused_pass.launches
+    yr, yi = conv(*x)
+    torch.cuda.synchronize()
+    assert fused_pass.launches == before + launches and yr.dtype == dtype
+    gr, gi = overlap_save_int(*x, *h, spec)
+    np.testing.assert_array_equal(yr.cpu().numpy(), gr)
+    np.testing.assert_array_equal(yi.cpu().numpy(), gi)
+    if conv.large:
+        pr, pi = conv(*x, pass_fn=fused_pass_reference)
+        assert torch.equal(pr, yr) and torch.equal(pi, yi)
+
+
+def test_default_device_is_the_card(dev):
+    """With no device argument every entry point builds on the card."""
+    cfg = FFTConfig(n=4096)
+    assert LargeFFTPlan(cfg, 16, 256).w1r.device.type == "cuda"
+    assert PallasFFTPlan(cfg).w_re.device.type == "cuda"
+    assert Channelizer(cfg).device.type == "cuda"
+    assert device_circle_table(cfg, 4096, 16, 256, False)[0].is_cuda

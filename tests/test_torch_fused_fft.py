@@ -22,6 +22,7 @@ from intfftk_tpu.config import FFTConfig
 from intfftk_tpu.golden import fft_int
 from intfftk_tpu.golden.four_step import four_step_int
 from intfftk_tpu.ops import pallas_fft as jp
+from intfftk_tpu_torch.convert import config_from_jax as P
 from intfftk_tpu_torch.convert import tables_from_jax
 from intfftk_tpu_torch.device import use_kernel
 from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, circle_table,
@@ -68,7 +69,7 @@ def _port_blocks(plan, xr, xi):
 
 
 def _check_slice(cfg, n1, n2, xr, xi):
-    plan = LargeFFTPlan(cfg, n1, n2)
+    plan = LargeFFTPlan(P(cfg), n1, n2, device="cpu")
     jplan = _jax_plan(cfg, n1, n2)
     assert (plan.n1, plan.n2, plan.io16) == (jplan.n1, jplan.n2, jplan.io16)
     yr, yi = _port_blocks(plan, xr, xi)
@@ -108,12 +109,12 @@ def test_fused_pass_vs_jax(mode, rounding, epi, inverse, natural, turned):
                           has_epi=epi, transpose_out=epi,
                           transpose_in=turned, interpret=True,
                           spectrum_rows="natural" if natural else "bitrev")
-    tables = tuple(torch.as_tensor(t) for t in pack_tables(cfg))
+    tables = tuple(torch.as_tensor(t) for t in pack_tables(P(cfg)))
     for ours, theirs in zip(tables, (jpass.consts["w_re"],
                                      jpass.consts["w_im"])):
         np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs)[:, 0])
     e = (tuple(torch.as_tensor(t) for t in circle_table(
-        dataclasses.replace(cfg, n=r * c), r, c, inverse,
+        P(dataclasses.replace(cfg, n=r * c)), r, c, inverse,
         "natural" if natural else "raw")) if epi else None)
     (jr,), (ji,) = jpass.apply(
         jpass.consts, (jnp.asarray(xr, jnp.int32),),
@@ -122,35 +123,35 @@ def test_fused_pass_vs_jax(mode, rounding, epi, inverse, natural, turned):
     x = [torch.as_tensor(v).int() for v in (xr, xi)]
     kw = dict(epi=e, transpose_out=epi, inverse=inverse, natural=natural,
               transpose_in=turned)
-    yr, yi = fused_pass_reference(*x, cfg, tables, **kw)
+    yr, yi = fused_pass_reference(*x, P(cfg), tables, **kw)
     np.testing.assert_array_equal(yr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(yi.numpy(), np.asarray(ji))
     before = fused_pass.launches
-    wr, wi = fused_pass(*x, cfg, tables, **kw)
+    wr, wi = fused_pass(*x, P(cfg), tables, **kw)
     assert torch.equal(wr, yr) and torch.equal(wi, yi)
     assert fused_pass.launches == before
 
 
 def test_fused_pass_rejects():
     cfg = FFTConfig(n=64)
-    tables = tuple(torch.as_tensor(t) for t in pack_tables(cfg))
+    tables = tuple(torch.as_tensor(t) for t in pack_tables(P(cfg)))
     x = torch.zeros(2, 64, 8, dtype=torch.int32)
     with pytest.raises(TypeError):           # int64 -> int32 is no pass
-        fused_pass(x.long(), x.long(), cfg, tables, transpose_out=False,
+        fused_pass(x.long(), x.long(), P(cfg), tables, transpose_out=False,
                    out_dtype=torch.int32)
     with pytest.raises(ValueError):
-        fused_pass(x[:, :32], x[:, :32], cfg, tables, transpose_out=False)
+        fused_pass(x[:, :32], x[:, :32], P(cfg), tables, transpose_out=False)
     with pytest.raises(ValueError):
-        fused_pass(x.transpose(1, 2), x.transpose(1, 2), cfg, tables,
+        fused_pass(x.transpose(1, 2), x.transpose(1, 2), P(cfg), tables,
                    transpose_out=False)
     with pytest.raises(ValueError):          # unscaled 64 rows: 22 bits
-        fused_pass(x.short(), x.short(), dataclasses.replace(
-            cfg, mode="unscaled"), tables, transpose_out=False)
+        fused_pass(x.short(), x.short(), P(dataclasses.replace(
+            cfg, mode="unscaled")), tables, transpose_out=False)
     with pytest.raises(ValueError):          # epilogue table of wrong shape
-        fused_pass(x, x, cfg, tables, epi=(tables[0], tables[1]),
+        fused_pass(x, x, P(cfg), tables, epi=(tables[0], tables[1]),
                    transpose_out=True)
     with pytest.raises(ValueError):          # a turned load wants [B, C, R]
-        fused_pass(x, x, cfg, tables, transpose_out=False, transpose_in=True)
+        fused_pass(x, x, P(cfg), tables, transpose_out=False, transpose_in=True)
 
 
 def test_device_resolver():
@@ -181,7 +182,7 @@ def test_large_fft_64k_main_path():
                     twiddle_width=16)
     xr, xi = _random((2, 65536), seed=7)
     xr[1], xi[1] = _adversarial((65536,))
-    plan = LargeFFTPlan(cfg)
+    plan = LargeFFTPlan(P(cfg), device="cpu")
     assert (plan.n1, plan.n2, plan.io16) == (256, 256, True)
     _check_slice(cfg, None, None, xr, xi)
 
@@ -208,7 +209,7 @@ def test_large_fft_4096_inverse_raw(mode, rounding, inverse, order):
     adversarial stimuli."""
     cfg = FFTConfig(n=4096, mode=mode, rounding=rounding, data_width=16,
                     twiddle_width=16)
-    plan = LargeFFTPlan(cfg, inverse=inverse, order=order)
+    plan = LargeFFTPlan(P(cfg), inverse=inverse, order=order, device="cpu")
     jplan = _jax_plan(cfg, None, None, inverse, order)
     assert (plan.n1, plan.n2, plan.io16) == (jplan.n1, jplan.n2, jplan.io16)
     np.testing.assert_array_equal(plan.raw_spectrum_order(),
@@ -238,8 +239,8 @@ def test_large_fft_raw_chain(mode, rounding):
     icfg = dataclasses.replace(cfg, data_width=cfg.output_width)
     if mode == "unscaled":
         icfg = dataclasses.replace(icfg, mode="scaled", rounding="round")
-    fwd = LargeFFTPlan(cfg, order="raw")
-    inv = LargeFFTPlan(icfg, fwd.n2, fwd.n1, inverse=True, order="raw")
+    fwd = LargeFFTPlan(P(cfg), order="raw", device="cpu")
+    inv = LargeFFTPlan(P(icfg), fwd.n2, fwd.n1, inverse=True, order="raw", device="cpu")
     assert inv.block_in_shape == fwd.block_out_shape
     assert inv.block_out_shape == fwd.block_in_shape
     np.testing.assert_array_equal(inv.raw_spectrum_order(),
@@ -259,8 +260,8 @@ def test_large_fft_64k_roundtrip():
     cfg = FFTConfig(n=65536, mode="scaled", rounding="round", data_width=16,
                     twiddle_width=16)
     icfg = dataclasses.replace(cfg, data_width=cfg.output_width)
-    fwd = LargeFFTPlan(cfg, order="raw")
-    inv = LargeFFTPlan(icfg, fwd.n2, fwd.n1, inverse=True, order="raw")
+    fwd = LargeFFTPlan(P(cfg), order="raw", device="cpu")
+    inv = LargeFFTPlan(P(icfg), fwd.n2, fwd.n1, inverse=True, order="raw", device="cpu")
     xr, xi = _random((1, 65536), seed=10)
     yr, yi = _port_blocks(fwd, xr, xi)
     gr, gi = four_step_int(xr, xi, cfg, 256, 256)
@@ -276,7 +277,7 @@ def test_large_fft_64k_roundtrip():
 def test_forward_flat():
     cfg = FFTConfig(n=4096, mode="scaled", rounding="truncate")
     xr, xi = _random((2, 4096), seed=3)
-    yr, yi = LargeFFTPlan(cfg)(torch.as_tensor(xr), torch.as_tensor(xi))
+    yr, yi = LargeFFTPlan(P(cfg), device="cpu")(torch.as_tensor(xr), torch.as_tensor(xi))
     gr, gi = four_step_int(xr, xi, cfg, 32, 128)
     np.testing.assert_array_equal(yr.numpy(), gr)
     np.testing.assert_array_equal(yi.numpy(), gi)
@@ -298,10 +299,10 @@ def test_tables_from_jax(inverse, order):
     jplan = _jax_plan(cfg, None, None, inverse, order)
     tables = tables_from_jax(jax.tree_util.tree_map(np.asarray,
                                                     jplan.consts))
-    plan = LargeFFTPlan(cfg, inverse=inverse, order=order)
+    plan = LargeFFTPlan(P(cfg), inverse=inverse, order=order, device="cpu")
     for name, t in tables.items():
         assert torch.equal(getattr(plan, name), t), name
-    loaded = LargeFFTPlan(cfg, inverse=inverse, order=order)
+    loaded = LargeFFTPlan(P(cfg), inverse=inverse, order=order, device="cpu")
     for name in tables:
         getattr(loaded, name).zero_()
     loaded.load_tables(tables)
@@ -321,21 +322,21 @@ def test_not_ported_raises(kw):
     bits, int32 -> int32 -> int64 blocks); the monolithic schedule keeps
     refusing a wide data path, as the JAX one does."""
     cfg = kw.pop("cfg", FFTConfig(n=65536))
-    plan = LargeFFTPlan(cfg, **kw)
+    plan = LargeFFTPlan(P(cfg), **kw, device="cpu")
     assert (plan.wide_in, plan.wide1, plan.wide2) == (False, False, True)
     assert (plan.in_dtype, plan.mid_dtype, plan.out_dtype) == (
         torch.int32, torch.int32, torch.int64)
     assert [kw["out_dtype"] for _, kw in plan.passes()] == [torch.int32,
                                                             torch.int64]
     with pytest.raises(NotImplementedError, match="monolithic"):
-        LargeFFTPlan(cfg, schedule="monolithic", **kw)
+        LargeFFTPlan(P(cfg), schedule="monolithic", **kw, device="cpu")
 
 
 def test_bad_arguments():
     with pytest.raises(ValueError):
-        LargeFFTPlan(FFTConfig(n=4096), 4, 1024)
+        LargeFFTPlan(P(FFTConfig(n=4096)), 4, 1024, device="cpu")
     with pytest.raises(ValueError):
-        LargeFFTPlan(FFTConfig(n=4096), order="bitrev")
+        LargeFFTPlan(P(FFTConfig(n=4096)), order="bitrev", device="cpu")
 
 
 def test_import_leaves_jax_out():
@@ -378,8 +379,8 @@ def _mono_golden(xr, xi, cfg, plan):
 
 def _check_mono(cfg, xr, xi, inverse=False, order="natural", jax=True):
     """The monolithic plan's blocks == golden fft_int (== the JAX plan)."""
-    plan = LargeFFTPlan(cfg, inverse=inverse, order=order,
-                        schedule="monolithic")
+    plan = LargeFFTPlan(P(cfg), inverse=inverse, order=order,
+                        schedule="monolithic", device="cpu")
     assert plan.epi_mode is None
     yr, yi = _port_blocks(plan, xr, xi)
     gr, gi = _mono_golden(xr, xi, cfg, plan)
@@ -448,7 +449,7 @@ def test_monolithic_raw(inverse):
                     data_width=16, twiddle_width=16)
     xr, xi = _random((2, 1 << 13), seed=24)
     plan, _ = _check_mono(cfg, xr, xi, inverse, "raw")
-    fwd = LargeFFTPlan(cfg, order="raw", schedule="monolithic")
+    fwd = LargeFFTPlan(P(cfg), order="raw", schedule="monolithic", device="cpu")
     np.testing.assert_array_equal(plan.raw_spectrum_order(),
                                   fwd.raw_spectrum_order())
     np.testing.assert_array_equal(fwd.raw_spectrum_order(),
@@ -462,8 +463,8 @@ def test_monolithic_raw_chain():
     the golden natural composition."""
     cfg = FFTConfig(n=1 << 13, mode="scaled", rounding="round",
                     data_width=16, twiddle_width=16)
-    fwd = LargeFFTPlan(cfg, order="raw", schedule="monolithic")
-    inv = LargeFFTPlan(cfg, inverse=True, order="raw", schedule="monolithic")
+    fwd = LargeFFTPlan(P(cfg), order="raw", schedule="monolithic", device="cpu")
+    inv = LargeFFTPlan(P(cfg), inverse=True, order="raw", schedule="monolithic", device="cpu")
     assert inv.block_in_shape == fwd.block_out_shape
     xr, xi = _adversarial((2, 1 << 13))
     zr, zi = _port_blocks(inv, *_port_blocks(fwd, xr, xi))
@@ -490,12 +491,12 @@ def test_monolithic_64k(inverse):
 def test_monolithic_limits():
     """The monolithic schedule reaches 512K, the reference core's limit;
     above it, ValueError.  bypass_fly leaves the reorders alone."""
-    p = LargeFFTPlan(FFTConfig(n=1 << 19), schedule="monolithic")
+    p = LargeFFTPlan(P(FFTConfig(n=1 << 19)), schedule="monolithic", device="cpu")
     assert (p.n1, p.n2, tuple(p.t2r.shape)) == (1024, 512, (1024, 512))
     with pytest.raises(ValueError, match="fourstep"):
-        LargeFFTPlan(FFTConfig(n=1 << 20), schedule="monolithic")
+        LargeFFTPlan(P(FFTConfig(n=1 << 20)), schedule="monolithic", device="cpu")
     with pytest.raises(ValueError):
-        LargeFFTPlan(FFTConfig(n=1 << 10), schedule="whole")
+        LargeFFTPlan(P(FFTConfig(n=1 << 10)), schedule="whole", device="cpu")
     cfg = FFTConfig(n=1 << 10, bypass_fly=True)
     xr, xi = _random((1, 1 << 10), seed=26)
     for inverse in (False, True):
@@ -512,10 +513,10 @@ def test_tables_from_jax_monolithic(inverse):
     tables = tables_from_jax(jax.tree_util.tree_map(np.asarray,
                                                     jplan.consts))
     assert set(tables) == {"wsr", "wsi", "t2r", "t2i"}
-    plan = LargeFFTPlan(cfg, inverse=inverse, schedule="monolithic")
+    plan = LargeFFTPlan(P(cfg), inverse=inverse, schedule="monolithic", device="cpu")
     for name, t in tables.items():
         assert torch.equal(getattr(plan, name), t), name
-    loaded = LargeFFTPlan(cfg, inverse=inverse, schedule="monolithic")
+    loaded = LargeFFTPlan(P(cfg), inverse=inverse, schedule="monolithic", device="cpu")
     for name in tables:
         getattr(loaded, name).zero_()
     loaded.load_tables(tables)

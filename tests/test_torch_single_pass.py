@@ -15,6 +15,7 @@ from intfftk_tpu.config import FFTConfig
 from intfftk_tpu.golden import fft_int
 from intfftk_tpu.golden.float_model import bitrev_indices
 from intfftk_tpu.ops import pallas_fft as jp
+from intfftk_tpu_torch.convert import config_from_jax as P
 from intfftk_tpu_torch.convert import tables_from_jax
 from intfftk_tpu_torch.ops.fused_fft import fused_pass
 from intfftk_tpu_torch.ops.single_pass import FusedAxisFFT, PallasFFTPlan
@@ -76,7 +77,7 @@ def test_pallas_plan_vs_jax(mode, rounding, layout, inverse, order):
     gr, gi = _golden(xr, xi, cfg, inverse, order)
     if layout == "nb":
         xr, xi, gr, gi = xr.T, xi.T, gr.T, gi.T
-    plan = PallasFFTPlan(cfg, inverse=inverse, layout=layout, order=order)
+    plan = PallasFFTPlan(P(cfg), inverse=inverse, layout=layout, order=order, device="cpu")
     got = _run(plan, xr, xi)
     jplan = jp.PallasFFTPlan(cfg, inverse=inverse, layout=layout,
                              order=order, interpret=True)
@@ -91,7 +92,7 @@ def test_pallas_plan_ragged_batch(layout, inverse, order):
     """Any B >= 1: B = 5 and B = 200 (not a multiple of the kernel's
     32-column tile), n = 256, scaled/round, against golden."""
     cfg = FFTConfig(n=256, mode="scaled", rounding="round")
-    plan = PallasFFTPlan(cfg, inverse=inverse, layout=layout, order=order)
+    plan = PallasFFTPlan(P(cfg), inverse=inverse, layout=layout, order=order, device="cpu")
     for b in (5, 200):
         xr, xi = _stimulus((b, 256), seed=b)
         gr, gi = _golden(xr, xi, cfg, inverse, order)
@@ -106,7 +107,7 @@ def test_pallas_plan_int32_unscaled(inverse, order):
     """n = 1024 unscaled/truncate: a 26-bit data path from 16-bit data,
     B = 3, against golden."""
     cfg = FFTConfig(n=1024, mode="unscaled", rounding="truncate")
-    plan = PallasFFTPlan(cfg, inverse=inverse, layout="nb", order=order)
+    plan = PallasFFTPlan(P(cfg), inverse=inverse, layout="nb", order=order, device="cpu")
     xr, xi = _stimulus((3, 1024), seed=11)
     gr, gi = _golden(xr, xi, cfg, inverse, order)
     _equal(_run(plan, xr.T, xi.T), (gr.T, gi.T))
@@ -119,7 +120,7 @@ def test_fused_axis_vs_jax(inverse, order):
     FusedAxisFFT (interpret) == golden."""
     cfg = FFTConfig(n=1024, mode="scaled", rounding="truncate")
     xr, xi = _stimulus((2, 3, 1024), seed=12)
-    got = _run(FusedAxisFFT(cfg, inverse=inverse, order=order), xr, xi)
+    got = _run(FusedAxisFFT(P(cfg), inverse=inverse, order=order, device="cpu"), xr, xi)
     _equal(got, jp.FusedAxisFFT(cfg, inverse=inverse, order=order,
                                 interpret=True)(xr, xi))
     _equal(got, _golden(xr, xi, cfg, inverse, order))
@@ -130,7 +131,7 @@ def test_fused_axis_4096():
     transforms: == JAX FusedAxisFFT (interpret) == golden."""
     cfg = FFTConfig(n=4096, mode="scaled", rounding="round")
     xr, xi = _stimulus((2, 4096), seed=13)
-    got = _run(FusedAxisFFT(cfg, inverse=True), xr, xi)
+    got = _run(FusedAxisFFT(P(cfg), inverse=True, device="cpu"), xr, xi)
     _equal(got, jp.FusedAxisFFT(cfg, inverse=True, interpret=True)(xr, xi))
     _equal(got, fft_int(xr, xi, cfg, inverse=True))
 
@@ -144,10 +145,10 @@ def test_tables_from_jax(cls):
     jplan = jax_cls(cfg, inverse=True, interpret=True)
     tables = tables_from_jax(jax.tree_util.tree_map(np.asarray,
                                                     jplan.consts))
-    plan = port_cls(cfg, inverse=True)
+    plan = port_cls(P(cfg), inverse=True, device="cpu")
     for name, t in tables.items():
         assert torch.equal(getattr(plan, name), t), name
-    loaded = port_cls(cfg, inverse=True)
+    loaded = port_cls(P(cfg), inverse=True, device="cpu")
     loaded.w_re.zero_()
     loaded.load_state_dict(tables)
     xr, xi = _stimulus((4, 512), seed=14)
@@ -157,18 +158,18 @@ def test_tables_from_jax(cls):
 
 def test_guards():
     with pytest.raises(NotImplementedError):
-        PallasFFTPlan(FFTConfig(n=8192))
+        PallasFFTPlan(P(FFTConfig(n=8192)), device="cpu")
     with pytest.raises(NotImplementedError, match="PallasWideFFTPlan"):
-        FusedAxisFFT(FFTConfig(n=4096, mode="unscaled", data_width=24))
+        FusedAxisFFT(P(FFTConfig(n=4096, mode="unscaled", data_width=24)), device="cpu")
     with pytest.raises(ValueError):
-        PallasFFTPlan(FFTConfig(n=64), layout="cn")
+        PallasFFTPlan(P(FFTConfig(n=64)), layout="cn", device="cpu")
     with pytest.raises(ValueError):
-        FusedAxisFFT(FFTConfig(n=64), order="raw")
-    plan = PallasFFTPlan(FFTConfig(n=64))
+        FusedAxisFFT(P(FFTConfig(n=64)), order="raw", device="cpu")
+    plan = PallasFFTPlan(P(FFTConfig(n=64)), device="cpu")
     z = torch.zeros(32, 128, dtype=torch.int32)
     with pytest.raises(ValueError):                  # wrong n
         plan(z, z)
     with pytest.raises(ValueError):                  # not a 2-D tile
         plan(z.reshape(64, 8, 8), z.reshape(64, 8, 8))
     with pytest.raises(ValueError):
-        FusedAxisFFT(FFTConfig(n=64))(z, z)          # last axis != n
+        FusedAxisFFT(P(FFTConfig(n=64)), device="cpu")(z, z)          # last axis != n

@@ -12,6 +12,7 @@ from intfftk_tpu.config import FFTConfig
 from intfftk_tpu.golden import fft_int, random_stimulus
 from intfftk_tpu.ops.pallas_fft import PallasFFTPlan as JaxPallasFFTPlan
 from intfftk_tpu.runtime.stream import StreamExecutor as JaxStreamExecutor
+from intfftk_tpu_torch.convert import config_from_jax as P
 from intfftk_tpu_torch.ops.single_pass import PallasFFTPlan
 from intfftk_tpu_torch.parallel import Channelizer
 from intfftk_tpu_torch.runtime import StreamExecutor
@@ -41,7 +42,7 @@ def test_stream_bursty_chunks():
     cfg = FFTConfig(n=n, mode="scaled", rounding="round")
     re, im = random_stimulus(n, 16, seed=1, batch=(total,))
     gr, gi = fft_int(re, im, cfg)
-    ex = StreamExecutor(PallasFFTPlan(cfg, layout="nb"), n=n, lane_tile=128)
+    ex = StreamExecutor(PallasFFTPlan(P(cfg), layout="nb", device="cpu"), n=n, lane_tile=128, device="cpu")
     out_r, out_i = _bursty(ex, re, im, seed=0)
     assert out_r.dtype == np.int32
     np.testing.assert_array_equal(out_r, gr)
@@ -67,7 +68,7 @@ def test_stream_channelizer(layout, inverse, depth):
     cfg = FFTConfig(n=n, mode="scaled", rounding="round")
     re, im = random_stimulus(n, 16, seed=2, batch=(total,))
     gr, gi = fft_int(re, im, cfg, inverse=inverse)
-    ex = Channelizer(cfg, inverse=inverse, layout=layout).stream(
+    ex = Channelizer(P(cfg), inverse=inverse, layout=layout, device="cpu").stream(
         lane_tile=64, depth=depth)
     out_r, out_i = _bursty(ex, re, im, seed=depth)
     np.testing.assert_array_equal(out_r, gr)
@@ -83,7 +84,7 @@ def test_channelizer_nc_layout():
     its valid columns."""
     n, ch = 128, 256
     cfg = FFTConfig(n=n, mode="scaled", rounding="round")
-    c = Channelizer(cfg, layout="nc")
+    c = Channelizer(P(cfg), layout="nc", device="cpu")
     re, im = random_stimulus(n, 16, seed=5, batch=(ch,))
     gr, gi = fft_int(re, im, cfg)
     yr, yi = c(c.shard(re.T), c.shard(im.T))
@@ -110,7 +111,7 @@ def test_stream_tiles_are_copies():
         seen.append(xr.clone())
         return xr + 0, xi + 0                   # the identity transform
 
-    ex = StreamExecutor(plan, n=n, lane_tile=lane, depth=2)
+    ex = StreamExecutor(plan, n=n, lane_tile=lane, depth=2, device="cpu")
     rng = np.random.default_rng(6)
     data = rng.integers(-100, 100, (n, 90))
     chunks = [data[:, :1][:, 0], data[:, 1:5], data[:, 5:61], data[:, 61:90]]
@@ -128,11 +129,11 @@ def test_stream_tiles_are_copies():
 
 
 def test_stream_rejects():
-    plan = PallasFFTPlan(FFTConfig(n=64))
-    ex = StreamExecutor(plan, n=64)
+    plan = PallasFFTPlan(P(FFTConfig(n=64)), device="cpu")
+    ex = StreamExecutor(plan, n=64, device="cpu")
     with pytest.raises(ValueError, match="rows"):
         list(ex.feed(np.zeros((32, 4)), np.zeros((32, 4))))
     with pytest.raises(ValueError):
-        StreamExecutor(plan, n=64, lane_tile=0)
+        StreamExecutor(plan, n=64, lane_tile=0, device="cpu")
     with pytest.raises(ValueError):
-        StreamExecutor(plan, n=64, depth=0)
+        StreamExecutor(plan, n=64, depth=0, device="cpu")

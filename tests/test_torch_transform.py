@@ -15,6 +15,7 @@ from intfftk_tpu.ops import transform as jt
 from intfftk_tpu.ops import pallas_fft as jp
 from intfftk_tpu.ops.pallas_fft import _pack_tables
 from intfftk_tpu.ops.transform import FFTPlan as JaxFFTPlan
+from intfftk_tpu_torch.convert import config_from_jax as P
 from intfftk_tpu_torch.ops import transform as tt
 from intfftk_tpu_torch.ops.transform import (FFTPlan, bitrev_last,
                                              pack_tables, pack_tables_2d)
@@ -23,7 +24,7 @@ MODES = [("unscaled", "truncate"), ("scaled", "truncate"), ("scaled", "round")]
 
 
 def _check(cfg, re, im, inverse=False):
-    yr, yi = FFTPlan(cfg, inverse=inverse)(torch.as_tensor(re),
+    yr, yi = FFTPlan(P(cfg), inverse=inverse)(torch.as_tensor(re),
                                            torch.as_tensor(im))
     gr, gi = fft_int(re, im, cfg, inverse=inverse)
     np.testing.assert_array_equal(yr.numpy(), gr)
@@ -84,10 +85,10 @@ def test_stage_edges(mode, rounding, p):
     lanes = [np.resize(v, m).reshape(-1, h) for v in (a, b, b[::-1], a)]
     ar, br, ai, bi = lanes
     k = np.arange(h)
-    w_re, w_im = (torch.as_tensor(t)[h: 2 * h] for t in pack_tables(cfg))
+    w_re, w_im = (torch.as_tensor(t)[h: 2 * h] for t in pack_tables(P(cfg)))
     for ours, golden in ((tt.dif_stage, int_model.dif_butterfly_int),
                          (tt.dit_stage, int_model.dit_butterfly_int)):
-        got = ours(*(torch.as_tensor(v) for v in (ar, ai, br, bi)), cfg,
+        got = ours(*(torch.as_tensor(v) for v in (ar, ai, br, bi)), P(cfg),
                    dw, p, w_re, w_im)
         want = golden(ar, ai, br, bi, k, p, cfg, dw)
         for g, w in zip(got, want):
@@ -101,16 +102,16 @@ def test_raw_order(inverse):
     it."""
     cfg = FFTConfig(n=512, mode="scaled", rounding="round")
     re, im = random_stimulus(512, 16, seed=6, batch=(2,))
-    tables = [torch.as_tensor(t) for t in pack_tables(cfg)]
+    tables = [torch.as_tensor(t) for t in pack_tables(P(cfg))]
     x = [torch.as_tensor(v) for v in (re, im)]
     rev = bitrev_indices(512)
-    nat = tt.fft_stages(*x, cfg, *tables, inverse=inverse)
+    nat = tt.fft_stages(*x, P(cfg), *tables, inverse=inverse)
     if inverse:
-        raw = tt.fft_stages(*(v[:, rev] for v in x), cfg, *tables,
+        raw = tt.fft_stages(*(v[:, rev] for v in x), P(cfg), *tables,
                             inverse=True, natural=False)
         want = nat
     else:
-        raw = tt.fft_stages(*x, cfg, *tables, natural=False)
+        raw = tt.fft_stages(*x, P(cfg), *tables, natural=False)
         want = [v[:, rev] for v in nat]
     for g, w in zip(raw, want):
         assert torch.equal(g, w)
@@ -125,7 +126,7 @@ def test_fft_ifft_pair(mode, rounding, fly_fwd, fly_inv):
     cfg = FFTConfig(n=128, mode=mode, rounding=rounding, data_width=12,
                     twiddle_width=16)
     re, im = random_stimulus(128, 12, seed=7, batch=(2,))
-    yr, yi = tt.fft_ifft_pair(re, im, cfg, fly_fwd, fly_inv)
+    yr, yi = tt.fft_ifft_pair(re, im, P(cfg), fly_fwd, fly_inv)
     jr, ji = jt.fft_ifft_pair(re, im, cfg, fly_fwd, fly_inv)
     np.testing.assert_array_equal(yr.numpy(), np.asarray(jr, np.int64))
     np.testing.assert_array_equal(yi.numpy(), np.asarray(ji, np.int64))
@@ -141,7 +142,7 @@ def test_fft_ifft_functions():
     cfg = FFTConfig(n=64, mode="scaled", rounding="truncate")
     re, im = random_stimulus(64, 16, seed=8, batch=(3,))
     for ours, inverse in ((tt.fft, False), (tt.ifft, True)):
-        yr, yi = ours(re, im, cfg)
+        yr, yi = ours(re, im, P(cfg))
         gr, gi = fft_int(re, im, cfg, inverse=inverse)
         np.testing.assert_array_equal(yr.numpy(), gr)
         np.testing.assert_array_equal(yi.numpy(), gi)
@@ -149,7 +150,7 @@ def test_fft_ifft_functions():
 
 def test_pack_tables_match_jax():
     cfg = FFTConfig(n=4096, twiddle_width=18)
-    for ours, theirs in zip(pack_tables(cfg), _pack_tables(cfg, False)):
+    for ours, theirs in zip(pack_tables(P(cfg)), _pack_tables(cfg, False)):
         np.testing.assert_array_equal(ours, theirs[:, 0])
 
 
@@ -157,7 +158,7 @@ def test_pack_tables_2d_match_jax():
     """The monolithic 2-D stage tables == ``_pack_tables_2d``, Taylor
     stages included (64 x 128 at n = 8192)."""
     cfg = FFTConfig(n=1 << 13, twiddle_width=16, twiddle_gen="taylor_new")
-    for ours, theirs in zip(pack_tables_2d(cfg, 64, 128),
+    for ours, theirs in zip(pack_tables_2d(P(cfg), 64, 128),
                             jp._pack_tables_2d(cfg, 64, 128)):
         assert ours.dtype == np.int32
         np.testing.assert_array_equal(ours, theirs)
@@ -178,7 +179,7 @@ def test_fft_stages_2d_vs_jax(mode, rounding, inverse, natural):
     re, im = random_stimulus(n1, 16, seed=11, batch=(n2,))
     re[::4] = -(1 << 15)
     re[::4, ::3] = (1 << 15) - 1
-    yr, yi = tt.fft_stages_2d(torch.as_tensor(re), torch.as_tensor(im), cfg,
+    yr, yi = tt.fft_stages_2d(torch.as_tensor(re), torch.as_tensor(im), P(cfg),
                               *(torch.as_tensor(v) for v in t),
                               inverse=inverse, natural=natural)
     import jax.numpy as jnp
@@ -203,14 +204,14 @@ def test_not_ported_raises():
     cfg = FFTConfig(n=64, mode="unscaled", data_width=30)
     re, im = random_stimulus(64, 30, seed=9, batch=(2,))
     re[0, ::2] = -(1 << 29)
-    plan = FFTPlan(cfg)
-    assert isinstance(tt.make_plan(cfg), tt.WideFFTPlan)
+    plan = FFTPlan(P(cfg))
+    assert isinstance(tt.make_plan(P(cfg)), tt.WideFFTPlan)
     yr, yi = plan(torch.as_tensor(re), torch.as_tensor(im))
     gr, gi = fft_int(re, im, cfg)
     np.testing.assert_array_equal(yr.numpy(), gr)
     np.testing.assert_array_equal(yi.numpy(), gi)
     with pytest.raises(NotImplementedError, match="int64"):
-        FFTPlan(FFTConfig(n=8192, mode="unscaled", data_width=52))
+        FFTPlan(P(FFTConfig(n=8192, mode="unscaled", data_width=52)))
 
 
 def test_wide_pair_raises():
@@ -220,12 +221,12 @@ def test_wide_pair_raises():
     before any work."""
     cfg = FFTConfig(n=1024, mode="unscaled")
     icfg = dataclasses.replace(cfg, data_width=cfg.output_width)
-    assert isinstance(tt.make_plan(icfg, inverse=True), tt.WideFFTPlan)
+    assert isinstance(tt.make_plan(P(icfg), inverse=True), tt.WideFFTPlan)
     re, im = random_stimulus(1024, 16, seed=10, batch=(1,))
-    yr, yi = tt.fft_ifft_pair(re, im, cfg)
+    yr, yi = tt.fft_ifft_pair(re, im, P(cfg))
     gr, gi = fft_int(*fft_int(re, im, cfg), icfg, inverse=True)
     np.testing.assert_array_equal(yr.numpy(), gr)
     np.testing.assert_array_equal(yi.numpy(), gi)
     big = FFTConfig(n=1 << 16, mode="unscaled", data_width=36)
     with pytest.raises(NotImplementedError, match="int64"):
-        tt.fft_ifft_pair(np.zeros((1, 1 << 16)), np.zeros((1, 1 << 16)), big)
+        tt.fft_ifft_pair(np.zeros((1, 1 << 16)), np.zeros((1, 1 << 16)), P(big))

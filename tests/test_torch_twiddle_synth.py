@@ -21,6 +21,7 @@ from intfftk_tpu.golden.four_step import four_step_int
 from intfftk_tpu.golden.twiddle import circle_twiddles_int
 from intfftk_tpu.ops import pallas_fft as jp
 from intfftk_tpu.ops import twiddle_synth as js
+from intfftk_tpu_torch.convert import config_from_jax as P
 from intfftk_tpu_torch.convert import tables_from_jax, unpack_coarse
 from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, fused_pass,
                                               fused_pass_reference)
@@ -55,7 +56,7 @@ def test_synth_block_bits(n, gen, inverse):
     cfg = _cfg(n, gen)
     L = n.bit_length() - 1
     n2, n1 = 1 << (L // 2), n >> (L // 2)
-    er, ei = synth_circle_block(coarse_table(cfg), n1, n2, 0, n, cfg,
+    er, ei = synth_circle_block(coarse_table(P(cfg)), n1, n2, 0, n, P(cfg),
                                 inverse)
     assert er.dtype == torch.int32 and tuple(er.shape) == (n1, n2)
     gr, gi = _golden_block(n, gen, n1, n2, 0, inverse)
@@ -74,19 +75,19 @@ def test_synth_block_offset(inverse):
     40-column one against golden."""
     n, gen = 1 << 20, "taylor_new"
     cfg = _cfg(n, gen)
-    co = coarse_table(cfg)
-    er, ei = synth_circle_block(co, 1024, 128, 384, n, cfg, inverse)
+    co = coarse_table(P(cfg))
+    er, ei = synth_circle_block(co, 1024, 128, 384, n, P(cfg), inverse)
     jr, ji = jax.jit(lambda t: js.synth_circle_block(
         t, 1024, 128, 384, n, cfg, inverse))(
             jnp.asarray(js.packed_coarse(cfg)))
     np.testing.assert_array_equal(er.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(ei.numpy(), np.asarray(ji))
-    er, ei = synth_circle_block(co, 1024, 40, 984, n, cfg, inverse)
+    er, ei = synth_circle_block(co, 1024, 40, 984, n, P(cfg), inverse)
     gr, gi = _golden_block(n, gen, 1024, 40, 984, inverse)
     np.testing.assert_array_equal(er.numpy(), gr)
     np.testing.assert_array_equal(ei.numpy(), gi)
     with pytest.raises(ValueError):        # k1 * j2 would reach n
-        synth_circle_block(co, 1024, 40, 1000, n, cfg, inverse)
+        synth_circle_block(co, 1024, 40, 1000, n, P(cfg), inverse)
 
 
 def test_device_circle_table_matches_jax():
@@ -95,7 +96,7 @@ def test_device_circle_table_matches_jax():
     n, n1, n2 = 1 << 19, 1 << 10, 1 << 9
     cfg = _cfg(n)
     before = device_circle_table.launches
-    er, ei = device_circle_table(cfg, n, n1, n2, inverse=False)
+    er, ei = device_circle_table(P(cfg), n, n1, n2, inverse=False, device="cpu")
     assert device_circle_table.launches == before
     jr, ji = js.device_circle_table(cfg, n, n1, n2, inverse=False)
     np.testing.assert_array_equal(er.numpy(), np.asarray(jr))
@@ -107,15 +108,15 @@ def test_coarse_table_and_can_synth():
     JAX rule on natural/raw order, ROM twiddles, widths and sizes."""
     cfg = _cfg(1 << 20)
     re, im = unpack_coarse(js.packed_coarse(cfg))
-    ours = coarse_table(cfg)
+    ours = coarse_table(P(cfg))
     assert torch.equal(ours[0], re) and torch.equal(ours[1], im)
     cases = [_cfg(1 << 20), _cfg(1 << 12), _cfg(1 << 11), _cfg(1 << 20, "rom"),
              FFTConfig(n=1 << 20, twiddle_width=17), _cfg(1 << 16, "taylor_new")]
     for cfg in cases:
         for order in ("natural", "raw"):
-            assert can_synth(cfg, order) == js.can_synth(cfg, order)
-    assert can_synth(_cfg(1 << 12), "natural")
-    assert not can_synth(_cfg(1 << 11), "natural")
+            assert can_synth(P(cfg), order) == js.can_synth(cfg, order)
+    assert can_synth(P(_cfg(1 << 12)), "natural")
+    assert not can_synth(P(_cfg(1 << 11)), "natural")
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
@@ -132,22 +133,22 @@ def test_fused_pass_synth_vs_jax(inverse):
                           spectrum_rows="natural", epi_synth_n=n)
     (jr,), (ji,) = jpass.apply(jpass.consts, (jnp.asarray(xr, jnp.int32),),
                                (jnp.asarray(xi, jnp.int32),))
-    tables = tuple(torch.as_tensor(t) for t in pack_tables(cfg))
-    syn = EpiSynth(*coarse_table(cfg), n)
+    tables = tuple(torch.as_tensor(t) for t in pack_tables(P(cfg)))
+    syn = EpiSynth(*coarse_table(P(cfg)), n)
     x = [torch.as_tensor(v).int() for v in (xr, xi)]
     kw = dict(synth=syn, transpose_out=True, inverse=inverse)
-    yr, yi = fused_pass_reference(*x, cfg, tables, **kw)
+    yr, yi = fused_pass_reference(*x, P(cfg), tables, **kw)
     np.testing.assert_array_equal(yr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(yi.numpy(), np.asarray(ji))
     before = fused_pass.launches
-    wr, wi = fused_pass(*x, cfg, tables, **kw)
+    wr, wi = fused_pass(*x, P(cfg), tables, **kw)
     assert torch.equal(wr, yr) and torch.equal(wi, yi)
     assert fused_pass.launches == before
     with pytest.raises(ValueError):          # synthesis is natural order
-        fused_pass(*x, cfg, tables, synth=syn, transpose_out=True,
+        fused_pass(*x, P(cfg), tables, synth=syn, transpose_out=True,
                    natural=False)
     with pytest.raises(ValueError):          # 64 x 128 blocks reach 8192
-        fused_pass(*x, cfg, tables, synth=EpiSynth(syn.re, syn.im, 4096),
+        fused_pass(*x, P(cfg), tables, synth=EpiSynth(syn.re, syn.im, 4096),
                    transpose_out=True)
 
 
@@ -176,7 +177,7 @@ def test_large_fft_256k_epi_modes(mode, inverse):
     == the JAX split plan; "auto" is "device" here, and "inkernel" holds no
     epilogue table."""
     cfg = _cfg(N256K)
-    plan = LargeFFTPlan(cfg, inverse=inverse, epi_synth=mode)
+    plan = LargeFFTPlan(P(cfg), inverse=inverse, epi_synth=mode, device="cpu")
     jplan, jr, ji = _jax_256k(inverse)
     assert plan.epi_mode == ("device" if mode == "auto" else mode)
     assert (plan.n1, plan.n2, plan.io16) == (jplan.n1, jplan.n2, jplan.io16)
@@ -199,13 +200,13 @@ def test_epi_synth_rejects():
                 dict(epi_synth="yes"), dict(epi_synth=True),
                 dict(schedule="monolithic", epi_synth="device")):
         with pytest.raises(ValueError):
-            LargeFFTPlan(cfg, **bad)
+            LargeFFTPlan(P(cfg), **bad, device="cpu")
     with pytest.raises(ValueError):          # twiddles wider than 16 bits
-        LargeFFTPlan(FFTConfig(n=N256K, twiddle_width=18),
-                     epi_synth="inkernel")
+        LargeFFTPlan(P(FFTConfig(n=N256K, twiddle_width=18)),
+                     epi_synth="inkernel", device="cpu")
     for cfg, order in ((FFTConfig(n=N256K, twiddle_width=18), "natural"),
                        (_cfg(N256K, "rom"), "natural"), (cfg, "raw")):
-        assert LargeFFTPlan(cfg, order=order).epi_mode == "host"
+        assert LargeFFTPlan(P(cfg), order=order, device="cpu").epi_mode == "host"
 
 
 @pytest.mark.parametrize("mode", ["device", "inkernel"])
@@ -219,11 +220,11 @@ def test_tables_from_jax_synth_modes(mode, monkeypatch):
     assert jplan.epi_mode == mode
     tables = tables_from_jax(jax.tree_util.tree_map(np.asarray,
                                                     jplan.consts))
-    plan = LargeFFTPlan(cfg, epi_synth=mode)
+    plan = LargeFFTPlan(P(cfg), epi_synth=mode, device="cpu")
     assert set(tables) == set(dict(plan.named_buffers()))
     for name, t in tables.items():
         assert torch.equal(getattr(plan, name), t), name
-    loaded = LargeFFTPlan(cfg, epi_synth=mode)
+    loaded = LargeFFTPlan(P(cfg), epi_synth=mode, device="cpu")
     for name in tables:
         getattr(loaded, name).zero_()
     loaded.load_tables(tables)

@@ -23,6 +23,7 @@ from intfftk_tpu.golden import fft_int
 from intfftk_tpu.golden.four_step import four_step_int
 from intfftk_tpu.ops import pallas_fft as jp
 from intfftk_tpu.ops import transform as jt
+from intfftk_tpu_torch.convert import config_from_jax as P
 from intfftk_tpu_torch.convert import (int64_from_planes, planes_from_int64,
                                        tables_from_jax)
 from intfftk_tpu_torch.ops import transform as tt
@@ -111,7 +112,7 @@ def test_wide_plan_vs_golden_and_jax(n, mode, rounding, dw, tw, inverse):
     cfg = FFTConfig(n=n, mode=mode, rounding=rounding, data_width=dw,
                     twiddle_width=tw)
     re, im = rand_wide(dw, (2, 2, n), n + dw)
-    plan = tt.make_plan(cfg, inverse=inverse)
+    plan = tt.make_plan(P(cfg), inverse=inverse)
     assert isinstance(plan, WideFFTPlan)
     yr, yi = plan(torch.as_tensor(re), torch.as_tensor(im))
     gr, gi = fft_int(re, im, cfg, inverse=inverse)
@@ -123,8 +124,8 @@ def test_wide_plan_vs_golden_and_jax(n, mode, rounding, dw, tw, inverse):
 
 
 def test_make_plan_dispatch():
-    narrow = tt.make_plan(FFTConfig(n=256, mode="scaled", data_width=16))
-    wide = tt.make_plan(FFTConfig(n=256, mode="unscaled", data_width=30))
+    narrow = tt.make_plan(P(FFTConfig(n=256, mode="scaled", data_width=16)))
+    wide = tt.make_plan(P(FFTConfig(n=256, mode="unscaled", data_width=30)))
     assert type(narrow) is tt.FFTPlan and isinstance(wide, WideFFTPlan)
 
 
@@ -132,7 +133,7 @@ def test_make_plan_dispatch():
 def test_wide_bypass_fly(inverse):
     cfg = FFTConfig(n=64, mode="unscaled", data_width=30, bypass_fly=True)
     re, im = rand_wide(30, (2, 2, 64), 5)
-    yr, yi = WideFFTPlan(cfg, inverse=inverse)(torch.as_tensor(re),
+    yr, yi = WideFFTPlan(P(cfg), inverse=inverse)(torch.as_tensor(re),
                                                 torch.as_tensor(im))
     gr, gi = fft_int(re, im, cfg, inverse=inverse)
     np.testing.assert_array_equal(_np(yr), gr)
@@ -150,7 +151,7 @@ def test_wide_pair(fly_fwd, fly_inv):
     n = 256
     cfg = FFTConfig(n=n, mode="unscaled", data_width=20, twiddle_width=25)
     re, im = rand_wide(16, (2, 2, n), 7)
-    yr, yi = tt.fft_ifft_pair(re, im, cfg, fly_fwd, fly_inv)
+    yr, yi = tt.fft_ifft_pair(re, im, P(cfg), fly_fwd, fly_inv)
     jr, ji = jt.fft_ifft_pair(re, im, cfg, fly_fwd, fly_inv)
     np.testing.assert_array_equal(_np(yr), np.asarray(jr, np.int64))
     np.testing.assert_array_equal(_np(yi), np.asarray(ji, np.int64))
@@ -177,7 +178,7 @@ def test_wide_60_bits_vs_golden(n, dw, out, inverse):
     re, im = rand_wide(dw, (2, 3, n), out)
     lim = 1 << (dw - 1)
     re[1, 0], im[1, 0], re[1, 1], im[1, 1] = -lim, lim - 1, lim - 1, -lim
-    yr, yi = tt.fft(re, im, cfg) if not inverse else tt.ifft(re, im, cfg)
+    yr, yi = tt.fft(re, im, P(cfg)) if not inverse else tt.ifft(re, im, P(cfg))
     gr, gi = fft_int(re, im, cfg, inverse=inverse)
     assert gr.dtype == object              # golden's exact Python ints
     np.testing.assert_array_equal(_np(yr), _golden64(gr))
@@ -190,7 +191,7 @@ def test_wider_than_64_raises():
     z = np.zeros((1, 8192), np.int64)
     for run in (tt.make_plan, WideFFTPlan, lambda c: tt.fft(z, z, c)):
         with pytest.raises(NotImplementedError, match="int64"):
-            run(cfg)
+            run(P(cfg))
 
 
 # ------------------------------------------------------ the pass forms
@@ -232,7 +233,7 @@ def test_wide_pass_vs_jax(name, mode, rounding, dw, tw, r, inverse, natural,
     xr, xi = (rand_wide(dw, (nb, r, c), r + dw + k) for k in (0, 1))
     order = "natural" if natural else "raw"
     e = (tuple(torch.as_tensor(t) for t in circle_table(
-        dataclasses.replace(cfg, n=r * 64), r, c, inverse, order))
+        P(dataclasses.replace(cfg, n=r * 64)), r, c, inverse, order))
         if epi else None)
     jpass = jp._FusedPass(cfg, inverse, wide_in=wide_in, wide_out=True,
                           has_epi=epi, transpose_out=epi, interpret=True,
@@ -245,15 +246,15 @@ def test_wide_pass_vs_jax(name, mode, rounding, dw, tw, r, inverse, natural,
         jnp.asarray(t.numpy()) for t in e) if epi else None)
     in_dt = torch.int64 if wide_in else torch.int32
     x = [torch.as_tensor(v).to(in_dt) for v in (xr, xi)]
-    tables = tuple(torch.as_tensor(t) for t in pack_tables(cfg))
+    tables = tuple(torch.as_tensor(t) for t in pack_tables(P(cfg)))
     kw = dict(epi=e, transpose_out=epi, inverse=inverse, natural=natural,
               out_dtype=torch.int64)
-    yr, yi = fused_pass_reference(*x, cfg, tables, **kw)
+    yr, yi = fused_pass_reference(*x, P(cfg), tables, **kw)
     assert yr.dtype == torch.int64
     assert torch.equal(yr, int64_from_planes(*jr))
     assert torch.equal(yi, int64_from_planes(*ji))
     before = fused_pass.launches
-    wr, wi = fused_pass(*x, cfg, tables, **kw)
+    wr, wi = fused_pass(*x, P(cfg), tables, **kw)
     assert torch.equal(wr, yr) and torch.equal(wi, yi)
     assert fused_pass.launches == before
 
@@ -262,16 +263,16 @@ def test_wide_pass_rejects():
     """int64 blocks take no in-kernel synthesis and no 2-D tables; every
     block holds its output width; int64 -> int32 is no pass."""
     cfg = FFTConfig(n=64, mode="unscaled", data_width=30)
-    tables = tuple(torch.as_tensor(t) for t in pack_tables(cfg))
+    tables = tuple(torch.as_tensor(t) for t in pack_tables(P(cfg)))
     x = torch.zeros(2, 64, 8, dtype=torch.int64)
     with pytest.raises(TypeError):
-        fused_pass(x, x, cfg, tables, transpose_out=False,
+        fused_pass(x, x, P(cfg), tables, transpose_out=False,
                    out_dtype=torch.int32)
     with pytest.raises(ValueError):       # a 36-bit output in int32 blocks
-        fused_pass(x.int(), x.int(), cfg, tables, transpose_out=False)
+        fused_pass(x.int(), x.int(), P(cfg), tables, transpose_out=False)
     t2 = tuple(torch.zeros(64, 8, dtype=torch.int32) for _ in range(2))
     with pytest.raises(ValueError):
-        fused_pass(x, x, cfg, None, tables_2d=t2, transpose_out=False)
+        fused_pass(x, x, P(cfg), None, tables_2d=t2, transpose_out=False)
 
 
 def test_planes_roundtrip():
@@ -303,7 +304,7 @@ def test_pallas_wide_plan_vs_jax(n, mode, rounding, dw, tw, inverse, order):
     cfg = FFTConfig(n=n, mode=mode, rounding=rounding, data_width=dw,
                     twiddle_width=tw)
     re, im = (rand_wide(dw, (128, n), n + k).T.copy() for k in (0, 1))
-    plan = PallasWideFFTPlan(cfg, inverse=inverse, order=order)
+    plan = PallasWideFFTPlan(P(cfg), inverse=inverse, order=order, device="cpu")
     before = fused_pass.launches
     yr, yi = plan(torch.as_tensor(re), torch.as_tensor(im))
     assert fused_pass.launches == before and yr.dtype == torch.int64
@@ -315,7 +316,7 @@ def test_pallas_wide_plan_vs_jax(n, mode, rounding, dw, tw, inverse, order):
         gr, gi = fft_int(re.T, im.T, cfg, inverse=inverse)
         np.testing.assert_array_equal(_np(yr), gr.T)
         np.testing.assert_array_equal(_np(yi), gi.T)
-    plan2 = PallasWideFFTPlan(cfg, inverse=inverse, order=order)
+    plan2 = PallasWideFFTPlan(P(cfg), inverse=inverse, order=order, device="cpu")
     plan2.load_state_dict(tables_from_jax(jax.tree_util.tree_map(
         np.asarray, jplan.consts)))
     for name, t in plan.state_dict().items():
@@ -327,14 +328,14 @@ def test_pallas_wide_plan_ragged_and_guards():
     above 64 bits raise."""
     cfg = FFTConfig(n=64, mode="unscaled", data_width=40, twiddle_width=27)
     re, im = (rand_wide(40, (3, 64), k).T.copy() for k in (8, 9))
-    yr, yi = PallasWideFFTPlan(cfg)(torch.as_tensor(re), torch.as_tensor(im))
+    yr, yi = PallasWideFFTPlan(P(cfg), device="cpu")(torch.as_tensor(re), torch.as_tensor(im))
     gr, gi = fft_int(re.T, im.T, cfg)
     np.testing.assert_array_equal(_np(yr), gr.T)
     np.testing.assert_array_equal(_np(yi), gi.T)
     with pytest.raises(NotImplementedError):
-        PallasWideFFTPlan(FFTConfig(n=8192, mode="unscaled", data_width=40))
+        PallasWideFFTPlan(P(FFTConfig(n=8192, mode="unscaled", data_width=40)), device="cpu")
     with pytest.raises(ValueError):
-        PallasWideFFTPlan(cfg, order="raw")
+        PallasWideFFTPlan(P(cfg), order="raw", device="cpu")
 
 
 # ------------------------------------------------- the wide LargeFFTPlan
@@ -366,8 +367,8 @@ def test_large_wide_chain_4096():
     cfg = FFTConfig(n=4096, mode="unscaled", data_width=32, twiddle_width=20)
     icfg = dataclasses.replace(cfg, mode="scaled", rounding="round",
                                data_width=cfg.output_width)
-    fwd = LargeFFTPlan(cfg, order="raw")
-    inv = LargeFFTPlan(icfg, fwd.n2, fwd.n1, inverse=True, order="raw")
+    fwd = LargeFFTPlan(P(cfg), order="raw", device="cpu")
+    inv = LargeFFTPlan(P(icfg), fwd.n2, fwd.n1, inverse=True, order="raw", device="cpu")
     assert (fwd.n1, fwd.n2, fwd.epi_mode) == (32, 128, "host")
     assert (fwd.wide_in, fwd.wide1, fwd.wide2) == (False, True, True)
     assert (inv.wide_in, inv.wide1, inv.wide2) == (True, True, True)
@@ -408,7 +409,7 @@ def test_large_wide_64k_widening_pass2():
     with no epilogue; batch 1 == four_step_int."""
     cfg = FFTConfig(n=1 << 16, mode="unscaled", data_width=24,
                     twiddle_width=16)
-    plan = LargeFFTPlan(cfg)
+    plan = LargeFFTPlan(P(cfg), device="cpu")
     assert (plan.wide_in, plan.wide1, plan.wide2) == (False, False, True)
     assert (plan.mid_dtype, plan.out_dtype) == (torch.int32, torch.int64)
     xr, xi = (rand_wide(24, (1, 1 << 16), k) for k in (13, 14))
@@ -425,12 +426,12 @@ def test_large_wide_epi_synth():
     "inkernel" raise there.  A narrow pass 1 keeps "device"."""
     cfg = FFTConfig(n=1 << 16, mode="unscaled", data_width=32,
                     twiddle_width=16)
-    plan = LargeFFTPlan(cfg)
+    plan = LargeFFTPlan(P(cfg), device="cpu")
     assert plan.wide1 and plan.epi_mode == "host"
     for mode in ("device", "inkernel"):
         with pytest.raises(ValueError, match="32 bits"):
-            LargeFFTPlan(cfg, epi_synth=mode)
-    narrow1 = LargeFFTPlan(dataclasses.replace(cfg, data_width=24))
+            LargeFFTPlan(P(cfg), epi_synth=mode, device="cpu")
+    narrow1 = LargeFFTPlan(P(dataclasses.replace(cfg, data_width=24)), device="cpu")
     assert not narrow1.wide1 and narrow1.wide2
     assert narrow1.epi_mode == "device"
 
@@ -439,7 +440,7 @@ def test_large_wide_epi_synth():
 def test_large_wide_monolithic_raises(inverse):
     cfg = FFTConfig(n=1 << 12, mode="unscaled", data_width=24)
     with pytest.raises(NotImplementedError, match="monolithic"):
-        LargeFFTPlan(cfg, inverse=inverse, schedule="monolithic")
+        LargeFFTPlan(P(cfg), inverse=inverse, schedule="monolithic", device="cpu")
     with pytest.raises(NotImplementedError, match="monolithic"):
         jp.LargeFFTPlan(cfg, inverse=inverse, schedule="monolithic",
                         interpret=True)
@@ -461,10 +462,10 @@ def test_tables_from_jax_wide(inverse):
     tables = tables_from_jax(jax.tree_util.tree_map(np.asarray,
                                                     jplan.consts))
     assert set(tables) == {"w1r", "w1i", "w2r", "w2i", "er", "ei"}
-    plan = LargeFFTPlan(cfg, *args[1:3], inverse=inverse, order="raw")
+    plan = LargeFFTPlan(P(cfg), *args[1:3], inverse=inverse, order="raw", device="cpu")
     for name, t in tables.items():
         assert torch.equal(getattr(plan, name), t), name
-    loaded = LargeFFTPlan(cfg, *args[1:3], inverse=inverse, order="raw")
+    loaded = LargeFFTPlan(P(cfg), *args[1:3], inverse=inverse, order="raw", device="cpu")
     for name in tables:
         getattr(loaded, name).zero_()
     loaded.load_tables(tables)
