@@ -55,8 +55,9 @@ Phases; any failure exits non-zero and prints no result line:
     m = 8 to 4096, full-scale 52-bit scaled/round data with 27-bit
     twiddles); (b) the config-2 chain at batch 8 (bench_config2: raw
     unscaled 32-bit forward to 48 bits, the exact-unity 25-bit spectrum
-    product, raw scaled/round inverse), exactly 4 launches, bit-equal to
-    four_step_int both ways, and its SNR; (c) the 64k unscaled 24-bit
+    product through the product kernel, raw scaled/round inverse), exactly
+    4 pass launches and 1 product launch, bit-equal to four_step_int both
+    ways, and its SNR; (c) the 64k unscaled 24-bit
     plan, whose pass 2 widens to int64, at batch 64: 2 launches, bit-equal
     to four_step_int; (d) PallasWideFFTPlan (K5) on an int64 [4096, 1024]
     tile, fwd/inv x natural/bitrev: 1 launch per call, equal to the plain
@@ -69,24 +70,47 @@ Phases; any failure exits non-zero and prints no result line:
     length within 5 %, and no chain above SMs x 128 lanes x the maximum SM
     clock x its ops per instruction at full fusion; the copy held below
     the card's memory peak; one line of ceilings with the card's name and
-    power limit; the SASS instruction
-    count of each chain loop where cuobjdump exists (information only);
+    power limit;
 12. overlap-save convolution at its published size (bench_config4: 64k
     blocks, 8193 real taps, 16-bit twiddles, a 44-bit product and a 25-bit
     taps spectrum, seed 1, taps and data in +-2^13) at T = 4 and T = 64
     payloads, built on the card by default (no device argument): exactly
-    4 launches per call, bit-equal to golden overlap_save_int, kernel ==
-    plain on the card, and the SNR against the float FFT convolution; the
-    n = 4096 single-pass engine pair at 513 taps, 2 launches;
-13. timing with CUDA events, kernel and plain version in turns (plain,
+    4 pass launches and 1 product launch per call, bit-equal to golden
+    overlap_save_int, kernel == plain on the card, and the SNR against the
+    float FFT convolution; the n = 4096 single-pass engine pair at 513
+    taps, 2 pass launches and 1 product launch;
+13. the spectrum product kernel (csrc/product.cu, P1) against its plain
+    version: config 4's form (int32 -> int64, 44 bits) on full-scale
+    +-2^31 data, config 2's (int64, 48 bits, a full-scale 25-bit table,
+    128-bit product-sums), int32 -> int32, and an element count no vector
+    width divides;
+14. the factor pass at a batch of 65 536 items (m = 8, 5 columns): one
+    call, two launches, both counted, kernel == plain;
+15. the per-stage probe (csrc/probe_stages.cu, K10): every step's once and
+    loop kernel against its plain version and every variant against the
+    production step, on unscaled data and on the scaled/round config that
+    is timed, then the tool's run (tools.probe_stages.measure_all,
+    the quick target) with its guards, both fatal; one line per step: ps
+    per sample and stage, SASS instructions per butterfly by class;
+16. the compiled-code audit (tools/audit_sass.py, K11): the instruction
+    count of every chain body (a count other than the known one is
+    printed, not fatal: a toolkit may differ), the card's instructions/s
+    from phase 11's reading of the two mixed chains and their count, and
+    the headline kernel's count, static and per stage, narrow and int64; a
+    missing cuobjdump or an opcode in no class is a failure;
+17. timing with CUDA events, kernel and plain version in turns (plain,
     kernel, kernel, plain), over chained calls (the wide path rereads one
     fixed input); every timed path beside its bound: the larger of its
     integer ops over the integer ceiling measured in phase 11 and its
     bytes (each input read once, each output written once) over the
     card's memory peak (memory clock x bus width, not the copy kernel's
-    own reading); the config-2 chain and the convolution also with the
-    host's time to issue one call beside the device time;
-14. a JSON line describing each ported kernel, then the result line
+    own reading); beside it, for every FFT path, the instruction-counted
+    bound: the SASS instructions its stages issue per sample (phase 16)
+    over the card's instructions/s; the config-2 chain and the convolution
+    also with the host's time to issue one call beside the device time; the
+    64k headline also as it read after phases 3, 12 and 16 and at the end,
+    so that a reading that moves with what ran before it is seen to;
+18. a JSON line describing each ported kernel, then the result line
     {"ok": true, "device": {...}} as the last line.
 """
 
@@ -135,6 +159,15 @@ def _stimulus(batch, n, seed, adversarial=True, w=16):
         xr[0, ::3] = lim - 1
         xi[-1] = -lim
     return xr, xi
+
+
+def _clocks_line():
+    """The card's SM and memory clocks, power draw and temperature now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
 
 
 def _card_line():
@@ -212,7 +245,8 @@ def main() -> int:
     from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan,
                                                   circle_table, fused_pass,
                                                   fused_pass_reference)
-    from intfftk_tpu_torch.ops.intmath import cmult_exact
+    from intfftk_tpu_torch.ops.intmath import (cmult_exact, spectrum_product,
+                                               spectrum_product_reference)
     from intfftk_tpu_torch.ops.single_pass import (PallasFFTPlan,
                                                    PallasWideFFTPlan)
     from intfftk_tpu_torch.ops.transform import pack_tables, pack_tables_2d
@@ -220,10 +254,11 @@ def main() -> int:
                                                      device_circle_table,
                                                      synth_circle_block)
     from intfftk_tpu_torch.parallel import Channelizer, OverlapSaveConv
-    from intfftk_tpu_torch.tools import probe_vpu
+    from intfftk_tpu_torch.tools import audit_sass, probe_stages, probe_vpu
     from intfftk_tpu_torch.tools.probe_vpu import (chain_reference,
                                                    copy_reference,
                                                    probe_chain, probe_copy)
+    from intfftk_tpu_torch.utils import roofline
     from intfftk_tpu_torch.utils.roofline import (OPS_PER_SAMPLE_STAGE,
                                                   KernelCost, fft_cost,
                                                   large_fft_cost)
@@ -258,7 +293,8 @@ def main() -> int:
           "64k plan: 256 x 256 factors, int16 blocks")
     # largest |kernel - plain| over the comparisons of each ported kernel
     max_err = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K6": 0, "K1w": 0,
-               "K2w": 0, "K5": 0, "K7": 0, "K8": 0, "K9": 0, "conv": 0}
+               "K2w": 0, "K5": 0, "K7": 0, "K8": 0, "K9": 0, "conv": 0,
+               "K10": 0, "K11": 0, "P1": 0}
 
     def same(a, b, what, kernel="K1"):
         err = max(int((x.long() - y.long()).abs().max())
@@ -436,6 +472,25 @@ def main() -> int:
     launches_64k = fused_pass.launches
     check(launches_64k == 2,
           f"64k path launched fused_pass {launches_64k} times")
+    #: the headline's time at several points of the run: (ms per call, how
+    #: many distinct output buffers the chained calls cycled through and the
+    #: MiB their addresses span, the card's clocks, power and temperature
+    #: just after)
+    headline_at = {}
+
+    def headline_now(where, x=x):
+        seen = set()
+
+        def call(a, b):
+            y = plan.apply_blocks(a, b)
+            seen.update(v.data_ptr() for v in y)
+            return y
+
+        ms = _event_ms(call, *x)
+        headline_at[where] = (ms, len(seen), (max(seen) - min(seen)) >> 20,
+                              _clocks_line())
+
+    headline_now("after phase 3")
     gr, gi = four_step_int(xr, xi, cfg, 256, 256)
     check(tuple(yr.shape) == (BATCH, 256, 256) and yr.dtype == torch.int16,
           "output [64, 256, 256] int16")
@@ -830,18 +885,23 @@ def main() -> int:
 
     # (b) the config-2 chain at batch 8 (bench_config2): the raw unscaled
     # forward, the exact-unity 25-bit spectrum product (y * 2^23) >> 23 at
-    # 48 bits (eager, intmath.cmult_exact), the raw scaled/round inverse
-    hr1 = torch.full(f2.block_out_shape, 1 << 23, dtype=torch.int64,
+    # 48 bits (the product kernel, 128-bit product-sums), the raw
+    # scaled/round inverse
+    hr1 = torch.full(f2.block_out_shape, 1 << 23, dtype=torch.int32,
                      device=dev)
     hi1 = torch.zeros_like(hr1)
 
-    def product(yr, yi):
-        return cmult_exact(yr, yi, hr1, hi1, 23, c2.output_width,
-                           twiddle_width=25)
+    def product(yr, yi, product_fn=spectrum_product):
+        return product_fn(yr, yi, hr1, hi1, 23, c2.output_width, 25,
+                          torch.int64)
 
-    def c2_chain(a, b, pass_fn=fused_pass):
+    def c2_chain(a, b, pass_fn=fused_pass, product_fn=spectrum_product):
         y = f2.apply_blocks(a, b, pass_fn=pass_fn)
-        return y, i2.apply_blocks(*product(*y), pass_fn=pass_fn)
+        return y, i2.apply_blocks(*product(*y, product_fn), pass_fn=pass_fn)
+
+    def c2_plain(a, b):
+        return c2_chain(a, b, fused_pass_reference,
+                        spectrum_product_reference)
 
     rng = np.random.default_rng(0)
     xr, xi = (rng.integers(-(1 << 27), 1 << 27, (RT_BATCH, N))
@@ -850,11 +910,14 @@ def main() -> int:
     xr[0, ::3] = (1 << 31) - 1
     x = blocks(f2, xr, xi)
     torch.cuda.synchronize()
-    fused_pass.launches = 0
+    fused_pass.launches = spectrum_product.launches = 0
     y, z = c2_chain(*x)
     torch.cuda.synchronize()
     launches_c2 = fused_pass.launches
-    check(launches_c2 == 4, f"config-2 chain: {launches_c2} launches")
+    product_launches = {"config 2": spectrum_product.launches}
+    check(launches_c2 == 4 and product_launches["config 2"] == 1,
+          f"config-2 chain: {launches_c2} pass launches, "
+          f"{product_launches['config 2']} product launch")
     check(y[0].dtype == z[0].dtype == torch.int64
           and tuple(z[0].shape) == (RT_BATCH,) + f2.block_in_shape,
           "config-2 chain: int64 spectrum and output blocks")
@@ -960,8 +1023,14 @@ def main() -> int:
     torch.cuda.synchronize()
     probe_chain.launches = probe_chain.launches_int16 = 0
     probe_copy.launches = 0
+    chain_launches = {}
+
+    def count_chain(key, value):
+        chain_launches[key] = probe_chain.launches - sum(
+            chain_launches.values())
+
     try:
-        ceilings = probe_vpu.measure_all(device=dev)
+        ceilings = probe_vpu.measure_all(device=dev, emit=count_chain)
     except probe_vpu.GuardError as e:
         raise SmokeFailure(f"probe guard: {e}") from e
     torch.cuda.synchronize()
@@ -985,16 +1054,6 @@ def main() -> int:
           f"width); the copy kernel reached "
           f"{ceilings['hbm_bytes_per_s'] / 1e12:.3f} TB/s, "
           f"{ceilings['hbm_bytes_per_s'] / ceil[1]:.1%} of it")
-    sass = probe_vpu.sass_loop_counts(so)
-    if sass is None:
-        print("  SASS counts: no cuobjdump in this toolkit")
-    else:
-        by_index = {b.index: (name, b) for name, b in probe_vpu.BODIES.items()}
-        print("  SASS instructions in each chain loop (8 chains per thread "
-              "+ the loop's own), against source ops: " + ", ".join(
-                  f"{by_index[i][0]}/{t}: {c} for 8 x {by_index[i][1].ops}"
-                  for (i, t), c in sorted(sass.items())))
-
     # ---- 12. overlap-save convolution (config 4)
     spec = make_conv_spec(n=N, taps_len=(1 << 13) + 1, twiddle_width=16,
                           max_product_width=44, max_spectrum_width=25)
@@ -1013,6 +1072,12 @@ def main() -> int:
           "config-4 plan on the card: raw 256 x 256 pair, int32 forward "
           "(32 bits), 44-bit product, int64 inverse")
     conv_x, conv_launches, conv_snr = {}, {}, {}
+
+    def conv_plain(u, v):
+        """The plain version of the convolution's kernels, on the card."""
+        return conv(u, v, pass_fn=fused_pass_reference,
+                    product_fn=spectrum_product_reference)
+
     for payloads in (4, 64):
         t = spec.payload * payloads
         x_re = rng.integers(-(1 << 13), 1 << 13, t)
@@ -1021,15 +1086,17 @@ def main() -> int:
              for v in (x_re, x_im)]
         conv_x[payloads] = x
         torch.cuda.synchronize()
-        fused_pass.launches = 0
+        fused_pass.launches = spectrum_product.launches = 0
         y = conv(*x)
         torch.cuda.synchronize()
         conv_launches[payloads] = fused_pass.launches
+        product_launches[payloads] = spectrum_product.launches
         what = f"config 4, T = {payloads} payloads ({t} samples)"
-        check(conv_launches[payloads] == 4 and y[0].dtype == torch.int64
-              and tuple(y[0].shape) == (t,),
-              f"{what}: {conv_launches[payloads]} launches, int64 [{t}]")
-        same(y, conv(*x, pass_fn=fused_pass_reference), what, "conv")
+        check(conv_launches[payloads] == 4 and product_launches[payloads] == 1
+              and y[0].dtype == torch.int64 and tuple(y[0].shape) == (t,),
+              f"{what}: {conv_launches[payloads]} pass launches, "
+              f"{product_launches[payloads]} product launch, int64 [{t}]")
+        same(y, conv_plain(*x), what, "conv")
         t0 = time.perf_counter()
         g = overlap_save_int(x_re, x_im, h_re, h_im, spec)
         golden_s = time.perf_counter() - t0
@@ -1051,16 +1118,157 @@ def main() -> int:
     x4 = rng.integers(-(1 << 13), 1 << 13, (2, 3, 8 * spec4k.payload))
     conv4k = OverlapSaveConv(spec4k, *h4)
     torch.cuda.synchronize()
-    fused_pass.launches = 0
+    fused_pass.launches = spectrum_product.launches = 0
     y = conv4k(*x4)
     torch.cuda.synchronize()
     g = overlap_save_int(*x4, *h4, spec4k)
-    check(fused_pass.launches == 2 and y[0].dtype == torch.int32
+    check(fused_pass.launches == 2 and spectrum_product.launches == 1
+          and y[0].dtype == torch.int32
           and all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(y, g)),
           f"convolution n = 4096, 513 taps, [3, {x4.shape[-1]}]: "
-          f"{fused_pass.launches} launches, bit-equal to overlap_save_int")
+          f"{fused_pass.launches} pass launches, "
+          f"{spectrum_product.launches} product launch (int32 -> int32), "
+          f"bit-equal to overlap_save_int")
 
-    # ---- 13. timing, kernel and plain in turns
+    headline_now("after phase 12")
+
+    # ---- 13. the spectrum product kernel (P1) against its plain version
+    prng = torch.Generator(device=dev).manual_seed(13)
+
+    def full_scale(shape, bits, dtype):
+        """Random ``bits``-bit values with both full-scale corners first."""
+        lim = 1 << (bits - 1)
+        v = torch.randint(-lim, lim, shape, dtype=torch.int64, device=dev,
+                          generator=prng)
+        v.view(-1)[:2] = torch.tensor([-lim, lim - 1], device=dev)
+        return v.to(dtype)
+
+    blk = conv.fwd.block_out_shape
+    for what, shape, table, dw, dt, sw, shift, ow, odt in (
+            ("config 4: int32 -> int64, 44 bits, +-2^31 data", (64,) + blk,
+             blk, 32, torch.int32, 25, spec.product_shift, 44, torch.int64),
+            ("config 2: int64, 48 bits, full-scale 25-bit table, 128-bit "
+             "product-sums", (RT_BATCH,) + blk, blk, 48, torch.int64, 25, 23,
+             48, torch.int64),
+            ("int32 -> int32, 32 bits", (3, 4096), (4096,), 32, torch.int32,
+             16, 15, 32, torch.int32),
+            ("ragged: 3 x 1023 elements, int32 -> int64", (3, 1023), (1023,),
+             32, torch.int32, 25, 14, 44, torch.int64)):
+        fr, fi = full_scale(shape, dw, dt), full_scale(shape, dw, dt)
+        tr, ti = (full_scale(table, sw, torch.int32) for _ in range(2))
+        got = spectrum_product(fr, fi, tr, ti, shift, ow, sw, odt)
+        want = cmult_exact(fr, fi, tr, ti, shift, ow, twiddle_width=sw)
+        check(got[0].dtype == odt, f"P1 {what}: {odt} out")
+        same(got, [w.to(odt) for w in want], f"P1 {what}", "P1")
+    torch.cuda.synchronize()
+
+    # ---- 14. more than 65 535 blocks in one call
+    c8 = FFTConfig(n=8, mode="scaled", rounding="round", data_width=16,
+                   twiddle_width=16)
+    t8 = [torch.as_tensor(t, device=dev) for t in pack_tables(c8)]
+    x = [full_scale((65536, 8, 5), 16, torch.int16) for _ in range(2)]
+    before = fused_pass.launches
+    y = fused_pass(*x, c8, t8, transpose_out=True)
+    torch.cuda.synchronize()
+    check(fused_pass.launches == before + 2 and tuple(y[0].shape)
+          == (65536, 5, 8), "fused_pass at batch 65 536: one call, 2 "
+          "launches (65 535 items + 1), both counted")
+    same(y, fused_pass_reference(*x, c8, t8, transpose_out=True),
+         "fused_pass [65536, 8, 5] int16 (more items than one grid holds)",
+         "K2")
+
+    # ---- 15. the per-stage probe (K10)
+    stage_err = probe_stages.bit_checks(dev)
+    max_err["K10"] = max(stage_err.values())
+    check(max_err["K10"] == 0 and set(stage_err) == set(probe_stages.STEPS),
+          f"K10: the once and the loop kernel of all {len(stage_err)} steps "
+          f"== plain, every variant == its production step (unscaled and "
+          f"scaled/round 16-bit data, k = 1 and {probe_stages.MAX_CHECK_K})")
+    sass = audit_sass.library_sass()
+    stage_counts = {step: audit_sass.audit_stage(step, sass)
+                    for step in probe_stages.STEPS}
+    stage_ns = {}
+
+    def stage_line(step, r):
+        stage_ns[step] = r.ns_per_sample_per_stage
+        per = audit_sass.summarize(stage_counts[step])
+        print(f"  {step:17s} {r.ns_per_sample_per_stage * 1e3:7.3f} ps per "
+              f"sample and stage; SASS per butterfly: issued "
+              f"{per['issued']:g} (alu {per['alu']:g}, move {per['move']:g}, "
+              f"memory and barrier {per['mem']:g}, control "
+              f"{per['control']:g}, uniform {per['uniform']:g}; FMA pipe "
+              f"{per['fma_pipe']:g}, ALU pipe {per['alu_pipe']:g})",
+              flush=True)
+
+    torch.cuda.synchronize()
+    probe_stages.stage_loop.launches = 0
+    try:
+        probe_stages.measure_all(quick=True, device=dev, emit=stage_line,
+                                 check=False)
+    except probe_vpu.GuardError as e:
+        raise SmokeFailure(f"stage probe guard: {e}") from e
+    torch.cuda.synchronize()
+    stage_launches = probe_stages.stage_loop.launches
+    check(stage_launches > 0 and set(stage_ns) == set(probe_stages.STEPS),
+          f"the stage probe launched stage_loop_kernel {stage_launches} "
+          f"times; every step linear in k within "
+          f"{probe_vpu.LINEAR_TOL:.0%}, no production step above the "
+          f"instruction peak / {probe_stages.ARITH12_OPS}")
+    print(f"stage probe on {card}: " + json.dumps(
+        {k: round(v, 6) for k, v in stage_ns.items()}))
+
+    # ---- 16. the compiled-code audit (K11)
+    unknown = sorted({i.opcode for ins in sass.values() for i in ins
+                      if audit_sass.classify(i.opcode) == "unknown"})
+    check(not unknown, f"every opcode of the library's SASS "
+          f"({sum(map(len, sass.values()))} instructions in {len(sass)} "
+          f"functions) falls in a class {unknown}")
+    known = {"mixed7": 4, "stagemix10": 7}
+    for body in probe_vpu.INT32_BODIES:
+        per = audit_sass.summarize(audit_sass.audit_probe_chain(
+            body, sass).scaled(audit_sass.CHAINS_PER_THREAD))
+        note = ""
+        if body in known and per["issued"] != known[body]:
+            note = f" (an earlier toolkit compiled {known[body]})"
+        print(f"  chain {body}: {per['issued']:g} instructions per iteration "
+              f"and chain for {probe_vpu.BODIES[body].ops} source ops{note}")
+    for body in ("mixed7", "stagemix10"):
+        same((probe_chain(body, x32, 64),), (chain_reference(body, x32, 64),),
+             f"K11's counted chain {body} x 64", "K11")
+    # one reading for both bounds: phase 11's, counted here
+    audit_launches = sum(chain_launches[probe_vpu.BODIES[b].key]
+                         for b in ("mixed7", "stagemix10"))
+    instr_rate = roofline.instruction_rate(ceilings, sass)
+    check(audit_launches > 0 and instr_rate > 0,
+          f"K11: the two mixed chains of phase 11's reading "
+          f"({audit_launches} launches of chain_kernel) counted: "
+          f"{instr_rate / 1e12:.3f} T instructions/s, "
+          f"{instr_rate / probe_vpu.lane_rate_peak(dev):.1%} of the lane "
+          f"peak")
+    headline = audit_sass.audit_headline(sass)
+    for name, h in headline.items():
+        st = audit_sass.summarize(h["static_per_butterfly"])
+        ps_ = audit_sass.summarize(h["per_sample"])
+        print(f"  headline 256 x 256, {name}: the pass's own butterfly loop "
+              f"{st['issued']:g} instructions per butterfly (static: all "
+              f"three twiddle forms); per stage, summed: {ps_['issued']:g} "
+              f"per sample (alu {ps_['alu']:g}, move {ps_['move']:g}, memory "
+              f"and barrier {ps_['mem']:g}, control {ps_['control']:g}, "
+              f"uniform {ps_['uniform']:g}) against "
+              f"{17 * OPS_PER_SAMPLE_STAGE:g} hand-counted source ops")
+    alu64k, move64k = roofline.audit_kernel_ops(cfg, 256, 256, sass=sass)
+    check(alu64k + move64k == audit_sass.issued(
+        headline["narrow"]["per_sample"]),
+        f"audit_kernel_ops(64k, 256, 256): {alu64k:g} alu + {move64k:g} "
+        f"other instructions per sample")
+
+    headline_now("after phase 16")
+
+    # ---- 17. timing, kernel and plain in turns
+    # (from an empty allocator cache, so that where the earlier phases left
+    # their blocks does not place this phase's buffers)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     def bound(cost):
         """(bound in ms, which ceiling sets it) of a KernelCost against
         this run's ceilings (``ceil``)."""
@@ -1076,10 +1284,37 @@ def main() -> int:
         return KernelCost(OPS_PER_SAMPLE_STAGE * samples * stage_equiv,
                           nbytes)
 
+    def t_instr(n1, n2=1, wide=False):
+        """Instructions per sample the stages of an n1 x n2 transform issue
+        (and its inter-factor product), from the SASS of phase 16; the
+        probe holds the forward stages, which stand for the inverse's."""
+        return audit_sass.issued(audit_sass.audit_transform(n1, n2, wide,
+                                                            sass))
+
+    def o_instr(orders, products=0, wide=False):
+        return audit_sass.issued(audit_sass.audit_orders(orders, products,
+                                                         wide, sass))
+
+    def counted(cost, samples, per_sample):
+        """``cost`` with the instructions its stages issue; load, store and
+        reorder of each pass and the spectrum product are not in them."""
+        return dataclasses.replace(
+            cost, instructions=None if per_sample is None
+            else samples * per_sample)
+
+    def instr_bound_ms(cost):
+        return (None if cost.instructions is None
+                else cost.instruction_bound(instr_rate) * 1e3)
+
     def share(k_ms, cost):
         b, by = bound(cost)
-        return (f"; bound {b:.4f} ms ({by}), time / bound "
-                f"{k_ms / b:.2f}")
+        out = (f"; source-level bound {b:.4f} ms ({by}), time / bound "
+               f"{k_ms / b:.2f}")
+        ib = instr_bound_ms(cost)
+        if ib is not None:
+            out += (f"; instruction-counted bound {ib:.4f} ms, time / bound "
+                    f"{k_ms / ib:.2f}")
+        return out
 
     x = blocks(plan, *_stimulus(BATCH, N, 5))
     k_ms, p_ms, ms = _turns(lambda a, b: plan.apply_blocks(a, b),
@@ -1092,14 +1327,20 @@ def main() -> int:
         a, b, plan.cfg2, (plan.w2r, plan.w2i), transpose_out=False), *x)
     samples = BATCH * N
     moved = 2 * 2 * 2 * samples * 2        # 2 passes x (in + out) x re/im
-    cost_64k = large_fft_cost(N, BATCH, itemsize=2)
-    print(f"timing on {card}, CUDA events, mean of chained calls:")
+    cost_64k = counted(large_fft_cost(N, BATCH, itemsize=2), samples,
+                       t_instr(256, 256))
+    paced_64k = _paced(lambda a, b: plan.apply_blocks(a, b), *x)
+    print(f"timing on {card}, CUDA events, mean of chained calls (clocks, "
+          f"power and temperature after the first path: {_clocks_line()}):")
     print(f"  64k [64, 256, 256] int16 apply_blocks: kernel {k_ms:.4f} "
           f"ms/call ({ms['kernel'][0]:.4f}, {ms['kernel'][1]:.4f}), "
           f"{samples / k_ms / 1e3:.1f} Msamples/s, "
           f"{moved / k_ms / 1e6:.1f} GB/s; pass 1 {pass1:.4f} ms, pass 2 "
           f"{pass2:.4f} ms; plain {p_ms:.4f} ms ({ms['plain'][0]:.4f}, "
           f"{ms['plain'][1]:.4f})" + share(k_ms, cost_64k))
+    print(f"    device ms / host ms to issue one call: {paced_64k[0]:.4f} / "
+          f"{paced_64k[1]:.4f}")
+    x_64k = x
 
     def roundtrip(a, b):
         return inv.apply_blocks(*fwd.apply_blocks(a, b))
@@ -1109,7 +1350,8 @@ def main() -> int:
 
     x = blocks(fwd, *_stimulus(RT_BATCH, N, 14))
     # two transforms with their inter-factor twiddles; int16 in and out
-    cost_rt = work(RT_BATCH * N, 2 * 17, RT_BATCH * N * 2 * (2 + 2))
+    cost_rt = counted(work(RT_BATCH * N, 2 * 17, RT_BATCH * N * 2 * (2 + 2)),
+                      RT_BATCH * N, 2 * t_instr(256, 256))
     rt_ms, rt_plain, rms = _turns(roundtrip, roundtrip_plain, *x, CHAIN,
                                   10)
     print(f"  64k raw roundtrip [8, 256, 256] int16 (4 launches): kernel "
@@ -1121,7 +1363,7 @@ def main() -> int:
     ch_ms = {}
     csamples = CH * CH_N
     cbytes = csamples * 2 * 4 * 2          # re/im x int32 x (in + out)
-    cost_ch = fft_cost(CH_N, CH)
+    cost_ch = counted(fft_cost(CH_N, CH), csamples, t_instr(CH_N))
     for (layout, inverse), chz in chans.items():
         src = (hr, hi) if layout == "cn" else (hr.T, hi.T)
         xr, xi = chz.shard(src[0]), chz.shard(src[1])
@@ -1151,7 +1393,8 @@ def main() -> int:
     io_bytes = 2 * 2 * 2 * 2
     x = blocks(chains["host"][0], *_stimulus(B1M, N1M, 24))
     chain_ms = {}
-    cost_1m = work(2 * B1M * N1M, 21, B1M * N1M * 2 * (2 + 2))
+    cost_1m = counted(work(2 * B1M * N1M, 21, B1M * N1M * 2 * (2 + 2)),
+                      B1M * N1M, 2 * t_instr(1024, 1024))
     for mode, (a, b, _) in chains.items():
         chain_ms[mode] = _turns(
             lambda u, v, a=a, b=b: b.apply_blocks(*a.apply_blocks(u, v)),
@@ -1184,11 +1427,17 @@ def main() -> int:
                f"on the card)", n, *gen_ms[n], moved=8 * n,
                cost=cost_gen[n])
     x = x512
-    cost_512k = large_fft_cost(N512K, B512K, itemsize=2)
-    cost_16m = large_fft_cost(N16M, 1, itemsize=2)
+    cost_512k = counted(large_fft_cost(N512K, B512K, itemsize=2),
+                        B512K * N512K, t_instr(1024, 512))
+    cost_16m = counted(large_fft_cost(N16M, 1, itemsize=2), N16M,
+                       t_instr(4096, 4096))
     # monolithic: the single full-size core's stages, no epilogue
-    cost_mono = work(BATCH * N, 16, BATCH * N * 2 * (2 + 2))
-    cost_mono512 = work(2 * N512K, 19, 2 * N512K * 2 * (2 + 2))
+    # (the stages with 2-D tables multiply at every order: counted as the
+    # multiplying stage, whose table read is one word nearer)
+    cost_mono = counted(work(BATCH * N, 16, BATCH * N * 2 * (2 + 2)),
+                        BATCH * N, o_instr([7] * 8 + list(range(8))))
+    cost_mono512 = counted(work(2 * N512K, 19, 2 * N512K * 2 * (2 + 2)),
+                           2 * N512K, o_instr([7] * 10 + list(range(9))))
     k512 = _turns(p512, lambda u, v: p512.apply_blocks(
         *(t.reshape((B512K,) + p512.block_in_shape) for t in (u, v)),
         pass_fn=fused_pass_reference), *x, 20, 2)
@@ -1229,17 +1478,19 @@ def main() -> int:
     # two transforms, their twiddles and the product; int32 in, int64 out,
     # the [n] int64 spectrum table read once.  The bound counts 32-bit
     # ops; the int64 tile does 64-bit sums and 128-bit products for each.
-    cost_c2 = work(RT_BATCH * N, 2 * 17 + 1,
-                   RT_BATCH * N * 2 * (4 + 8) + N * 2 * 8)
-    cost_w24 = KernelCost(large_fft_cost(N, BATCH).int_ops,
-                          BATCH * N * 2 * (4 + 8))
-    cost_k5 = KernelCost(fft_cost(4096, 1024).int_ops,
-                         4096 * 1024 * 2 * (8 + 8))
-    c2_ms = _turns(fixed(c2_chain), fixed(
-        lambda u, v: c2_chain(u, v, pass_fn=fused_pass_reference)), *x,
-        CHAIN, 3)
+    # The instruction-counted bound counts the int64 tile's own kernels.
+    cost_c2 = counted(work(RT_BATCH * N, 2 * 17 + 1,
+                           RT_BATCH * N * 2 * (4 + 8) + N * 2 * 4),
+                      RT_BATCH * N, 2 * t_instr(256, 256, wide=True))
+    cost_w24 = counted(KernelCost(large_fft_cost(N, BATCH).int_ops,
+                                  BATCH * N * 2 * (4 + 8)), BATCH * N,
+                       o_instr(range(8), 1) + o_instr(range(8), wide=True))
+    cost_k5 = counted(KernelCost(fft_cost(4096, 1024).int_ops,
+                                 4096 * 1024 * 2 * (8 + 8)), 4096 * 1024,
+                      t_instr(4096, wide=True))
+    c2_ms = _turns(fixed(c2_chain), fixed(c2_plain), *x, CHAIN, 3)
     report(f"config-2 chain [{RT_BATCH}, {f2.n1}, {f2.n2}] int32 -> int64 "
-           f"(4 launches + the eager product)", 2 * RT_BATCH * N, *c2_ms,
+           f"(4 pass launches + 1 product launch)", 2 * RT_BATCH * N, *c2_ms,
            cost=cost_c2)
     c2_late = _paced(fixed(c2_chain), *x)
     print(f"  config-2 chain, device ms / host ms to issue one call: "
@@ -1255,7 +1506,7 @@ def main() -> int:
     step_ms = {what: _event_ms(fixed(
         lambda u, v, c=p.passes()[k][0], kw=p.passes()[k][1]: fused_pass(
             u, v, c, **kw)), *xs) for what, (p, k, xs) in steps.items()}
-    step_ms["eager spectrum product"] = _event_ms(fixed(product), *y)
+    step_ms["spectrum product (kernel)"] = _event_ms(fixed(product), *y)
     print("  config-2 chain steps (ms): " + ", ".join(
         f"{what} {t:.4f}" for what, t in step_ms.items()))
     w24_ms = _turns(fixed(w24.apply_blocks), fixed(
@@ -1276,14 +1527,14 @@ def main() -> int:
     conv_ms, cost_conv = {}, {}
     for payloads, x in conv_x.items():
         t = spec.payload * payloads
-        cost_conv[payloads] = work(payloads * N, 2 * 17 + 1,
-                                   t * 2 * (4 + 8) + N * 2 * 4)
-        conv_ms[payloads] = _turns(fixed(conv), fixed(
-            lambda u, v: conv(u, v, pass_fn=fused_pass_reference)), *x,
-            CHAIN if payloads == 4 else 20, 2)
+        cost_conv[payloads] = counted(
+            work(payloads * N, 2 * 17 + 1, t * 2 * (4 + 8) + N * 2 * 4),
+            payloads * N, t_instr(256, 256) + t_instr(256, 256, wide=True))
+        conv_ms[payloads] = _turns(fixed(conv), fixed(conv_plain), *x,
+                                   CHAIN if payloads == 4 else 20, 2)
         report(f"config 4 overlap-save, T = {payloads} payloads [{t}] int32 "
-               f"-> int64 (4 launches + windows, product, cut; payload "
-               f"samples)", t, *conv_ms[payloads],
+               f"-> int64 (4 pass launches + 1 product launch + windows, "
+               f"cut; payload samples)", t, *conv_ms[payloads],
                cost=cost_conv[payloads])
         paced = _paced(fixed(conv), *x, calls=20)
         print(f"    device ms / host ms to issue one call: {paced[0]:.4f} / "
@@ -1298,10 +1549,10 @@ def main() -> int:
         return e.unfold(-1, N, spec.payload).reshape(
             (-1,) + conv.fwd.block_in_shape).contiguous()
 
-    def conv_product(u, v):
-        return cmult_exact(u, v, conv.hr, conv.hi, spec.product_shift,
-                           spec.product_width,
-                           twiddle_width=spec.spectrum_width)
+    def conv_product(u, v, product_fn=spectrum_product):
+        return product_fn(u, v, conv.hr, conv.hi, spec.product_shift,
+                          spec.product_width, spec.spectrum_width,
+                          torch.int64)
 
     def cut(v):
         return v.reshape(-1, N)[:, m - 1:].reshape(t)
@@ -1315,23 +1566,56 @@ def main() -> int:
         ("windows (pad, unfold, copy)",
          lambda u, v: (windows(u), windows(v)), x),
         ("forward (int32, 2 launches)", conv.fwd.apply_blocks, b),
-        ("product (eager, 44 bits)", conv_product, f),
+        ("product (kernel, 44 bits)", conv_product, f),
         ("inverse (int64, 2 launches)", conv.inv.apply_blocks, pq),
         ("cut", lambda u, v: (cut(u), cut(v)), z))}
     print("  config 4, T = 64 payloads, steps (ms): " + ", ".join(
         f"{what} {ms:.4f}" for what, ms in conv_steps.items()))
 
+    # P1 alone on the T = 64 call's spectrum: one pointwise product per
+    # sample; each datum read, each result written, the table read once
+    cost_p1 = KernelCost(OPS_PER_SAMPLE_STAGE * f[0].numel(),
+                         f[0].numel() * 2 * (4 + 8) + N * 2 * 4)
+    p1_ms = _turns(fixed(conv_product), fixed(
+        lambda u, v: conv_product(u, v, spectrum_product_reference)), *f,
+        CHAIN, 5)
+    report(f"P1 spectrum product {list(f[0].shape)} int32 x [256, 256] int32 "
+           f"table -> int64, 44 bits", f[0].numel(), *p1_ms,
+           moved=cost_p1.hbm_bytes, cost=cost_p1)
+
+    # K10 at the tool's shape: the production stage of order 7, K_STAGE
+    # applications on the tile that fills the card
+    K_STAGE = 16
+    pcfg = probe_stages.probe_config()
+    sx = probe_stages.stage_input("prod_p7", pcfg, dev)
+    stab = probe_stages.stage_tables(pcfg, dev)
+    k10_ms = _turns(
+        fixed(lambda u, v: probe_stages.stage_loop("prod_p7", u, v, K_STAGE,
+                                                   pcfg, stab)),
+        fixed(lambda u, v: probe_stages.stage_loop_reference(
+            "prod_p7", u, v, K_STAGE, pcfg, stab)), *sx, 20, 1)
+    cost_k10 = counted(
+        KernelCost(OPS_PER_SAMPLE_STAGE * sx[0].numel() * K_STAGE,
+                   2 * 2 * sx[0].numel() * 4),
+        sx[0].numel(), K_STAGE * o_instr([7]))
+    report(f"K10 stage loop prod_p7 x {K_STAGE} on int32 "
+           f"{list(sx[0].shape)}", sx[0].numel(), *k10_ms, cost=cost_k10)
+
     # the probes at the tool's shape: a chain of K_ROW iterations
     K_ROW = 256
     probe_ms, cost_probe = {}, {}
-    for name, body, xs in (("K7", "stagemix10", x32), ("K9", "add", x16)):
+    for name, body, xs in (("K7", "stagemix10", x32), ("K9", "add", x16),
+                           ("K11", "mixed7", x32)):
         probe_ms[name] = _turns(
             fixed(lambda u, v, b=body: probe_chain(b, u, K_ROW)),
             fixed(lambda u, v, b=body: chain_reference(b, u, K_ROW)),
             xs, None, 20, 2)
-        cost_probe[name] = KernelCost(
+        cost_probe[name] = counted(KernelCost(
             xs.numel() * probe_vpu.BODIES[body].ops * K_ROW,
-            2 * xs.numel() * xs.element_size())
+            2 * xs.numel() * xs.element_size()), xs.numel(),
+            K_ROW * audit_sass.issued(audit_sass.audit_probe_chain(
+                body, sass).scaled(audit_sass.CHAINS_PER_THREAD))
+            if xs is x32 else None)
         report(f"{name} chain {body} x {K_ROW} on {xs.dtype} "
                f"[{xs.numel()}]", xs.numel(), *probe_ms[name],
                cost=cost_probe[name])
@@ -1344,12 +1628,18 @@ def main() -> int:
     report(f"K8 copy o = x + 1 over {xc.numel() * 4} bytes each way "
            f"(torch.add: {add_ms:.4f} ms)", xc.numel(), *probe_ms["K8"],
            moved=2 * xc.numel() * 4, cost=cost_probe["K8"])
+    headline_now("after phase 17's other paths", x_64k)
+    print("  64k headline through the run, ms per call (distinct output "
+          "buffers of the chained calls, the MiB their addresses span; SM "
+          "MHz, memory MHz, W, temperature just after): " + "; ".join(
+              f"{where} {t:.4f} ({bufs} buffers over {span} MiB; {clk})"
+              for where, (t, bufs, span, clk) in headline_at.items()))
     check("jax" not in sys.modules and not any(
         m == "intfftk_tpu" or m.startswith("intfftk_tpu.")
         for m in sys.modules),
         "neither JAX nor the JAX package was imported")
 
-    # ---- 14. results
+    # ---- 18. results
     src = "intfftk_tpu_torch/csrc/fused_pass.cu"
     psrc = "intfftk_tpu_torch/csrc/probe.cu"
     mean = lambda layout, k=0: sum(ch_ms[layout, inverse][k]
@@ -1369,7 +1659,8 @@ def main() -> int:
             {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
              "max_abs_err": max_err[err], "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms})
+             "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms,
+             "instr_bound_ms": instr_bound_ms(cost)})
 
     row("fused_pass: K1 four-step, forward natural (64k apply_blocks)", k1,
         launches_64k, "K1", k_ms, p_ms, cost_64k)
@@ -1431,9 +1722,26 @@ def main() -> int:
         f"probe tool's run; timed: add x {K_ROW})", "tools/probe_vpu.py:226",
         probe_launches[2], "K9", *probe_ms["K9"][:2], cost_probe["K9"],
         source=psrc)
+    row(f"stage_loop_kernel / stage_once_kernel: K10 per-stage probe, "
+        f"{len(probe_stages.STEPS)} steps (launches: the probe tool's run; "
+        f"timed: prod_p7 x {K_STAGE})", "tools/probe_stages.py:55",
+        stage_launches, "K10", *k10_ms[:2], cost_k10,
+        source="intfftk_tpu_torch/csrc/probe_stages.cu")
+    row(f"chain_kernel counted by tools/audit_sass.py: K11 compiled-code "
+        f"audit (launches: the two counted chains in the probe tool's run; "
+        f"timed: mixed7 x {K_ROW})", "tools/audit_mosaic.py:233",
+        audit_launches, "K11", *probe_ms["K11"][:2], cost_probe["K11"],
+        source=psrc)
+    row("product_kernel: P1 spectrum product (launches: one config-4 call "
+        "at T = 64 payloads; timed: the product alone on that call's "
+        "spectrum)", "intfftk_tpu/parallel/convolve.py:184 (jnp arithmetic "
+        "inside the chain's jit, no pallas_call)", product_launches[64],
+        "P1", *p1_ms[:2], cost_p1,
+        source="intfftk_tpu_torch/csrc/product.cu")
     print(f"ceilings of the bounds on {card}: {ceil[0] / 1e12:.3f} T int "
           f"ops/s (measured in this run), {ceil[1] / 1e12:.3f} TB/s (the "
-          f"card's memory clock x bus width)")
+          f"card's memory clock x bus width); instruction-counted bounds: "
+          f"{instr_rate / 1e12:.3f} T instructions/s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

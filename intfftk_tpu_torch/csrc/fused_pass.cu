@@ -63,7 +63,8 @@
 // at its 700 W limit this kernel takes about 0.1 ms per pass there, ten
 // times that floor: it is bound by the integer work per sample (64-bit
 // products, register wraps, index math) and its shared-memory traffic and
-// barriers, which are still to be counted from its SASS.  At m = 4096 a
+// barriers (tools/audit_sass.py counts them from its SASS, per stage through
+// probe_stages.cu).  At m = 4096 a
 // CTA holds only 4 columns (160 KiB of shared memory, one CTA per SM), so
 // the [n, B] load reads 16-byte row segments.
 //
@@ -79,39 +80,25 @@
 // parameters, so the forward body carries no inverse branch and the
 // standard stages no 2-D one.
 //
-// Numerics: every sum is formed in the tile's unsigned type (uint32, or
-// uint64 on the int64 tile: modular, no signed overflow) and wrapped to
-// the stage's output width with a shift pair, so the result equals the
-// golden model's arithmetic followed by its wrap; the complex products are
-// exact product-sums (64-bit on the int32 tile, __int128 on the int64
-// tile: a 52-bit datum times a 27-bit twiddle, summed, is 80 bits),
-// floor-shifted and then wrapped.  The tile type is a template parameter,
-// so the int32 instantiations are the narrow kernel unchanged.  An int64
-// tile holds twice the bytes: TC halves from m = 512 on (TC = 2 at
-// m = 4096, 192 KiB), and it takes neither the in-kernel synthesis nor the
-// 2-D stage tables (the JAX package has no wide form of either).
+// Numerics: the arithmetic of intfft_arith.cuh (modular sums wrapped to the
+// stage's width, exact product-sums floor-shifted and wrapped), and the
+// stage body of stage_body.cuh, which the per-stage probe
+// (probe_stages.cu) runs too.  The tile type is a template parameter, so
+// the int32 instantiations are the narrow kernel unchanged.  An int64 tile
+// holds twice the bytes: TC halves from m = 512 on (TC = 2 at m = 4096,
+// 192 KiB), and it takes neither the in-kernel synthesis nor the 2-D stage
+// tables (the JAX package has no wide form of either).
+//
+// The batch is the grid's y dimension, which holds at most 65 535 items: a
+// larger batch goes out as several launches of that many items each, on
+// the same stream.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "stage_body.cuh"
+
 namespace {
-
-constexpr int kThreads = 256;
-
-struct PassParams {
-  int batch, rows, cols;   // x is [batch, rows, cols] ([batch, cols, rows]
-                           // with transpose_in)
-  int log_rows;            // log2(rows)
-  int tc, log_tc;          // columns per CTA
-  int data_width;          // width entering stage 0
-  int scale;               // 1: scaled (per-stage /2), 0: unscaled
-  int round;               // 1: round half up, 0: truncate
-  int tw_shift;            // renormalising floor shift of every product
-  int bypass;              // 1: no butterflies, reorder only (USE_FLY = 0)
-  int natural;             // 1: natural spectrum order, 0: bit-reversed
-  int transpose_in;        // 1: x is [batch, cols, rows]
-  int transpose_out;       // 1: out is [batch, cols, rows]
-};
 
 // The twiddle generator's constants for the full size n = 2^log_n
 // (twiddle_synth.synth_params): the Taylor pi constant of stage order
@@ -121,80 +108,7 @@ struct SynthParams {
 };
 
 constexpr int kCoarse = 512;     // entries of the coarse quarter table
-
-// The arithmetic types of a tile type V: its unsigned twin U, in which
-// sums wrap, and the product type P, which holds a complex product-sum of
-// a V datum and an int32 twiddle exactly.
-template <typename V>
-struct Arith;
-template <>
-struct Arith<int32_t> {
-  using U = uint32_t;
-  using P = long long;           // |data| < 2^31, |twiddle| < 2^26
-};
-template <>
-struct Arith<int64_t> {
-  using U = uint64_t;
-  using P = __int128;            // |data| < 2^63, |twiddle| < 2^26
-};
-
-// Low w bits of v as a signed w-bit value, 1 <= w <= the bits of V.
-template <typename V>
-__device__ __forceinline__ V wrap(typename Arith<V>::U v, int w) {
-  const int sh = 8 * static_cast<int>(sizeof(V)) - w;
-  return static_cast<V>(v << sh) >> sh;
-}
-
-// -x for x >= 0, -x - 1 for x < 0 (int_dif2_fly.vhd:281-304): exact at
-// the most-negative value.
-template <typename V>
-__device__ __forceinline__ V neg_guarded(V x) {
-  using U = typename Arith<V>::U;
-  return static_cast<V>(static_cast<U>(x >> (8 * sizeof(V) - 1)) -
-                        static_cast<U>(x));
-}
-
-// (br + j*bi) * (c + j*d) >> sh, wrapped to w bits; each product-sum is
-// exact in P before the floor shift.
-template <typename V>
-__device__ __forceinline__ void cmult(V br, V bi, int32_t c, int32_t d,
-                                      int sh, int w, V& yr, V& yi) {
-  using P = typename Arith<V>::P;
-  using U = typename Arith<V>::U;
-  const P pr = static_cast<P>(br) * c - static_cast<P>(bi) * d;
-  const P pi = static_cast<P>(bi) * c + static_cast<P>(br) * d;
-  yr = wrap<V>(static_cast<U>(pr >> sh), w);
-  yi = wrap<V>(static_cast<U>(pi >> sh), w);
-}
-
-// Sum and difference with the mode's scale and rounding, wrapped to out_w
-// bits: the DIF butterfly (int_dif2_fly.vhd:144-241) and the DIT combine
-// of A with B*W (int_dit2_fly.vhd:142-217) are the same arithmetic.  The
-// round-mode difference reaches +2^(w-1) at (max, min) and wraps to
-// -2^(w-1).
-template <typename V>
-__device__ __forceinline__ void bfly(V a, V b, int in_w, const PassParams& p,
-                                     V& s, V& d) {
-  using U = typename Arith<V>::U;
-  const int out_w = in_w + 1 - p.scale;
-  U su, du;
-  if (p.scale && !p.round) {
-    su = static_cast<U>(a >> 1) + static_cast<U>(b >> 1);
-    du = static_cast<U>(a >> 1) - static_cast<U>(b >> 1);
-  } else if (p.scale) {
-    // round_half_up(a +- b) without the wider sum
-    // (intmath.add_round_half_up / sub_round_half_up)
-    su = static_cast<U>(a >> 1) + static_cast<U>(b >> 1) +
-         static_cast<U>((a | b) & 1);
-    du = static_cast<U>(a >> 1) - static_cast<U>(b >> 1) +
-         static_cast<U>(a & ~b & 1);
-  } else {
-    su = static_cast<U>(a) + static_cast<U>(b);
-    du = static_cast<U>(a) - static_cast<U>(b);
-  }
-  s = wrap<V>(su, out_w);
-  d = wrap<V>(du, out_w);
-}
+constexpr int kMaxGridY = 65535; // the most items one launch takes
 
 // W_n^m for m in [0, n) from the coarse quarter table (re, im): bit-equal
 // to golden circle_twiddles_int(n)[m] (synth_circle_block): the
@@ -320,59 +234,8 @@ fused_pass_kernel(const Tin* __restrict__ x_re, const Tin* __restrict__ x_im,
     const int in_w = p.data_width + s * (1 - p.scale);
     const int out_w = in_w + 1 - p.scale;
     for (int u = threadIdx.x; u < (tile >> 1); u += kThreads) {
-      const int c = u & (tc - 1), t = u >> p.log_tc;
-      const int k = t & (h - 1);
-      const int i = (((t >> q) << (q + 1)) | k) * ld + c;
-      const int j = i + h * ld;
-      // the 2-D table's twiddle of this stage, row 2^q + k, this column
-      int32_t tr = 0, ti = 0;
-      if (kTwoD && c0 + c < p.cols) {
-        const size_t g = static_cast<size_t>(h + k) * p.cols + c0 + c;
-        tr = __ldg(t2_re + g);
-        ti = __ldg(t2_im + g);
-      }
-      V sr, si, dr, di;
-      if (kInverse) {
-        // B times conj(W) first, wrapped to in_w; W = -j on the odd index
-        // of order 1 makes it B * j = (neg_guarded(bi), br)
-        const V br = s_re[j], bi = s_im[j];
-        V bwr = br, bwi = bi;
-        if (kTwoD) {
-          cmult(br, bi, tr, -ti, p.tw_shift, in_w, bwr, bwi);
-        } else if (q == 1) {
-          if (k & 1) {
-            bwr = neg_guarded(bi);
-            bwi = br;
-          }
-        } else if (q > 1) {
-          cmult(br, bi, __ldg(w_re + h + k), -__ldg(w_im + h + k),
-                p.tw_shift, in_w, bwr, bwi);
-        }
-        bfly(s_re[i], bwr, in_w, p, sr, dr);
-        bfly(s_im[i], bwi, in_w, p, si, di);
-      } else {
-        V yr, yi;
-        bfly(s_re[i], s_re[j], in_w, p, sr, yr);
-        bfly(s_im[i], s_im[j], in_w, p, si, yi);
-        dr = yr;
-        di = yi;
-        if (kTwoD) {
-          cmult(yr, yi, tr, ti, p.tw_shift, out_w, dr, di);
-        } else if (q == 1) {
-          // W = -j on the odd index: (re, im) = (im, neg_guarded(re))
-          if (k & 1) {
-            dr = yi;
-            di = neg_guarded(yr);
-          }
-        } else if (q > 1) {
-          cmult(yr, yi, __ldg(w_re + h + k), __ldg(w_im + h + k),
-                p.tw_shift, out_w, dr, di);
-        }
-      }
-      s_re[i] = sr;
-      s_im[i] = si;
-      s_re[j] = dr;
-      s_im[j] = di;
+      stage_body<V, kInverse, kTwoD>(s_re, s_im, u, q, h, in_w, out_w, p, c0,
+                                     w_re, w_im, t2_re, t2_im);
     }
     __syncthreads();
   }
@@ -447,7 +310,7 @@ struct PassPtrs {
 template <typename Tin, typename Tout, typename V, bool kInverse,
           bool kTwoD>
 cudaError_t launch(const PassPtrs& a, PassParams p, const SynthParams& syn,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int* launches) {
   // TC columns per CTA: 32, and fewer from 64 KiB of tile per plane on, so
   // that m = 4096 fits: 16384 / m on the int32 tile (2 planes x 4096 x 5
   // words x 4 B = 160 KiB, plus the 4 KiB coarse table of the in-kernel
@@ -463,16 +326,27 @@ cudaError_t launch(const PassPtrs& a, PassParams p, const SynthParams& syn,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.cols + p.tc - 1) / p.tc, p.batch);
   const auto i32 = [](const void* v) {
     return static_cast<const int32_t*>(v);
   };
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const Tin*>(a.x_re), static_cast<const Tin*>(a.x_im),
-      i32(a.w_re), i32(a.w_im), i32(a.t2_re), i32(a.t2_im), i32(a.e_re),
-      i32(a.e_im), i32(a.c_re), i32(a.c_im), static_cast<Tout*>(a.y_re),
-      static_cast<Tout*>(a.y_im), p, syn);
-  return cudaGetLastError();
+  const unsigned tiles = (p.cols + p.tc - 1) / p.tc;
+  const size_t item = static_cast<size_t>(p.rows) * p.cols;
+  // gridDim.y holds at most kMaxGridY items: a larger batch takes several
+  // launches, each on its own slice of x and y and each counted
+  for (int b0 = 0; b0 < p.batch; b0 += kMaxGridY) {
+    const int nb = p.batch - b0 < kMaxGridY ? p.batch - b0 : kMaxGridY;
+    const size_t off = static_cast<size_t>(b0) * item;
+    kernel<<<dim3(tiles, nb), kThreads, smem, stream>>>(
+        static_cast<const Tin*>(a.x_re) + off,
+        static_cast<const Tin*>(a.x_im) + off, i32(a.w_re), i32(a.w_im),
+        i32(a.t2_re), i32(a.t2_im), i32(a.e_re), i32(a.e_im), i32(a.c_re),
+        i32(a.c_im), static_cast<Tout*>(a.y_re) + off,
+        static_cast<Tout*>(a.y_im) + off, p, syn);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launches;
+  }
+  return cudaSuccess;
 }
 
 // The direction and the 2-D stage tables are template parameters, so the
@@ -480,15 +354,21 @@ cudaError_t launch(const PassPtrs& a, PassParams p, const SynthParams& syn,
 // no 2-D form (the caller checks).
 template <typename Tin, typename Tout, typename V>
 cudaError_t launch_dir(int inverse, const PassPtrs& a, const PassParams& p,
-                       const SynthParams& syn, cudaStream_t stream) {
+                       const SynthParams& syn, cudaStream_t stream,
+                       int* launches) {
   if constexpr (sizeof(V) == 4) {
     if (a.t2_re != nullptr) {
-      return inverse ? launch<Tin, Tout, V, true, true>(a, p, syn, stream)
-                     : launch<Tin, Tout, V, false, true>(a, p, syn, stream);
+      return inverse
+                 ? launch<Tin, Tout, V, true, true>(a, p, syn, stream,
+                                                    launches)
+                 : launch<Tin, Tout, V, false, true>(a, p, syn, stream,
+                                                     launches);
     }
   }
-  return inverse ? launch<Tin, Tout, V, true, false>(a, p, syn, stream)
-                 : launch<Tin, Tout, V, false, false>(a, p, syn, stream);
+  return inverse ? launch<Tin, Tout, V, true, false>(a, p, syn, stream,
+                                                     launches)
+                 : launch<Tin, Tout, V, false, false>(a, p, syn, stream,
+                                                      launches);
 }
 
 // A synthesis block [rows, cols] of size n = 2^log_n: every index
@@ -509,8 +389,9 @@ bool synth_ok(const SynthParams& s, int rows, int cols) {
 // out_size are the bytes of an element of x and y: (2, 2) and (4, 4) run
 // on the int32 tile with outputs of <= 32 bits; (4, 8), the widening pass,
 // and (8, 8) on the int64 tile with outputs of <= 64 bits, no 2-D tables
-// and no synthesis.
-// Returns a cudaError_t: 0 when the launch was accepted.
+// and no synthesis.  *launches receives the kernel launches made: one for
+// every 65 535 items of the batch, or part of them.
+// Returns a cudaError_t: 0 when every launch was accepted.
 extern "C" int intfft_fused_pass(
     const void* x_re, const void* x_im, void* y_re, void* y_im,
     const void* w_re, const void* w_im, const void* t2_re, const void* t2_im,
@@ -519,13 +400,14 @@ extern "C" int intfft_fused_pass(
     int data_width, int scale, int round, int tw_shift, int bypass,
     int inverse, int natural, int transpose_in, int transpose_out,
     int synth_log_n, int mathpi, int xshift, int sh_cnt, int device,
-    void* stream) {
+    void* stream, int* launches) {
+  *launches = 0;
   const int log_rows = log2_exact(rows);
   const SynthParams syn{synth_log_n, mathpi, xshift, sh_cnt};
   const bool narrow = in_size == out_size && (in_size == 2 || in_size == 4);
   const bool wide = out_size == 8 && (in_size == 4 || in_size == 8);
-  if (log_rows < 3 || log_rows > 12 || batch < 1 || batch > 65535 ||
-      cols < 1 || data_width < 1 || !(narrow || wide) ||
+  if (log_rows < 3 || log_rows > 12 || batch < 1 || cols < 1 ||
+      data_width < 1 || !(narrow || wide) ||
       data_width + (1 - scale) * log_rows > (wide ? 64 : 32) ||
       (t2_re == nullptr && w_re == nullptr) ||
       (e_re != nullptr && c_re != nullptr) ||
@@ -542,13 +424,17 @@ extern "C" int intfft_fused_pass(
                    c_re, c_im, y_re, y_im};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_size == 2) {
-    err = launch_dir<int16_t, int16_t, int32_t>(inverse, a, p, syn, s);
+    err = launch_dir<int16_t, int16_t, int32_t>(inverse, a, p, syn, s,
+                                                launches);
   } else if (!wide) {
-    err = launch_dir<int32_t, int32_t, int32_t>(inverse, a, p, syn, s);
+    err = launch_dir<int32_t, int32_t, int32_t>(inverse, a, p, syn, s,
+                                                launches);
   } else if (in_size == 4) {
-    err = launch_dir<int32_t, int64_t, int64_t>(inverse, a, p, syn, s);
+    err = launch_dir<int32_t, int64_t, int64_t>(inverse, a, p, syn, s,
+                                                launches);
   } else {
-    err = launch_dir<int64_t, int64_t, int64_t>(inverse, a, p, syn, s);
+    err = launch_dir<int64_t, int64_t, int64_t>(inverse, a, p, syn, s,
+                                                launches);
   }
   return static_cast<int>(err);
 }

@@ -16,7 +16,9 @@ import functools
 import os
 from pathlib import Path
 
-SOURCES = ("fused_pass.cu", "probe.cu")
+SOURCES = ("fused_pass.cu", "probe.cu", "product.cu", "probe_stages.cu")
+#: Headers the sources include: hashed with them, compiled through them.
+HEADERS = ("intfft_arith.cuh", "stage_body.cuh")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libintfft_torch.so"
@@ -46,7 +48,7 @@ def build() -> tuple[Path, str]:
 
     srcs = [CSRC / s for s in SOURCES]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + [CSRC / h for h in HEADERS]:
         digest.update(s.read_bytes())
     so = BUILD_ROOT / digest.hexdigest()[:16] / LIB_NAME
     if so.exists():
@@ -89,7 +91,8 @@ def library():
     so, _ = build()
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.intfft_fused_pass.argtypes = [ptr] * 12 + [i32] * 19 + [ptr]
+    lib.intfft_fused_pass.argtypes = ([ptr] * 12 + [i32] * 19
+                                     + [ptr, ctypes.POINTER(i32)])
     lib.intfft_fused_pass.restype = i32
     lib.intfft_circle_table.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.intfft_circle_table.restype = i32
@@ -102,6 +105,14 @@ def library():
     lib.intfft_probe_cta_elems.restype = i32
     lib.intfft_probe_mem_peak.argtypes = [i32]
     lib.intfft_probe_mem_peak.restype = i64
+    lib.intfft_spectrum_product.argtypes = ([ptr] * 6 + [i64, i64]
+                                            + [i32] * 6 + [ptr])
+    lib.intfft_spectrum_product.restype = i32
+    lib.intfft_stage_probe.argtypes = [ptr] * 8 + [i32] * 12 + [ptr]
+    lib.intfft_stage_probe.restype = i32
+    lib.intfft_stage_probe_geometry.argtypes = [i32] * 5 + [
+        ctypes.POINTER(i32)] * 2
+    lib.intfft_stage_probe_geometry.restype = i32
     lib.intfft_error_string.argtypes = [i32]
     lib.intfft_error_string.restype = ctypes.c_char_p
     return lib

@@ -32,6 +32,7 @@ is no other route and no fallback.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -205,8 +206,9 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
     blocks carry outputs up to 64 bits, with a table epilogue or none.
 
     A CUDA tensor launches the kernel on the current stream (no
-    synchronisation) and adds one to ``fused_pass.launches``; a CPU tensor
-    runs ``fused_pass_reference``."""
+    synchronisation) and adds the launches made to ``fused_pass.launches``:
+    one, or one for every 65 535 blocks or part of them (a grid holds no
+    more); a CPU tensor runs ``fused_pass_reference``."""
     out_dtype = out_dtype or x_re.dtype
     _check_pass(x_re, x_im, cfg, tables, epi, synth, tables_2d, natural,
                 transpose_in, out_dtype)
@@ -228,6 +230,7 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
                          if pair is not None else (None, None))
     prm = synth_params(cfg, synth.n) if synth is not None else (0, 0, 0, 0)
     lib = _build.library()
+    made = ctypes.c_int(0)
     err = lib.intfft_fused_pass(
         x_re.data_ptr(), x_im.data_ptr(), y_re.data_ptr(), y_im.data_ptr(),
         *ptrs(tables), *ptrs(tables_2d), *ptrs(epi),
@@ -236,9 +239,10 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
         cfg.scale,
         int(cfg.rounding == "round"), cfg.twiddle_shift, int(cfg.bypass_fly),
         int(inverse), int(natural), int(transpose_in), int(transpose_out),
-        *prm, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        *prm, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        ctypes.byref(made))
     _build.check(lib, err, "fused_pass launch")
-    fused_pass.launches += 1
+    fused_pass.launches += made.value
     return y_re, y_im
 
 

@@ -11,6 +11,11 @@ product-sum, a floor ``>>`` and a wrap; wider data splits once into a high
 and a low part (``cmult_exact``).  The limb planner and the planes have no
 counterpart.
 
+``spectrum_product`` is the renormalised frequency-domain product of the
+FFT -> product -> IFFT chains: on a CUDA tensor one launch of the
+hand-written kernel ``csrc/product.cu``, on a CPU tensor its plain version
+``spectrum_product_reference`` (``cmult_exact`` and a cast).
+
 Shifts on torch integer tensors wrap like two's-complement registers
 (``<<``) and are arithmetic (``>>``), so every function is exact for every
 value of its dtype.  Bit-identical to ``intfftk_tpu.golden.int_model`` and
@@ -20,6 +25,8 @@ to the JAX primitives (tests/test_torch_intmath.py).
 from __future__ import annotations
 
 import torch
+
+from ..device import use_kernel
 
 
 def _bits(x: torch.Tensor) -> int:
@@ -105,3 +112,98 @@ def cmult_exact(br: torch.Tensor, bi: torch.Tensor, w_re: torch.Tensor,
     pre = ((hr * c - hi * d) << up) + ((lr * c - li * d) >> shift)
     pim = ((hi * c + hr * d) << up) + ((li * c + lr * d) >> shift)
     return wrap_width(pre, out_width), wrap_width(pim, out_width)
+
+
+def _wide_product(fr: torch.Tensor, out_width: int,
+                  spectrum_width: int) -> bool:
+    """True where one int64 product-sum could overflow (the rule of
+    ``cmult_exact``): the datum, at most ``out_width`` bits and never more
+    than its dtype holds, plus the spectrum plus one exceed 63 bits."""
+    return min(out_width, _bits(fr)) + spectrum_width + 1 > 63
+
+
+def _check_product(fr, fi, hr, hi, shift, out_width, spectrum_width,
+                   out_dtype) -> torch.dtype:
+    if out_dtype is None:
+        out_dtype = torch.int32 if out_width <= 32 else torch.int64
+    if (fr.dtype not in (torch.int32, torch.int64) or fi.dtype != fr.dtype
+            or out_dtype not in (torch.int32, torch.int64)):
+        raise TypeError(f"the product takes int32 or int64 data and gives "
+                        f"int32 or int64, got {fr.dtype}, {fi.dtype} -> "
+                        f"{out_dtype}")
+    if not 1 <= out_width <= torch.iinfo(out_dtype).bits:
+        raise ValueError(f"{out_dtype} holds no {out_width}-bit result")
+    block = tuple(hr.shape)
+    if (hi.shape != hr.shape or hr.dtype != torch.int32
+            or hi.dtype != torch.int32 or fi.shape != fr.shape
+            or fr.dim() < hr.dim() or hr.numel() == 0
+            or tuple(fr.shape[fr.dim() - hr.dim():]) != block):
+        raise ValueError(f"expected [B, *block] data against an int32 table "
+                         f"of shape block, got {tuple(fr.shape)} against "
+                         f"{hr.dtype} {block}")
+    if not 0 <= shift <= 62 or not 1 <= spectrum_width <= 27:
+        raise ValueError(f"bad shift {shift} or spectrum width "
+                         f"{spectrum_width}")
+    return out_dtype
+
+
+def spectrum_product_reference(fr, fi, hr, hi, shift: int, out_width: int,
+                               spectrum_width: int = 27,
+                               out_dtype: torch.dtype | None = None):
+    """Plain PyTorch version of ``spectrum_product`` (any device):
+    ``cmult_exact`` against the broadcast table, then the output dtype."""
+    out_dtype = _check_product(fr, fi, hr, hi, shift, out_width,
+                               spectrum_width, out_dtype)
+    yr, yi = cmult_exact(fr, fi, hr, hi, shift, out_width,
+                         twiddle_width=spectrum_width)
+    return yr.to(out_dtype), yi.to(out_dtype)
+
+
+def spectrum_product(fr: torch.Tensor, fi: torch.Tensor, hr: torch.Tensor,
+                     hi: torch.Tensor, shift: int, out_width: int,
+                     spectrum_width: int = 27,
+                     out_dtype: torch.dtype | None = None):
+    """(fr + j*fi) * (hr + j*hi) >> shift, wrapped to ``out_width`` bits,
+    for [B, *block] data (contiguous int32 or int64) against a spectrum
+    table ``hr``/``hi`` of shape ``block`` (contiguous int32, at most
+    ``spectrum_width`` <= 27 bits), broadcast over B.  Each product-sum is
+    exact before the floor shift, as ``cmult_exact``, whose contract on the
+    data holds here too (int64 data at most ``out_width`` bits wide).
+    Returns (re, im) in ``out_dtype``: int32 or int64, by default int32
+    where ``out_width`` <= 32.
+
+    A CUDA tensor launches the kernel of ``csrc/product.cu`` on the current
+    stream (no synchronisation) and adds one to
+    ``spectrum_product.launches``; a CPU tensor runs
+    ``spectrum_product_reference``."""
+    dev = fr.device
+    if not use_kernel(dev):
+        return spectrum_product_reference(fr, fi, hr, hi, shift, out_width,
+                                          spectrum_width, out_dtype)
+    out_dtype = _check_product(fr, fi, hr, hi, shift, out_width,
+                               spectrum_width, out_dtype)
+    if any(t.device != dev or not t.is_contiguous()
+           for t in (fr, fi, hr, hi)):
+        raise ValueError("the product kernel takes contiguous tensors on "
+                         "one device")
+    yr = torch.empty(fr.shape, dtype=out_dtype, device=dev)
+    yi = torch.empty(fr.shape, dtype=out_dtype, device=dev)
+    if fr.numel() == 0:
+        return yr, yi
+    from . import _build
+
+    lib = _build.library()
+    err = lib.intfft_spectrum_product(
+        fr.data_ptr(), fi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+        yr.data_ptr(), yi.data_ptr(), fr.numel(), hr.numel(),
+        fr.element_size(), yr.element_size(),
+        int(_wide_product(fr, out_width, spectrum_width)), shift, out_width,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "spectrum_product launch")
+    spectrum_product.launches += 1
+    return yr, yi
+
+
+#: Kernel launches made by ``spectrum_product`` (a plain count; reset it
+#: to 0).
+spectrum_product.launches = 0

@@ -22,7 +22,7 @@ from torch import nn
 from ..device import resolve, use_kernel
 from ..golden.convolve import ConvSpec, taps_spectrum_int
 from ..ops.fused_fft import LargeFFTPlan, fused_pass
-from ..ops.intmath import cmult_exact
+from ..ops.intmath import spectrum_product
 from .four_step import local_plan
 
 
@@ -48,10 +48,12 @@ class OverlapSaveConv(nn.Module):
       no reorder exists on the spectrum side;
     * "xla": the staged ``FFTPlan`` pair, on the CPU only.
 
-    The frequency product is eager (``intmath.cmult_exact``), as it is XLA
-    outside any Pallas kernel in JAX.  A product wider than 32 bits
-    (``spec.product_width``) needs the four-step engine; its inverse runs
-    on int64 blocks.
+    The frequency product is ``intmath.spectrum_product``: one launch of
+    the product kernel on the card, its plain version on the CPU (in JAX
+    it is XLA arithmetic inside the chain's jit, outside any Pallas
+    kernel).  It writes the inverse's input dtype itself.  A product wider
+    than 32 bits (``spec.product_width``) needs the four-step engine; its
+    inverse runs on int64 blocks.
 
     Call with x_re, x_im of shape [..., T], T a multiple of
     ``spec.payload`` (pad on the host; ``golden.convolve`` documents the
@@ -101,7 +103,7 @@ class OverlapSaveConv(nn.Module):
             self.register_buffer(name, torch.as_tensor(
                 h.astype(np.int32), device=device))
 
-    def _blocks(self, xr, xi, pass_fn=fused_pass):
+    def _blocks(self, xr, xi, pass_fn, product_fn):
         """[..., T] on the device -> the conv chunk [..., T]."""
         spec = self.spec
         n, m, lpay = spec.n, spec.taps_len, spec.payload
@@ -115,9 +117,14 @@ class OverlapSaveConv(nn.Module):
             return e.unfold(-1, n, lpay)
 
         def product(fr, fi):
-            return cmult_exact(fr, fi, self.hr, self.hi, spec.product_shift,
-                               spec.product_width,
-                               twiddle_width=spec.spectrum_width)
+            # int32 or int64 in (an int16 forward widens first), the
+            # inverse's input dtype out unless that is int16
+            if fr.dtype == torch.int16:
+                fr, fi = fr.int(), fi.int()
+            return product_fn(
+                fr.contiguous(), fi.contiguous(), self.hr, self.hi,
+                spec.product_shift, spec.product_width, spec.spectrum_width,
+                self.out_dtype)
 
         def cut(y):
             return y.reshape(shp + (-1, n))[..., m - 1:].reshape(
@@ -137,10 +144,12 @@ class OverlapSaveConv(nn.Module):
             yr, yi = self.inv(*product(fr, fi))
         return cut(yr), cut(yi)
 
-    def forward(self, x_re, x_im, pass_fn=fused_pass):
+    def forward(self, x_re, x_im, pass_fn=fused_pass,
+                product_fn=spectrum_product):
         """Integer [..., T] (tensors or arrays) -> (y_re, y_im) [..., T] on
-        this module's device.  ``pass_fn=fused_pass_reference`` runs the
-        four-step engine's plain version on any device."""
+        this module's device.  ``pass_fn=fused_pass_reference`` and
+        ``product_fn=spectrum_product_reference`` run the plain versions of
+        the four-step engine and of the product on any device."""
         dev = self.hr.device
         xr = torch.as_tensor(x_re).to(device=dev, dtype=torch.int32)
         xi = torch.as_tensor(x_im).to(device=dev, dtype=torch.int32)
@@ -149,4 +158,4 @@ class OverlapSaveConv(nn.Module):
             raise ValueError(f"signal length {t} must be a multiple of "
                              f"payload = {self.spec.payload} (pad "
                              f"host-side)")
-        return self._blocks(xr, xi, pass_fn)
+        return self._blocks(xr, xi, pass_fn, product_fn)

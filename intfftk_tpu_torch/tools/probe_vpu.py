@@ -31,7 +31,7 @@ taken again): the time is linear in the chain length (the two half-ranges
 agree within 5 %), and no chain runs above ``lane_rate_peak`` (SMs x 128
 lanes x the maximum SM clock) times the ops one instruction can absorb at
 full fusion: a reading above that is a folded chain, not a fast card.
-``sass_loop_counts`` reads what was compiled, where ``cuobjdump`` exists.
+``sass_loop_counts`` reads what was compiled (``tools.audit_sass``).
 
 The two ceilings of a bound (``ceilings_from``, ``same_session_ceilings``):
 integer ops/s is the better of the two mixed chains, measured in the
@@ -54,7 +54,6 @@ prints instead how far N readings of each chain bent (``bend``).
 from __future__ import annotations
 
 import json
-import re
 import subprocess
 import sys
 from typing import NamedTuple
@@ -295,6 +294,30 @@ class ChainReading(NamedTuple):
     ms: tuple
 
 
+def timed_lengths(run, target_ms: float, reps: int, k_base=K_BASE):
+    """The timing discipline of every marginal reading: ``run(k)`` launches
+    a kernel whose time grows with k.  The three lengths are ``k_base``
+    times the whole factor that brings the longest launch to ``target_ms``,
+    found from one pilot launch; then ``reps`` rounds time the three in
+    turn.  Returns (lengths, rounds of three times in ms)."""
+    run(k_base[0])                                      # builds, warms
+    pilot = _event_ms(lambda: run(k_base[2]))
+    scale = max(1, round(target_ms / max(pilot, 1e-3)))
+    ks = tuple(k * scale for k in k_base)
+    return ks, _event_rounds([lambda k=k: run(k) for k in ks], reps)
+
+
+def marginal_rates(work: float, ks, rounds) -> tuple[float, float, float]:
+    """``work`` per unit of length over the marginal time, per second: over
+    the whole range of lengths, its lower and its upper half, each the
+    median over the rounds of that round's own difference."""
+    def rate(a, b):
+        return _median([work * (ks[b] - ks[a]) / max(ms[b] - ms[a], 1e-9)
+                        * 1e3 for ms in rounds])
+
+    return rate(0, 2), rate(0, 1), rate(1, 2)
+
+
 def chain_input(dtype=torch.int32, device=None, seed: int = 0):
     """The tensor a timed chain runs on: ``CTAS_PER_SM`` CTAs on every SM,
     values that differ per element (made from ``seed``)."""
@@ -321,20 +344,11 @@ def chain_ops_per_s(body: str, dtype=torch.int32, target_ms=TARGET_MS,
     40 ms, where launches of 1 to 10 ms bent past 5 %)."""
     if x is None:
         x = chain_input(dtype, device)
-    probe_chain(body, x, K_BASE[0])                     # builds, warms
-    pilot = _event_ms(lambda: probe_chain(body, x, K_BASE[2]))
-    scale = max(1, round(target_ms / max(pilot, 1e-3)))
-    ks = tuple(k * scale for k in K_BASE)
-    rounds = _event_rounds(
-        [lambda k=k: probe_chain(body, x, k) for k in ks], reps)
+    ks, rounds = timed_lengths(lambda k: probe_chain(body, x, k), target_ms,
+                               reps)
     work = x.numel() * BODIES[body].ops
-
-    def rate(a, b):
-        return _median([work * (ks[b] - ks[a]) / max(ms[b] - ms[a], 1e-9)
-                        * 1e3 for ms in rounds])
-
-    return ChainReading(body, x.dtype, rate(0, 2), rate(0, 1), rate(1, 2),
-                        ks, tuple(_median(col) for col in zip(*rounds)))
+    return ChainReading(body, x.dtype, *marginal_rates(work, ks, rounds), ks,
+                        tuple(_median(col) for col in zip(*rounds)))
 
 
 def lane_rate_peak(device=None) -> float:
@@ -457,39 +471,15 @@ def same_session_ceilings(quick: bool = False, device=None):
                                      bodies=("mixed7", "stagemix10")))
 
 
-def sass_loop_counts(so_path) -> dict | None:
+def sass_loop_counts(so_path) -> dict:
     """SASS instructions in the chain loop of each compiled chain kernel,
-    {(body index, storage letter): instructions per iteration}, read with
-    ``cuobjdump -sass``; None where the toolkit has no cuobjdump.  The loop
-    is the span from the target of the last backward branch to that branch;
-    it holds the work of the kernel's 8 independent chains plus the loop's
-    own counter, compare and branch."""
-    import shutil
-    from pathlib import Path
+    {(body index, storage letter): instructions per iteration}: the loop's
+    whole span (the work of the kernel's 8 independent chains plus the
+    loop's own counter, compare and branch), read by
+    ``tools.audit_sass``, which also counts it by class."""
+    from . import audit_sass
 
-    tool = shutil.which("cuobjdump")
-    if tool is None:
-        beside = Path(_build.find_nvcc()).with_name("cuobjdump")
-        if not beside.exists():
-            return None
-        tool = str(beside)
-    sass = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    counts = {}
-    for part in sass.split("Function : ")[1:]:
-        name = re.match(r"\S*chain_kernelILi(\d+)E(\w)", part)
-        if not name:
-            continue
-        ins = [(int(a, 16), op) for a, op in re.findall(
-            r"/\*([0-9a-f]{4,})\*/\s+([^;/]+);", part)]
-        back = [(a, int(m.group(1), 16)) for a, op in ins
-                for m in [re.search(r"BRA\S*\s+(?:\S+,\s*)?`?\(?0x([0-9a-f]+)",
-                                    op)] if m and int(m.group(1), 16) < a]
-        if back:
-            end, start = back[-1]
-            counts[int(name.group(1)), name.group(2)] = sum(
-                start <= a <= end for a, _ in ins)
-    return counts
+    return audit_sass.chain_loop_sizes(audit_sass.read_sass(so_path))
 
 
 def bend(readings: int, quick: bool = False, device=None) -> int:

@@ -13,6 +13,8 @@ from intfftk_tpu_torch.convert import conv_spec_from_jax
 from intfftk_tpu_torch.golden.convolve import ConvSpec
 from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, fused_pass,
                                               fused_pass_reference)
+from intfftk_tpu_torch.ops.intmath import (spectrum_product,
+                                           spectrum_product_reference)
 from intfftk_tpu_torch.ops.single_pass import FusedAxisFFT
 from intfftk_tpu_torch.ops.transform import FFTPlan
 from intfftk_tpu_torch.parallel import OverlapSaveConv
@@ -93,11 +95,13 @@ def test_conv_four_step_engine_wide():
     assert port.inv.block_in_shape == port.fwd.block_out_shape == (128, 128)
     assert tuple(port.hr.shape) == (128, 128) and port.hr.dtype == torch.int32
     # the plain version of the four-step engine gives the same bits
-    before = fused_pass.launches
-    pr, pi = port(*x, pass_fn=fused_pass_reference)
+    before = fused_pass.launches, spectrum_product.launches
+    pr, pi = port(*x, pass_fn=fused_pass_reference,
+                  product_fn=spectrum_product_reference)
     yr, yi = port(*x)
     assert torch.equal(pr, yr) and torch.equal(pi, yi)
-    assert fused_pass.launches == before            # the CPU launches none
+    # the CPU launches none
+    assert (fused_pass.launches, spectrum_product.launches) == before
 
 
 def test_conv_four_step_engine_narrow():
@@ -126,3 +130,29 @@ def test_conv_errors():
         OverlapSaveConv(wide, *hw, kernel="xla", device="cpu")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         OverlapSaveConv(spec, *h)                # no card here, none asked
+
+
+def test_conv_product_goes_through_spectrum_product():
+    """The frequency product is one ``spectrum_product`` call per
+    convolution, handed the spec's shift and widths and the inverse's
+    input dtype; a substitute ``product_fn`` sees exactly that."""
+    spec = make_conv_spec(n=1 << 14, taps_len=(1 << 11) + 1,
+                          twiddle_width=16, max_product_width=44,
+                          max_spectrum_width=25)
+    h = _taps(spec.taps_len, 16)
+    x = _signal((spec.payload * 2,), 16)
+    port = OverlapSaveConv(conv_spec_from_jax(spec), *h, device="cpu")
+    seen = []
+
+    def spy(fr, fi, hr, hi, shift, out_width, spectrum_width, out_dtype):
+        seen.append((fr.dtype, tuple(fr.shape[1:]), hr.dtype, shift,
+                     out_width, spectrum_width, out_dtype))
+        return spectrum_product_reference(fr, fi, hr, hi, shift, out_width,
+                                          spectrum_width, out_dtype)
+
+    yr, yi = port(*x, product_fn=spy)
+    assert seen == [(torch.int32, (128, 128), torch.int32,
+                     spec.product_shift, 44, 25, torch.int64)]
+    gr, gi = overlap_save_int(*x, *h, spec)
+    np.testing.assert_array_equal(yr.numpy(), gr)
+    np.testing.assert_array_equal(yi.numpy(), gi)

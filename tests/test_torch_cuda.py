@@ -1,6 +1,7 @@
 """The CUDA kernels (csrc/fused_pass.cu: the factor pass and the twiddle
-generator; csrc/probe.cu: the ceiling probes) against their plain versions
-on the card, and the port's plans and its convolution on the card against
+generator; csrc/probe.cu: the ceiling probes; csrc/product.cu: the spectrum
+product; csrc/probe_stages.cu: the per-stage probe) against their plain
+versions on the card, and the port's plans and its convolution on the card against
 golden.  Marked ``cuda``:
 each test skips where no CUDA device is present; on a machine with an H100
 run ``python -m pytest tests/test_torch_cuda.py`` (the first test builds
@@ -20,12 +21,16 @@ from intfftk_tpu_torch.golden.four_step import four_step_int
 from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, circle_table,
                                               fused_pass,
                                               fused_pass_reference)
+from intfftk_tpu_torch.ops.intmath import (spectrum_product,
+                                           spectrum_product_reference)
 from intfftk_tpu_torch.ops.single_pass import PallasFFTPlan, PallasWideFFTPlan
 from intfftk_tpu_torch.ops.transform import pack_tables, pack_tables_2d
 from intfftk_tpu_torch.ops.twiddle_synth import (EpiSynth, coarse_table,
                                                  device_circle_table,
                                                  synth_circle_block)
 from intfftk_tpu_torch.parallel import Channelizer, OverlapSaveConv
+from intfftk_tpu_torch.tools import audit_sass
+from intfftk_tpu_torch.tools import probe_stages as ps
 from intfftk_tpu_torch.tools import probe_vpu as pv
 
 pytestmark = pytest.mark.cuda
@@ -518,3 +523,119 @@ def test_default_device_is_the_card(dev):
     assert PallasFFTPlan(cfg).w_re.device.type == "cuda"
     assert Channelizer(cfg).device.type == "cuda"
     assert device_circle_table(cfg, 4096, 16, 256, False)[0].is_cuda
+
+
+@pytest.mark.parametrize("case", [
+    # data bits, dtype, spectrum bits, shift, out bits, out dtype, shape
+    (32, torch.int32, 25, 14, 44, torch.int64, (4, 128, 128), (128, 128)),
+    (48, torch.int64, 25, 23, 48, torch.int64, (2, 128, 128), (128, 128)),
+    (63, torch.int64, 27, 26, 63, torch.int64, (3, 1022), (1022,)),
+    (32, torch.int32, 16, 15, 32, torch.int32, (3, 4096), (4096,)),
+    (30, torch.int64, 25, 24, 30, torch.int32, (5, 1024), (1024,)),
+    (30, torch.int64, 25, 24, 30, torch.int64, (5, 1024), (1024,)),
+    (32, torch.int32, 25, 14, 44, torch.int64, (3, 1023), (1023,)),
+    (32, torch.int32, 25, 14, 44, torch.int64, (1, 1), (1,)),
+], ids=["c4_int32_int64", "c2_int64_int128", "int64_63_27", "int32_int32",
+        "int64_int32", "int64_long_long", "ragged_1023", "one_element"])
+def test_spectrum_product_on_card(dev, case):
+    """P1: every (data, product-sum, output) form at full scale, aligned
+    runs and ragged counts, equal to its plain version."""
+    dw, dt, sw, shift, ow, odt, shape, block = case
+    g = torch.Generator(device=dev).manual_seed(dw + sw)
+
+    def rnd(shp, bits, dtype):
+        lim = 1 << (bits - 1)
+        v = torch.randint(-lim, lim, shp, dtype=torch.int64, device=dev,
+                          generator=g)
+        v.view(-1)[0] = -lim
+        v.view(-1)[-1] = lim - 1
+        return v.to(dtype)
+
+    args = (rnd(shape, dw, dt), rnd(shape, dw, dt),
+            rnd(block, sw, torch.int32), rnd(block, sw, torch.int32))
+    before = spectrum_product.launches
+    yr, yi = spectrum_product(*args, shift, ow, sw, odt)
+    torch.cuda.synchronize()
+    assert spectrum_product.launches == before + 1 and yr.dtype == odt
+    wr, wi = spectrum_product_reference(*args, shift, ow, sw, odt)
+    assert torch.equal(yr, wr) and torch.equal(yi, wi)
+
+
+def test_spectrum_product_refusals_on_card(dev):
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        spectrum_product(z(4, 8)[:, ::2], z(4, 8)[:, ::2], z(4), z(4), 1, 16)
+    with pytest.raises(ValueError, match="one device"):
+        spectrum_product(z(4, 4), z(4, 4), z(4).cpu(), z(4).cpu(), 1, 16)
+    yr, _ = spectrum_product(z(0, 4), z(0, 4), z(4), z(4), 1, 16)
+    assert tuple(yr.shape) == (0, 4)
+
+
+def test_pass_at_batch_65536_on_card(dev):
+    """More items than one grid dimension holds: one call, two launches
+    (both counted), every item equal to the plain version."""
+    cfg = FFTConfig(n=8, mode="scaled", rounding="round", data_width=16,
+                    twiddle_width=16)
+    tables = tuple(torch.as_tensor(t, device=dev) for t in pack_tables(cfg))
+    xr, xi = _stimulus((65536 + 3, 8, 5), 16, seed=65536)
+    x = [torch.as_tensor(v).to(torch.int16).to(dev) for v in (xr, xi)]
+    before = fused_pass.launches
+    y = fused_pass(*x, cfg, tables, transpose_out=True)
+    torch.cuda.synchronize()
+    assert fused_pass.launches == before + 2
+    w = fused_pass_reference(*x, cfg, tables, transpose_out=True)
+    assert torch.equal(y[0], w[0]) and torch.equal(y[1], w[1])
+
+
+@pytest.mark.parametrize("config", [ps.check_config, ps.probe_config],
+                         ids=["unscaled", "scaled_round"])
+@pytest.mark.parametrize("step", list(ps.STEPS))
+def test_stage_step_on_card(dev, step, config):
+    """K10: the once and the loop kernel of every step equal to its plain
+    version, and a variant to its production step, with full-scale columns,
+    on live unscaled data and on the scaled/round config the tool times (so
+    a fixed-mode step's kernel of either mode is compared); two CTAs."""
+    cfg = config()
+    s = ps.STEPS[step]
+    tc, _ = ps.geometry(step, cfg.n, dev.index or 0)
+    dt = torch.int64 if s.wide else torch.int32
+    xr, xi = (torch.as_tensor(v).to(dt).to(dev)
+              for v in _stimulus((cfg.n, 2 * tc), 16, seed=s.order + 1))
+    tables = ps.stage_tables(cfg, dev)
+    epi = ps.epilogue_table(cfg, tc, dev)
+    for once, k in ((True, 1), (False, 1), (False, ps.MAX_CHECK_K)):
+        before = ps.stage_loop.launches
+        got = ps.stage_loop(step, xr, xi, k, cfg, tables, epi, once=once)
+        torch.cuda.synchronize()
+        assert ps.stage_loop.launches == before + 1
+        want = ps.stage_loop_reference(step, xr, xi, k, cfg, tables, epi)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if s.variant_of:
+            prod = ps.stage_loop(s.variant_of, xr, xi, k, cfg, tables, epi,
+                                 once=once)
+            assert torch.equal(got[0], prod[0])
+            assert torch.equal(got[1], prod[1])
+    with pytest.raises(ValueError, match="multiple of"):
+        ps.stage_loop(step, xr[:, :tc - 1].contiguous(),
+                      xi[:, :tc - 1].contiguous(), 1, cfg, tables, epi)
+
+
+def test_stage_probe_and_audit_on_card(dev):
+    """One quick reading of a production step passes both guards, and the
+    library's SASS parses: no opcode without a class, the chain that sets
+    the ceiling counted, a count for every step."""
+    peak = pv.lane_rate_peak(dev)
+    r = ps.stage_rate("prod_p7", target_ms=pv.TARGET_MS_QUICK, device=dev)
+    ps.check_reading(r, peak)
+    assert 1e-4 < r.ns_per_sample_per_stage < 1e-1
+    sass = audit_sass.library_sass()
+    assert not [i.opcode for ins in sass.values() for i in ins
+                if audit_sass.classify(i.opcode) == "unknown"]
+    per = audit_sass.audit_probe_chain("mixed7", sass).scaled(
+        audit_sass.CHAINS_PER_THREAD)
+    assert 1 <= audit_sass.issued(per) <= pv.BODIES["mixed7"].ops
+    for step in ps.STEPS:
+        assert audit_sass.issued(audit_sass.audit_stage(step, sass)) > 0
+    head = audit_sass.audit_headline(sass)
+    assert audit_sass.issued(head["int64"]["per_sample"]) > audit_sass.issued(
+        head["narrow"]["per_sample"])

@@ -108,3 +108,77 @@ def test_cmult_exact(dw, tw, conj):
     for g, w, j in zip(got, want, jax_out):
         np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(g, np.asarray(j).astype(np.int64))
+
+
+PRODUCT_CASES = {
+    # data bits, data dtype, spectrum bits, shift, out bits
+    "32+25": (32, torch.int32, 25, 14, 44),
+    "48+25": (48, torch.int64, 25, 23, 48),
+    "63+27": (63, torch.int64, 27, 26, 63),
+    "32+16_narrow": (32, torch.int32, 16, 15, 32),
+    "30+25_int64_narrow": (30, torch.int64, 25, 24, 30),
+}
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.int64, None],
+                         ids=["int32", "int64", "default"])
+@pytest.mark.parametrize("case", list(PRODUCT_CASES))
+def test_spectrum_product(case, out_dtype):
+    """The product on CPU tensors (its plain version) == cmult_exact ==
+    Python-int arithmetic, at full scale, for every output dtype that holds
+    the result; the table is broadcast over the leading axes."""
+    dw, dt, sw, shift, ow = PRODUCT_CASES[case]
+    if out_dtype == torch.int32 and ow > 32:
+        with pytest.raises(ValueError, match="holds no"):
+            tm.spectrum_product(torch.zeros(2, 4, dtype=dt),
+                                torch.zeros(2, 4, dtype=dt),
+                                torch.zeros(4, dtype=torch.int32),
+                                torch.zeros(4, dtype=torch.int32), shift, ow,
+                                sw, out_dtype)
+        return
+    rng = np.random.default_rng(dw + sw)
+    lim, hlim = 1 << (dw - 1), 1 << (sw - 1)
+    block = (3, 5)
+    fr, fi = (rng.integers(-lim, lim, (2, 4) + block) for _ in range(2))
+    hr, hi = (rng.integers(-hlim, hlim, block) for _ in range(2))
+    fr[0, 0, 0, :2], fi[0, 0, 0, :2] = (-lim, lim - 1), (lim - 1, -lim)
+    hr[0, :2], hi[0, :2] = (-hlim, hlim - 1), (-hlim, -hlim)
+    t = lambda a, d: torch.as_tensor(a).to(d)
+    args = (t(fr, dt), t(fi, dt), t(hr, torch.int32), t(hi, torch.int32))
+    before = tm.spectrum_product.launches
+    yr, yi = tm.spectrum_product(*args, shift, ow, sw, out_dtype)
+    assert tm.spectrum_product.launches == before   # the CPU launches none
+    want_dt = out_dtype or (torch.int32 if ow <= 32 else torch.int64)
+    assert yr.dtype == yi.dtype == want_dt and yr.shape == args[0].shape
+    cr, ci = tm.cmult_exact(*args, shift, ow, twiddle_width=sw)
+    assert torch.equal(yr.long(), cr) and torch.equal(yi.long(), ci)
+    pr, pi = tm.spectrum_product_reference(*args, shift, ow, sw, out_dtype)
+    assert torch.equal(yr, pr) and torch.equal(yi, pi)
+
+    def wrap(v):
+        v &= (1 << ow) - 1
+        return v - (1 << ow) if v >> (ow - 1) else v
+
+    c, d = np.broadcast_to(hr, fr.shape), np.broadcast_to(hi, fr.shape)
+    for a, b, cc, dd, gr, gi in zip(*(v.reshape(-1).tolist() for v in (
+            fr, fi, c, d, yr.numpy(), yi.numpy()))):
+        assert gr == wrap((a * cc - b * dd) >> shift)
+        assert gi == wrap((b * cc + a * dd) >> shift)
+
+
+def test_spectrum_product_checks():
+    z = lambda *s, d=torch.int32: torch.zeros(*s, dtype=d)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        tm.spectrum_product(z(2, 4, d=torch.int16), z(2, 4, d=torch.int16),
+                            z(4), z(4), 1, 16)
+    with pytest.raises(ValueError, match="int32 table"):
+        tm.spectrum_product(z(2, 4), z(2, 4), z(4, d=torch.int64),
+                            z(4, d=torch.int64), 1, 16)
+    with pytest.raises(ValueError, match=r"\[B, \*block\]"):
+        tm.spectrum_product(z(2, 4), z(2, 4), z(3), z(3), 1, 16)
+    with pytest.raises(ValueError, match="spectrum width"):
+        tm.spectrum_product(z(2, 4), z(2, 4), z(4), z(4), 1, 16, 28)
+    # the host's rule for the product-sum's type (cmult_exact's)
+    assert not tm._wide_product(z(1), 44, 25)           # 32 + 25 + 1
+    assert tm._wide_product(z(1, d=torch.int64), 48, 25)
+    assert not tm._wide_product(z(1, d=torch.int64), 30, 25)
