@@ -96,4 +96,19 @@ __device__ __forceinline__ void bfly(V a, V b, int in_w, int scale, int round,
   d = wrap<V>(du, out_w);
 }
 
+// The same sums without a branch on the mode, for code that inlines many
+// butterflies (a stage group): sh = scale, rnd = scale & round, both the
+// same for every butterfly of a launch.  Unscaled (sh = 0, rnd = 0) it is
+// a + b and a - b; scaled, the halves' sum and difference, plus the
+// rounding bits (a | b) & 1 and a & ~b & 1 where rnd is 1: bfly's three
+// arms, bit for bit.
+template <typename V>
+__device__ __forceinline__ void bfly_flat(V a, V b, int out_w, int sh, V rnd,
+                                          V& s, V& d) {
+  using U = typename Arith<V>::U;
+  const U ah = static_cast<U>(a >> sh), bh = static_cast<U>(b >> sh);
+  s = wrap<V>(ah + bh + static_cast<U>((a | b) & rnd), out_w);
+  d = wrap<V>(ah - bh + static_cast<U>(a & ~b & rnd), out_w);
+}
+
 }  // namespace

@@ -21,8 +21,8 @@
 // 256 independent vregs become kIlp independent chains per thread times
 // 1024 or more resident threads per SM.  roll is the rotate by one place
 // within each run of 32 consecutive elements (one warp's lanes: a shuffle)
-// plus one.  copy_kernel: y = x + 1 over int32 words, a grid-stride loop of
-// 16-byte loads and stores.
+// plus one.  copy_kernel: y = x + 1 over int32 words, one 16-byte load and
+// store per thread.
 //
 // What bounds them: by construction chain_kernel is bound by integer
 // instruction rate (its load and store are 2 x 4 bytes per element against
@@ -143,11 +143,17 @@ chain_kernel(const T* __restrict__ x, T* __restrict__ y, int k) {
   for (int j = 0; j < kIlp; ++j) y[base + j * kThreads] = static_cast<T>(c[j]);
 }
 
+// One 16-byte load and one 16-byte store per thread, on a grid that covers
+// the array: the card's own scheduler of CTAs keeps more loads in flight
+// than a resident grid-stride loop does, and is what a library's elementwise
+// kernel does.  tools/ab_copy_forms.py times the forms side by side: the
+// loop on 8, 16 or 32 CTAs per SM, 2 to 8 loads hoisted before the first
+// store, and the streaming hints __ldcs/__stcs all read slower than or level
+// with this one.
 __global__ void __launch_bounds__(kThreads)
 copy_kernel(const int4* __restrict__ x, int4* __restrict__ y, size_t n4) {
-  const size_t stride = static_cast<size_t>(gridDim.x) * kThreads;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n4; i += stride) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n4) {
     int4 v = x[i];
     v.x += 1;
     v.y += 1;
@@ -207,16 +213,18 @@ extern "C" int intfft_probe_chain(const void* x, void* y, long long n,
 }
 
 // One launch of copy_kernel: y = x + 1 over n_words int32 words (a multiple
-// of 4; both pointers 16-byte aligned), on `ctas` CTAs.
+// of 4; both pointers 16-byte aligned), one thread per 16 bytes.
 extern "C" int intfft_probe_copy(const void* x, void* y, long long n_words,
-                                 int ctas, int device, void* stream) {
-  if (n_words <= 0 || n_words % 4 != 0 || ctas < 1 ||
+                                 int device, void* stream) {
+  const long long ctas = (n_words / 4 + kThreads - 1) / kThreads;
+  if (n_words <= 0 || n_words % 4 != 0 || ctas > 0x7FFFFFFFLL ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(y) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  copy_kernel<<<ctas, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  copy_kernel<<<static_cast<unsigned>(ctas), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(x), static_cast<int4*>(y),
       static_cast<size_t>(n_words / 4));
   return static_cast<int>(cudaGetLastError());

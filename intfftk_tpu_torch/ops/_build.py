@@ -2,9 +2,11 @@
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain ``extern "C"`` interface, loaded with ``ctypes``:
-one ``nvcc -c`` per source, all started together, then one link.  The
-build happens at first use, into ``build/torch_kernels/<hash>/`` at the
-root of the checkout, keyed on a hash of the sources and the flags, so a
+one ``nvcc -c`` per compilation, all started together, then one link (the
+log ends each with its seconds).  A compilation is a source and its macro
+definitions: the factor pass's kernels are one source compiled once for
+each pair of block types and direction.  The build happens at first use,
+into ``build/torch_kernels/<hash>/`` at the root of the checkout, keyed on a hash of the sources and the flags, so a
 changed source builds anew and an unchanged one loads at once.  Nothing
 here runs at import: ``ctypes`` and ``nvcc`` are reached only from
 ``build()``/``library()``.
@@ -16,9 +18,17 @@ import functools
 import os
 from pathlib import Path
 
-SOURCES = ("fused_pass.cu", "probe.cu", "product.cu", "probe_stages.cu")
+#: The compilations: (source, macro definitions).
+UNITS = (
+    ("fused_pass.cu", ()),
+    *(("fused_pass_inst.cu", (f"INTFFT_BLOCKS={blocks}", f"INTFFT_DIR={d}"))
+      for blocks in ("i16", "i32", "i32_i64", "i64") for d in ("fwd", "inv")),
+    ("probe.cu", ()), ("product.cu", ()), ("probe_stages.cu", ()),
+    ("probe_stages_groups.cu", ()))
+SOURCES = tuple(dict.fromkeys(source for source, _ in UNITS))
 #: Headers the sources include: hashed with them, compiled through them.
-HEADERS = ("intfft_arith.cuh", "stage_body.cuh")
+HEADERS = ("intfft_arith.cuh", "stage_body.cuh", "fused_pass.cuh",
+           "probe_stages.cuh")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libintfft_torch.so"
@@ -46,36 +56,41 @@ def build() -> tuple[Path, str]:
     import hashlib
     import subprocess
 
-    srcs = [CSRC / s for s in SOURCES]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs + [CSRC / h for h in HEADERS]:
-        digest.update(s.read_bytes())
+    digest = hashlib.sha256(repr((NVCC_FLAGS, UNITS)).encode())
+    for name in SOURCES + HEADERS:
+        digest.update((CSRC / name).read_bytes())
     so = BUILD_ROOT / digest.hexdigest()[:16] / LIB_NAME
     if so.exists():
         return so, ""
     so.parent.mkdir(parents=True, exist_ok=True)
     nvcc, pid = find_nvcc(), os.getpid()
-    objs = [so.with_name(f".{s.stem}.{pid}.o") for s in srcs]
+    objs = [so.with_name(f".{Path(source).stem}.{i}.{pid}.o")
+            for i, (source, _) in enumerate(UNITS)]
     tmp = so.with_name(f".{LIB_NAME}.{pid}.tmp")
 
-    def start(cmd):
-        return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True)
+    def run(cmd, what):
+        import time
 
-    def finish(cmd, proc, out):
+        start = time.monotonic()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{out}")
-        return out
+                               f"{' '.join(cmd)}\n{proc.stdout}")
+        return f"{proc.stdout}nvcc {what}: {time.monotonic() - start:.1f} s\n"
 
     try:
-        # one compile per source, all started together, then the link
-        jobs = [start([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)])
-                for s, o in zip(srcs, objs)]
-        outs = [proc.communicate()[0] for _, proc in jobs]
-        log = "".join(finish(*job, out) for job, out in zip(jobs, outs))
-        link = start([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
-        log += finish(*link, link[1].communicate()[0])
+        # one compile per unit, all started together, then the link
+        from concurrent.futures import ThreadPoolExecutor
+
+        cmds = [[nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defs), "-c", "-o",
+                 str(o), str(CSRC / source)]
+                for (source, defs), o in zip(UNITS, objs)]
+        with ThreadPoolExecutor(len(UNITS)) as pool:
+            log = "".join(pool.map(run, cmds, (
+                " ".join((source, *defs)) for source, defs in UNITS)))
+        log += run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                   "link")
         os.replace(tmp, so)   # atomic: a concurrent build never sees half
     finally:
         for o in objs:
@@ -99,7 +114,7 @@ def library():
     i64 = ctypes.c_longlong
     lib.intfft_probe_chain.argtypes = [ptr, ptr, i64] + [i32] * 4 + [ptr]
     lib.intfft_probe_chain.restype = i32
-    lib.intfft_probe_copy.argtypes = [ptr, ptr, i64, i32, i32, ptr]
+    lib.intfft_probe_copy.argtypes = [ptr, ptr, i64, i32, ptr]
     lib.intfft_probe_copy.restype = i32
     lib.intfft_probe_cta_elems.argtypes = []
     lib.intfft_probe_cta_elems.restype = i32
@@ -113,6 +128,8 @@ def library():
     lib.intfft_stage_probe_geometry.argtypes = [i32] * 5 + [
         ctypes.POINTER(i32)] * 2
     lib.intfft_stage_probe_geometry.restype = i32
+    lib.intfft_group_split.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 2
+    lib.intfft_group_split.restype = i32
     lib.intfft_error_string.argtypes = [i32]
     lib.intfft_error_string.restype = ctypes.c_char_p
     return lib

@@ -31,15 +31,25 @@ the counter:
   ``chain_kernel<body>``: the ceiling's denominator;
 * ``audit_stage(step)``: instructions per butterfly of
   ``stage_loop_kernel<step>`` (``csrc/probe_stages.cu``): the numerator by
-  twiddle order.  The count is clean there, because the order is a
-  template parameter: ``fused_pass_kernel``'s own butterfly loop holds the
-  order-0, order-1 and multiplying forms behind run-time branches, so its
-  static span over-counts every stage;
+  step.  A round-trip step (``prod_p*``) stores four words per butterfly; a
+  group step (``group{R}_p*``, the function the factor pass runs) stores
+  2 x 2^R words per task of R x 2^(R-1) butterflies.  The count is clean
+  there, because the group's orders are template parameters:
+  ``fused_pass_kernel``'s own group loops hold both operand sources, both
+  destinations and both epilogue forms behind run-time branches, so their
+  static span over-counts every group;
+* ``group_split(log_rows)``: the groups the pass runs a factor in, the same
+  split the launch uses (``group_of`` of ``csrc/stage_body.cuh``; the
+  library reports its own through ``intfft_group_split`` and the card's
+  tests hold the two equal);
+* ``audit_transform(n1, n2)``: instructions per sample of a transform
+  through the pass: for each factor the sum over its groups of the group
+  step that stands for it (same stages, same tile, same twiddle forms), and
+  the inter-factor product;
 * ``audit_headline()``: both, for the 64k headline (256 x 256): the static
-  span of the butterfly loop of ``fused_pass_kernel<int16, int16, int32,
-  false, false>``, and the per-stage sum of ``audit_stage`` over the 8 + 8
-  stages plus the epilogue product, per sample; the same for the int64
-  instantiation;
+  span of the largest group loop of ``fused_pass_kernel<int16, int16,
+  int32, false, false>``, and ``audit_transform(256, 256)`` per sample;
+  the same for the int64 instantiation;
 * ``summarize(counts, samples)``: per-sample numbers by class.
 
 Usage, on a machine with the card's toolkit (builds the library first):
@@ -291,21 +301,24 @@ def inner_loops(instrs: list[Instr]) -> list[tuple[int, int]]:
                         for o in found)]
 
 
-def butterfly_loop(instrs: list[Instr]) -> tuple[tuple[int, int], int]:
-    """The butterfly loop of a stage kernel or of the factor pass, and the
-    butterflies one trip of it runs: of ``inner_loops`` the one with the
-    most shared-memory stores (a stage stores four words per butterfly;
-    where the compiler unrolled the loop, its remainder loops have
-    fewer)."""
+def butterfly_loop(instrs: list[Instr], words: int = 4
+                   ) -> tuple[tuple[int, int], int]:
+    """The loop of a stage kernel or of the factor pass that does the
+    butterflies, and the units of work one trip of it runs: of
+    ``inner_loops`` the one with the most shared-memory stores (the longest
+    of those), which stores ``words`` words per unit: four per butterfly of
+    a round-trip stage, 2 x 2^R per task of a stage group (where the
+    compiler unrolled the loop, its remainder loops store fewer)."""
     inner = inner_loops(instrs)
     if not inner:
         raise ValueError("no nested loop: not a stage kernel")
-    best = max(inner, key=lambda s: _stores(_span(instrs, s)))
+    best = max(inner, key=lambda s: (_stores(_span(instrs, s)),
+                                    len(_span(instrs, s))))
     stores = _stores(_span(instrs, best))
-    if stores == 0 or stores % 4:
+    if stores == 0 or stores % words:
         raise ValueError(f"the nested loop stores {stores} words to shared "
-                         f"memory: not a whole number of butterflies")
-    return best, stores // 4
+                         f"memory: not a whole number of units of {words}")
+    return best, stores // words
 
 
 def register_loop(instrs: list[Instr]) -> tuple[int, int]:
@@ -355,6 +368,25 @@ def chain_loop_sizes(sass: dict) -> dict:
 
 # ---------------------------------------------------------------- the audits
 
+#: Stages of a full group of the factor pass, by tile: [int32, int64]
+#: (``GroupSize`` of ``csrc/stage_body.cuh``).
+GROUP_SIZE = (3, 3)
+
+
+def group_split(log_rows: int, wide: bool = False) -> list[tuple[int, int]]:
+    """The groups the factor pass runs a factor of ``2**log_rows`` rows in,
+    as (top order, stages) from the top order down: ``GROUP_SIZE`` orders
+    each, the remainder at the bottom (``group_of`` of
+    ``csrc/stage_body.cuh``, which the library reports through
+    ``intfft_group_split``).  The forward runs them in this order, the
+    inverse the other way."""
+    r = GROUP_SIZE[bool(wide)]
+    out = [(q, r) for q in range(log_rows - 1, log_rows % r - 1, -r)]
+    if log_rows % r:
+        out.append((log_rows % r - 1, log_rows % r))
+    return out
+
+
 #: Independent chains per thread of ``chain_kernel`` (``csrc/probe.cu``).
 CHAINS_PER_THREAD = 8
 #: Samples per thread and trip of a register step (``csrc/probe_stages.cu``).
@@ -375,7 +407,8 @@ def audit_probe_chain(body: str, sass: dict | None = None) -> Counts:
 def audit_stage(step: str, sass: dict | None = None) -> dict:
     """Instructions per butterfly (two samples) of
     ``stage_loop_kernel<step>`` by class, as {class: count}, from its
-    butterfly loop; a register step's loop is its k loop."""
+    butterfly loop; a register step's loop is its k loop; a group step's
+    loop runs tasks of R x 2^(R-1) butterflies."""
     from . import probe_stages
 
     sass = library_sass() if sass is None else sass
@@ -385,35 +418,52 @@ def audit_stage(step: str, sass: dict | None = None) -> dict:
     if s.in_registers:
         return count_loop(ins, register_loop(ins)).scaled(
             SAMPLES_PER_TRIP / 2)
+    if s.index in probe_stages.GROUPS:
+        span, tasks = butterfly_loop(ins, 2 << s.stages)
+        return count_loop(ins, span).scaled(
+            tasks * s.stages * (1 << s.stages) / 2)
     span, butterflies = butterfly_loop(ins)
     return count_loop(ins, span).scaled(butterflies)
 
 
 def audit_pass_static(wide: bool = False, sass: dict | None = None) -> dict:
-    """Instructions per butterfly of ``fused_pass_kernel``'s own butterfly
-    loop by class: a static count, which holds all three twiddle forms."""
+    """Instructions per butterfly of ``fused_pass_kernel``'s largest group
+    loop by class: a static count, which holds both operand sources, both
+    destinations and both forms of the inter-factor product."""
     sass = library_sass() if sass is None else sass
     ins = sass[find_function(sass, pass_pattern(wide))]
-    span, butterflies = butterfly_loop(ins)
-    return count_loop(ins, span).scaled(butterflies)
+    r = GROUP_SIZE[bool(wide)]
+    span, tasks = butterfly_loop(ins, 2 << r)
+    return count_loop(ins, span).scaled(tasks * r * (1 << r) / 2)
 
 
-def stage_step_for(order: int, wide: bool, sass: dict) -> str:
-    """The production step of ``sass`` that stands for twiddle order
-    ``order``: orders 0 and 1 have their own form; every order >= 2
-    multiplies by a table entry and differs only in constants, so the
-    nearest probed one stands for it."""
+def group_step_for(top: int, stages: int, wide: bool, sass: dict,
+                   two_d: bool = False) -> str:
+    """The group step of ``sass`` that stands for the group of ``stages``
+    stages from the order ``top`` down: same stages, same tile, and the
+    same twiddle forms: its lowest order 0, 1, or at least 2 (every stage
+    multiplies, as every stage of a group with 2-D tables does: ``two_d``).
+    Groups that differ only in how far above 2 their orders lie run the
+    same code; where no step of the very form was compiled, the nearest
+    form with more products stands for it (an over-count), and failing
+    that the nearest with fewer (an under-count: the one-stage tail of a
+    factor with 2-D tables, counted as the order-0 stage)."""
     from . import probe_stages
 
-    pre = "prod64_p" if wide else "prod_p"
-    have = sorted(s.order for n, s in probe_stages.STEPS.items()
-                  if n.startswith(pre) and any(
-                      re.search(stage_pattern(s.index, s.order, wide), f)
-                      for f in sass))
-    if order in have:
-        return f"{pre}{order}"
-    near = min((p for p in have if p >= 2), key=lambda p: abs(p - order))
-    return f"{pre}{near}"
+    form = 2 if two_d else min(top - stages + 1, 2)
+    have = {}
+    for name, s in probe_stages.STEPS.items():
+        if (s.index in probe_stages.GROUPS and not s.variant_of
+                and s.stages == stages and s.wide == bool(wide) and any(
+                    re.search(stage_pattern(s.index, s.order, s.wide), f)
+                    for f in sass)):
+            have.setdefault(min(s.order - s.stages + 1, 2), []).append(
+                (abs(s.order - top), name))
+    for f in (*range(form, 3), *range(form - 1, -1, -1)):
+        if f in have:
+            return min(have[f])[1]
+    raise KeyError(f"no compiled group step of {stages} stages on the "
+                   f"{'int64' if wide else 'int32'} tile")
 
 
 def _add(a: dict, b: dict, times: float = 1.0) -> dict:
@@ -421,34 +471,46 @@ def _add(a: dict, b: dict, times: float = 1.0) -> dict:
             for c in set(a) | set(b)}
 
 
-def audit_orders(orders, products: int = 0, wide: bool = False,
-                 sass: dict | None = None) -> dict:
-    """Instructions per sample by class of forward stages at the twiddle
-    ``orders`` (half a butterfly per sample each, from ``audit_stage``)
-    and of ``products`` inter-factor products, on the int32 tile or the
-    int64 one.  Load, store and reorder of a pass are not in it."""
+def audit_factor(log_rows: int, wide: bool = False,
+                 sass: dict | None = None, two_d: bool = False) -> dict:
+    """Instructions per sample by class of the forward stages of one factor
+    of ``2**log_rows`` rows: for each group of ``group_split`` its stages
+    times half a butterfly of the group step that stands for it
+    (``group_step_for``).  A pass's load, store and reorder are not in
+    it."""
     sass = library_sass() if sass is None else sass
     total: dict = {}
-    for order in orders:
-        total = _add(total, audit_stage(
-            stage_step_for(order, wide, sass), sass), 0.5)
-    epi = "epilogue64_cmult" if wide else "epilogue_cmult"
-    return _add(total, audit_stage(epi, sass), 0.5 * products) \
-        if products else total
+    for top, stages in group_split(log_rows, wide):
+        step = group_step_for(top, stages, wide, sass, two_d)
+        total = _add(total, audit_stage(step, sass), 0.5 * stages)
+    return total
 
 
 def audit_transform(n1: int, n2: int = 1, wide: bool = False,
-                    sass: dict | None = None) -> dict:
+                    sass: dict | None = None, two_d: bool = False,
+                    product: bool | None = None) -> dict:
     """Instructions per sample by class of a forward transform of n1 x n2
-    points through the factor pass: every stage of both factors and, with
-    a second factor, the inter-factor product (``audit_orders``)."""
-    orders = [q for n in (n1, n2) for q in range(n.bit_length() - 1)]
-    return audit_orders(orders, int(n2 > 1), wide, sass)
+    points through the factor pass: the groups of both factors
+    (``audit_factor``; ``two_d``: the first factor's stages read the 2-D
+    tables) and, with a second factor unless ``product`` says otherwise,
+    the inter-factor product.  The product is counted with the round trip
+    of the ``epilogue_cmult`` step, which the pass, multiplying the last
+    group's registers, no longer makes: two loads and two stores per sample
+    too many."""
+    sass = library_sass() if sass is None else sass
+    total = audit_factor(n1.bit_length() - 1, wide, sass, two_d)
+    if n2 > 1:
+        total = _add(total, audit_factor(n2.bit_length() - 1, wide, sass))
+    if (n2 > 1) if product is None else product:
+        epi = "epilogue64_cmult" if wide else "epilogue_cmult"
+        total = _add(total, audit_stage(epi, sass), 0.5)
+    return total
 
 
 def audit_headline(sass: dict | None = None) -> dict:
     """The 64k headline (256 x 256) and its int64 twin: per butterfly the
-    static span of the pass's own loop, per sample the per-stage sum."""
+    static span of the pass's largest group loop, per sample the sum over
+    its groups."""
     sass = library_sass() if sass is None else sass
     out = {}
     for name, wide in (("narrow", False), ("int64", True)):
@@ -505,10 +567,11 @@ def fixture_text(text: str, patterns) -> str:
 
 
 #: The functions of the test fixture: the chain that sets the ceiling, the
-#: headline pass, and the stage kernels the per-stage sum and the loop
+#: headline pass, and the stage kernels the sum over groups and the loop
 #: finders are tested on.
 FIXTURE_STEPS = ("prod_p0", "prod_p1", "prod_p7", "epilogue_cmult",
-                 "arith12", "shfl_p2")
+                 "arith12", "shfl_p2", "group3_p7", "group3_p3", "group3_p2",
+                 "group2_p1", "group1_p0")
 
 
 def main(argv=None) -> int:

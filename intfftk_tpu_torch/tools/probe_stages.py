@@ -24,7 +24,19 @@ product against an ``[n, TC]`` table; on the int64 tile of the wide path
 ``prod64_p{0,1,7}``, ``smem64_roundtrip``, ``epilogue64_cmult``; and two
 questions of a redesign: ``prodmode_p{0,7}``, the production stage with
 its scale and rounding mode fixed at compile time; and ``twsmem_p7``, the
-production stage with its twiddles staged in shared memory.
+production stage with its twiddles staged in shared memory.  And the
+answer: ``group{R}_p{P}``, the stage group the factor pass now runs
+(``stage_group`` of ``csrc/stage_body.cuh``, again one function for both):
+the R stages of the orders P ... P - R + 1 on 2^R rows held in registers,
+through one exchange of the tile (``group3_p7``, ``group3_p4``: every stage
+multiplies; ``group3_p3``: down to order 1; ``group3_p2``, ``group2_p1``,
+``group1_p0``: the tails down to order 0; ``group2_p7``: two stages a
+group); ``groupmode3_p7`` and
+``groupmode2_p1`` with the mode fixed at compile time; and on the int64
+tile ``group64_3_p7``, ``group64_2_p7`` (the same orders at R = 3 and
+R = 2), ``group64_3_p2``, ``group64_2_p1``.  The ``prod_p*`` steps are the
+yardstick a group is read against; every rate is per sample and *stage*
+(an application of a group step counts its R stages).
 
 Beside each kernel stands its plain PyTorch version
 (``stage_loop_reference``: the eager stage ``ops.transform.dif_stage`` on
@@ -57,11 +69,13 @@ its time, so a folded step is seen.
 
 Usage, on a machine with the card:
 
-    python -m intfftk_tpu_torch.tools.probe_stages [--quick]
+    python -m intfftk_tpu_torch.tools.probe_stages [--quick] [--tall]
 
 prints one JSON dict ``{step: ns_per_sample_per_stage}`` with the keys of
 the TPU tool where a step means the same; every variant is checked against
-its ``prod_p*`` first and a mismatch raises.
+its ``prod_p*`` first and a mismatch raises.  ``--tall``: ``TALL_STEPS`` on
+the ``[4096, 4]`` tile of the channelizer's passes instead of every step on
+``[256, 16]``.
 """
 
 from __future__ import annotations
@@ -79,30 +93,38 @@ from ..config import FFTConfig
 from ..device import use_kernel
 from ..ops import _build
 from ..ops.intmath import cmult_exact
-from ..ops.transform import dif_stage, pack_tables
+from ..ops.transform import dif_stage, dit_stage, pack_tables
 from . import probe_vpu
+from .audit_sass import GROUP_SIZE, group_split
 from .probe_vpu import GuardError, LINEAR_TOL
 
 
 class Step(NamedTuple):
     """One step: its index in ``csrc/probe_stages.cu``, its twiddle order
-    (0 where it has none), whether it runs on the int64 tile, whether it
-    keeps its samples in registers, and the production step a variant is
-    held against ("" for none)."""
+    (0 where it has none; a group's top order), whether it runs on the
+    int64 tile, whether it keeps its samples in registers, the production
+    step a variant is held against ("" for none), and the stages one
+    application runs (a group's R)."""
     index: int
     order: int
     wide: bool = False
     in_registers: bool = False
     variant_of: str = ""
+    stages: int = 1
 
 
 #: The step indices of ``csrc/probe_stages.cu``.  ``PROD_MODE`` stands for
 #: the two fixed-mode kernels: ``kernel_index`` picks by the config.
 (PROD, SHFL, ARITH6, ARITH12, SMEM, EPI, PROD_UNSCALED, PROD_ROUND,
- TW_SMEM) = range(9)
+ TW_SMEM, GROUP1, GROUP2, GROUP3, GROUP_UNSCALED2, GROUP_UNSCALED3,
+ GROUP_ROUND2, GROUP_ROUND3) = range(16)
 PROD_MODE = -1
+#: The two fixed-mode kernels of a group step, by its R and the config.
+GROUP_MODE = -2
+#: The group steps' indices: ``GROUP1 + R - 1`` runs R stages.
+GROUPS = (GROUP1, GROUP2, GROUP3, GROUP_MODE)
 #: The steps that read the packed stage tables.
-READS_TABLES = (PROD, SHFL, PROD_MODE, TW_SMEM)
+READS_TABLES = (PROD, SHFL, PROD_MODE, TW_SMEM) + GROUPS
 PROD_ORDERS = (0, 1, 2, 3, 4, 5, 7)
 SHFL_ORDERS = (0, 1, 2, 3, 4)
 STEPS = {
@@ -119,7 +141,24 @@ STEPS = {
     **{f"prodmode_p{p}": Step(PROD_MODE, p, variant_of=f"prod_p{p}")
        for p in (0, 7)},
     "twsmem_p7": Step(TW_SMEM, 7, variant_of="prod_p7"),
+    **{f"group3_p{p}": Step(GROUP3, p, stages=3) for p in (7, 4, 3, 2)},
+    "group2_p7": Step(GROUP2, 7, stages=2),
+    "group2_p1": Step(GROUP2, 1, stages=2),
+    "group1_p0": Step(GROUP1, 0),
+    "groupmode3_p7": Step(GROUP_MODE, 7, variant_of="group3_p7", stages=3),
+    "groupmode2_p1": Step(GROUP_MODE, 1, variant_of="group2_p1", stages=2),
+    "group64_3_p7": Step(GROUP3, 7, wide=True, stages=3),
+    "group64_2_p7": Step(GROUP2, 7, wide=True, stages=2),
+    "group64_3_p2": Step(GROUP3, 2, wide=True, stages=3),
+    "group64_2_p1": Step(GROUP2, 1, wide=True, stages=2),
 }
+#: The tallest tile of the pass, ``[4096, 4]`` with rows padded to 5 words
+#: (one CTA per SM), and the steps timed on it (``--tall``): the group's
+#: strided rows meet two-way bank conflicts there that the 17-word rows of
+#: the ``[256, 16]`` tile do not have.
+TALL_ROWS = 4096
+TALL_STEPS = ("smem_roundtrip", "prod_p7", "group3_p7", "group3_p4",
+              "group3_p2")
 #: Source-level ops per sample of ``arith12``, the op image of a
 #: multiplying stage: no production step runs in fewer lane-instructions.
 ARITH12_OPS = 12
@@ -132,13 +171,15 @@ MAX_CHECK_K = 8
 def kernel_index(step: str, cfg: FFTConfig) -> int:
     """The index of a step's kernel in ``csrc/probe_stages.cu``; a
     fixed-mode step has one kernel per mode it was compiled for."""
-    index = STEPS[step].index
-    if index != PROD_MODE:
-        return index
+    s = STEPS[step]
+    if s.index not in (PROD_MODE, GROUP_MODE):
+        return s.index
     if cfg.scale and cfg.rounding != "round":
         raise ValueError(f"step {step} is compiled for the unscaled and the "
                          f"scaled/round mode, not for scaled/truncate")
-    return PROD_ROUND if cfg.scale else PROD_UNSCALED
+    if s.index == PROD_MODE:
+        return PROD_ROUND if cfg.scale else PROD_UNSCALED
+    return (GROUP_ROUND2 if cfg.scale else GROUP_UNSCALED2) + s.stages - 2
 
 
 def probe_config(n: int = 256) -> FFTConfig:
@@ -169,10 +210,14 @@ def _check_step(step: str, xr, xi, k: int, cfg: FFTConfig):
     if s.order >= max(cfg.stages, 1) or (s.index == SHFL and cfg.n < 32):
         raise ValueError(f"step {step} needs a tile of more than "
                          f"{max(1 << s.order, 16)} rows, got {cfg.n}")
+    if s.order < s.stages - 1:
+        raise ValueError(f"step {step}: {s.stages} stages from order "
+                         f"{s.order} down")
     bits = 64 if s.wide else 32
-    if cfg.data_width + k * (1 - cfg.scale) > bits:
-        raise ValueError(f"{k} unscaled stages of {cfg.data_width}-bit data "
-                         f"outgrow the {bits}-bit tile")
+    if cfg.data_width + k * s.stages * (1 - cfg.scale) > bits:
+        raise ValueError(f"{k * s.stages} unscaled stages of "
+                         f"{cfg.data_width}-bit data outgrow the {bits}-bit "
+                         f"tile")
 
 
 def stage_tables(cfg: FFTConfig, device):
@@ -201,6 +246,41 @@ def _dif_rows(xr, xi, cfg, in_w, p, w_re, w_im):
             torch.stack([si, yi], dim=-2).reshape(b, -1).t())
 
 
+def _dit_rows(xr, xi, cfg, in_w, p, w_re, w_im):
+    """One inverse stage of order p on an int64 [n, B] tile: B times the
+    conjugate twiddle first (the pairing of ``_dit_stage_rows``)."""
+    b, h = xr.shape[1], 1 << p
+    vr, vi = xr.t().reshape(b, -1, 2, h), xi.t().reshape(b, -1, 2, h)
+    ar, ai, br, bi = dit_stage(vr[..., 0, :], vi[..., 0, :], vr[..., 1, :],
+                               vi[..., 1, :], cfg, in_w, p, w_re[h: 2 * h],
+                               w_im[h: 2 * h])
+    return (torch.stack([ar, br], dim=-2).reshape(b, -1).t(),
+            torch.stack([ai, bi], dim=-2).reshape(b, -1).t())
+
+
+def group_reference(xr, xi, cfg: FFTConfig, top: int, stages: int, in_w: int,
+                    tables, inverse: bool = False):
+    """Plain version of one stage group (``stage_group`` of
+    ``csrc/stage_body.cuh``) on an int64 [n, B] tile: the ``stages`` stages
+    of the twiddle orders ``top`` ... ``top - stages + 1``, forward from the
+    top order down, inverse from the bottom order up, one after the other
+    with the radix-2 numerics of ``ops.transform``.  ``in_w``: the width
+    entering the group's first stage; each stage adds ``1 - cfg.scale``."""
+    orders = range(top, top - stages, -1)
+    for j, q in enumerate(reversed(orders) if inverse else orders):
+        stage = _dit_rows if inverse else _dif_rows
+        xr, xi = stage(xr, xi, cfg, in_w + j * (1 - cfg.scale), q, *tables)
+    return xr, xi
+
+
+def library_group_split(log_rows: int, wide: bool = False):
+    """``group_split`` as the built library's host code computes it."""
+    lib = _build.library()
+    tops, sizes = (ctypes.c_int * 12)(), (ctypes.c_int * 12)()
+    n = lib.intfft_group_split(log_rows, int(wide), tops, sizes)
+    return [(tops[g], sizes[g]) for g in range(n)]
+
+
 def _arith(index, xr, xi):
     """The TPU tool's op images (``tools/probe_stages.py:224-234``) in the
     tile's wrapping int32 arithmetic."""
@@ -218,7 +298,8 @@ def stage_loop_reference(step: str, xr, xi, k: int, cfg: FFTConfig,
     """Plain PyTorch version of ``stage_loop`` (any device): ``step``
     applied ``k`` times to the [n, B] tile pair.  Application i of a stage
     runs at the width ``cfg.data_width + i * (1 - cfg.scale)``, as stage i
-    of a pass does.  ``tables``: the packed stage tables (the production
+    of a pass does; a group step runs its R stages, top order first, each
+    one bit wider than the last in unscaled mode.  ``tables``: the packed stage tables (the production
     and shuffle steps); ``epi``: an [n, tc] table, tiled along B (the
     epilogue step)."""
     _check_step(step, xr, xi, k, cfg)
@@ -240,9 +321,9 @@ def stage_loop_reference(step: str, xr, xi, k: int, cfg: FFTConfig,
                                  cfg.data_width,
                                  twiddle_width=cfg.twiddle_width)
         else:
-            xr, xi = _dif_rows(xr, xi, cfg,
-                               cfg.data_width + i * (1 - cfg.scale), s.order,
-                               *tables)
+            xr, xi = group_reference(
+                xr, xi, cfg, s.order, s.stages,
+                cfg.data_width + i * s.stages * (1 - cfg.scale), tables)
     return xr.to(dt).contiguous(), xi.to(dt).contiguous()
 
 
@@ -254,7 +335,7 @@ def geometry(step: str, n: int, device_index: int) -> tuple[int, int]:
     tc, ctas = ctypes.c_int(0), ctypes.c_int(0)
     lib = _build.library()
     # a fixed-mode step's two kernels share one geometry
-    index = PROD_ROUND if s.index == PROD_MODE else s.index
+    index = kernel_index(step, probe_config())
     err = lib.intfft_stage_probe_geometry(index, s.order, int(s.wide), n,
                                           device_index, ctypes.byref(tc),
                                           ctypes.byref(ctas))
@@ -368,7 +449,8 @@ def stage_rate(step: str, cfg: FFTConfig | None = None,
         lambda k: stage_loop(step, xr, xi, k, cfg, tables, epi), target_ms,
         reps, K_BASE)
     return StageReading(
-        step, *probe_vpu.marginal_rates(xr.numel(), ks, rounds), ks,
+        step, *probe_vpu.marginal_rates(xr.numel() * STEPS[step].stages, ks,
+                                        rounds), ks,
         tuple(probe_vpu._median(col) for col in zip(*rounds)))
 
 
@@ -382,33 +464,45 @@ def check_reading(r: StageReading, peak: float):
             f"sample-stages/s over the two half-ranges)")
     if r.per_s <= 0:
         raise GuardError(f"step {r.step}: no time between the loop lengths")
-    if r.step.startswith("prod") and r.per_s > peak / ARITH12_OPS:
+    if r.step.startswith(("prod", "group")) and r.per_s > peak / ARITH12_OPS:
         raise GuardError(
             f"step {r.step}: {r.per_s:.4g} sample-stages/s is above "
             f"{peak / ARITH12_OPS:.4g} (lanes x clock / {ARITH12_OPS} "
             f"instructions per sample): a folded loop, not a fast stage")
 
 
-def bit_checks(device=None, n: int = 256) -> dict:
-    """Every step against its plain version and every variant against the
-    production step it stands for, on the card, at k = 1 (the once kernel)
-    and ``MAX_CHECK_K`` (the loop kernel), with two full-scale columns, on
-    ``check_config`` and on ``probe_config``, the config the timed run
-    launches.  Returns {step: largest absolute difference}, all zero;
-    raises RuntimeError on the first mismatch."""
+def check_k(step: str, cfg: FFTConfig) -> int:
+    """The applications a comparison of ``step`` loops: ``MAX_CHECK_K``, or
+    as many as the tile holds of a group step's unscaled stages."""
+    s = STEPS[step]
+    if cfg.scale:
+        return MAX_CHECK_K
+    room = (64 if s.wide else 32) - cfg.data_width
+    return min(MAX_CHECK_K, room // s.stages)
+
+
+def bit_checks(device=None, n: int = 256, steps=None) -> dict:
+    """Every step (of ``steps``; all of ``STEPS`` when left out) against its
+    plain version and every variant against the production step it stands
+    for, on the card, at k = 1 (the once kernel) and ``check_k`` (the loop
+    kernel), with two full-scale columns, on ``check_config`` and on
+    ``probe_config``, the config the timed run launches.  Returns {step:
+    largest absolute difference}, all zero; raises RuntimeError on the
+    first mismatch."""
     device = probe_vpu._card(device)
-    worst = dict.fromkeys(STEPS, 0)
+    steps = {step: STEPS[step] for step in (STEPS if steps is None else steps)}
+    worst = dict.fromkeys(steps, 0)
     for cfg in (check_config(n), probe_config(n)):
         mode = "scaled/round" if cfg.scale else "unscaled"
         tables = stage_tables(cfg, device)
-        for step, s in STEPS.items():
+        for step, s in steps.items():
             xr, xi = stage_input(step, cfg, device,
                                  seed=s.index * 16 + s.order)
             xr[:, 0], xr[::3, 0], xi[:, 1] = (-(1 << 15), (1 << 15) - 1,
                                               -(1 << 15))
             epi = epilogue_table(cfg, geometry(step, n, device.index)[0],
                                  device)
-            for once, k in ((True, 1), (False, MAX_CHECK_K)):
+            for once, k in ((True, 1), (False, check_k(step, cfg))):
                 got = stage_loop(step, xr, xi, k, cfg, tables, epi, once=once)
                 against = {"its plain version": stage_loop_reference(
                     step, xr, xi, k, cfg, tables, epi)}
@@ -428,19 +522,20 @@ def bit_checks(device=None, n: int = 256) -> dict:
 
 
 def measure_all(quick: bool = False, device=None, emit=None,
-                steps=None, check: bool = True) -> dict:
+                steps=None, check: bool = True, n: int = 256) -> dict:
     """{step: ns per sample and stage} of ``steps`` (all of ``STEPS`` when
-    left out), after ``bit_checks`` (``check=False``: the caller has run
-    them); each reading held to ``check_reading``.  ``emit(step,
-    reading)`` is called as each arrives."""
+    left out) on the tile of ``n`` rows, after ``bit_checks``
+    (``check=False``: the caller has run them); each reading held to
+    ``check_reading``.  ``emit(step, reading)`` is called as each
+    arrives."""
     device = probe_vpu._card(device)
     if check:
-        bit_checks(device)
+        bit_checks(device, n, steps)
     peak = probe_vpu.lane_rate_peak(device)
     target = probe_vpu.TARGET_MS_QUICK if quick else probe_vpu.TARGET_MS
     out = {}
     for step in STEPS if steps is None else steps:
-        r = stage_rate(step, target_ms=target, device=device)
+        r = stage_rate(step, probe_config(n), target_ms=target, device=device)
         check_reading(r, peak)
         out[step] = r.ns_per_sample_per_stage
         if emit is not None:
@@ -461,7 +556,10 @@ def main(argv=None) -> int:
               + ", ".join(f"{c} {v:g}" for c, v in per.items()),
               file=sys.stderr, flush=True)
 
-    out = measure_all(quick="--quick" in argv, emit=emit)
+    tall = "--tall" in argv
+    out = measure_all(quick="--quick" in argv, emit=emit,
+                      steps=TALL_STEPS if tall else None,
+                      n=TALL_ROWS if tall else 256)
     print(json.dumps({k: round(v, 6) for k, v in out.items()}))
     return 0
 

@@ -226,11 +226,10 @@ def probe_copy(x: torch.Tensor, out: torch.Tensor | None = None):
             or not out.is_contiguous()):
         raise ValueError("probe_copy takes a multiple of 4 elements and an "
                          "output like its input")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     lib = _build.library()
     err = lib.intfft_probe_copy(
-        x.data_ptr(), out.data_ptr(), x.numel(), sms * CTAS_PER_SM,
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), out.data_ptr(), x.numel(), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "probe_copy launch")
     probe_copy.launches += 1
     return out

@@ -108,8 +108,9 @@ def audit_kernel_ops(cfg, n1: int, n2: int = 1, inverse: bool = False,
     """``(alu_instr_per_sample, move_instr_per_sample)`` of a transform of
     n1 x n2 points through the factor pass (``n2 = 1``: one pass, no
     inter-factor product), counted from the compiled stage kernels
-    (``tools.audit_sass.audit_transform``): every stage of both factors at
-    its twiddle order, and the inter-factor product.  ``alu``: integer
+    (``tools.audit_sass.audit_transform``): every stage group of both
+    factors, by the split the pass runs them in, and the inter-factor
+    product.  ``alu``: integer
     arithmetic, compares and selects; ``move``: everything else the stages
     issue (register moves and shuffles, shared-memory and table loads and
     stores, barriers, branches inside the body, the uniform datapath).

@@ -97,7 +97,7 @@ def test_every_opcode_of_the_fixture_has_a_class(sass):
 
 def test_fixture_functions(sass):
     assert len(sass) == 2 + len(au.FIXTURE_STEPS)
-    assert FIXTURE.stat().st_size < 300_000
+    assert FIXTURE.stat().st_size < 700_000
     au.find_function(sass, au.chain_pattern(pv.BODIES["mixed7"].index))
     au.find_function(sass, au.pass_pattern(False))
     for step in au.FIXTURE_STEPS:
@@ -129,6 +129,11 @@ STAGE_COUNTS = {
     "epilogue_cmult": (49.5, 36.5, 13.0),
     "arith12": (30.0, 30.0, 0.0),
     "shfl_p2": (136.0, 101.0, 11.0),
+    "group3_p7": (42.667, 37.5, 4.0),
+    "group3_p3": (40.917, 34.917, 3.833),
+    "group3_p2": (31.25, 28.583, 2.667),
+    "group2_p1": (29.25, 25.25, 4.0),
+    "group1_p0": (35.0, 27.0, 8.0),
 }
 
 
@@ -142,8 +147,9 @@ def test_stage_counts(sass, step):
 def test_loop_finders(sass):
     """The butterfly loop is the nested loop with the most shared-memory
     stores: one butterfly per trip at order 7, four where the compiler
-    unrolled order 0; a register step's loop is its k loop; the pass's own
-    loop is found the same way."""
+    unrolled order 0; a group step's loop stores 2 x 2^R words per task
+    (16 at R = 3: twelve butterflies); a register step's loop is its k
+    loop; the pass's largest group loop is found the same way."""
     def ins(step):
         s = ps.STEPS[step]
         return sass[au.find_function(sass, au.stage_pattern(s.index, s.order,
@@ -152,6 +158,11 @@ def test_loop_finders(sass):
     assert au.butterfly_loop(ins("prod_p7"))[1] == 1
     assert au.butterfly_loop(ins("prod_p0"))[1] == 4
     assert au.butterfly_loop(ins("shfl_p2"))[1] == 1
+    assert au.butterfly_loop(ins("group3_p7"), 16)[1] == 1
+    assert au.butterfly_loop(ins("group2_p1"), 8)[1] == 1
+    assert au.butterfly_loop(ins("group1_p0"), 4)[1] == 1
+    with pytest.raises(ValueError, match="units of 16"):
+        au.butterfly_loop(ins("group2_p1"), 16)
     span = au.register_loop(ins("arith12"))
     body = [i for i in ins("arith12") if span[0] <= i.addr <= span[1]]
     assert len(body) == 123 and not any(
@@ -159,28 +170,50 @@ def test_loop_finders(sass):
     with pytest.raises(ValueError, match="shared"):
         au.butterfly_loop(ins("arith12"))
     static = au.summarize(au.audit_pass_static(False, sass))
-    assert (static["issued"], static["alu"], static["loop"]) == (95.0, 70.0,
-                                                                 3.0)
+    assert (static["issued"], static["alu"], static["loop"]) == (
+        122.917, 95.167, 0.25)
 
 
 def test_audit_kernel_ops_from_the_fixture(sass):
-    """The 64k headline, 256 x 256: 2 x (order 0, order 1, 6 multiplying
-    orders) half butterflies and one product per sample.  The fixture holds
-    orders 0, 1 and 7; order 7 stands for every multiplying order."""
+    """The 64k headline, 256 x 256: each factor is the groups (7, 3), (4, 3)
+    and (1, 2), half a butterfly per sample and stage, and one product per
+    sample.  The fixture holds ``group3_p7``, which stands for every group
+    of three multiplying stages, and the tails."""
     cfg = FFTConfig(n=1 << 16, mode="scaled", rounding="round",
                     data_width=16, twiddle_width=16)
+    assert au.group_split(8) == [(7, 3), (4, 3), (1, 2)]
     alu, move = rf.audit_kernel_ops(cfg, 256, 256, sass=sass)
-    assert alu == 2 * (23.75 + 41.0 + 6 * 56.0) / 2 + 36.5 / 2 == 419.0
-    assert alu + move == 2 * (31.75 + 53.5 + 6 * 76.0) / 2 + 49.5 / 2 == 566.0
+    g3, g2, g1, epi = (au.audit_stage(s, sass) for s in (
+        "group3_p7", "group2_p1", "group1_p0", "epilogue_cmult"))
+    assert alu == pytest.approx(
+        2 * (6 * g3["alu"] + 2 * g2["alu"]) / 2 + epi["alu"] / 2)
+    assert alu + move == pytest.approx(
+        2 * (6 * au.issued(g3) + 2 * au.issued(g2)) / 2
+        + au.issued(epi) / 2) == pytest.approx(339.25)
     one = rf.audit_kernel_ops(FFTConfig(n=4096), 4096, sass=sass)
-    assert sum(one) == (31.75 + 53.5 + 10 * 76.0) / 2
-    assert au.stage_step_for(3, False, sass) == "prod_p7"
-    assert au.stage_step_for(1, False, sass) == "prod_p1"
+    assert sum(one) == pytest.approx(
+        (9 * au.issued(g3) + 3 * au.issued(au.audit_stage("group3_p2", sass)))
+        / 2)
+    # 1024 rows: (9, 3), (6, 3), (3, 3) down to order 1, and the order-0 tail
+    assert au.group_split(10) == [(9, 3), (6, 3), (3, 3), (0, 1)]
+    assert sum(rf.audit_kernel_ops(FFTConfig(n=1024), 1024, sass=sass)) == \
+        pytest.approx((6 * au.issued(g3) + 3 * au.issued(au.audit_stage(
+            "group3_p3", sass)) + au.issued(g1)) / 2)
+    assert au.group_step_for(4, 3, False, sass) == "group3_p7"
+    assert au.group_step_for(3, 3, False, sass) == "group3_p3"
+    assert au.group_step_for(2, 3, False, sass) == "group3_p2"
+    assert au.group_step_for(1, 2, False, sass) == "group2_p1"
+    # with 2-D tables every stage multiplies: the form with the most
+    # products stands for the tail, and failing that the nearest below it
+    assert au.group_step_for(2, 3, False, sass, two_d=True) == "group3_p7"
+    assert au.group_step_for(0, 1, False, sass, two_d=True) == "group1_p0"
+    with pytest.raises(KeyError, match="int64"):
+        au.group_step_for(7, 3, True, sass)
     with pytest.raises(NotImplementedError, match="forward"):
         rf.audit_kernel_ops(cfg, 256, 256, inverse=True, sass=sass)
     with pytest.raises(ValueError, match="bad factors"):
         rf.audit_kernel_ops(cfg, 256, 128, sass=sass)
-    with pytest.raises(ValueError):            # no int64 kernel in the fixture
+    with pytest.raises(KeyError):              # no int64 kernel in the fixture
         rf.audit_kernel_ops(FFTConfig(n=4096, mode="unscaled",
                                       data_width=32), 4096, sass=sass)
 

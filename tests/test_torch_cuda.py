@@ -124,6 +124,50 @@ def test_kernel_forms_vs_plain(dev, mode, rounding, r, c, nb, inverse,
     assert torch.equal(yr, wr) and torch.equal(yi, wi)
 
 
+@pytest.mark.parametrize("mode,rounding", MODES)
+@pytest.mark.parametrize("c", [1, 5, 33, 40])
+@pytest.mark.parametrize("r", [8, 16, 32, 64])
+@pytest.mark.parametrize("inverse,natural,turned_in,turned_out", [
+    (False, True, False, False), (True, True, False, False),
+    (False, False, False, True), (True, False, True, False)],
+    ids=["fwd_nat", "inv_nat", "fwd_raw_turned_out", "inv_raw_turned_in"])
+def test_group_splits_ragged_vs_plain(dev, mode, rounding, r, c, inverse,
+                                      natural, turned_in, turned_out):
+    """Every split of a factor into stage groups (m = 8: one group of 3;
+    16: 3 + 1; 32: 3 + 2; 64: 3 + 3) on ragged column tiles, with the
+    inter-factor product on the last group's registers: the first group
+    reading device memory itself or the tile (turned load), the last
+    writing device memory itself or the tile (turned store); int32 blocks,
+    full-scale adversarial items; and on the int64 tile."""
+    cfg = FFTConfig(n=r, mode=mode, rounding=rounding, data_width=16,
+                    twiddle_width=16)
+    shape = (3, c, r) if turned_in else (3, r, c)
+    xr, xi = _stimulus(shape, 16, seed=r + c + 2)
+    tables = tuple(torch.as_tensor(t, device=dev) for t in pack_tables(cfg))
+    e = tuple(torch.as_tensor(t, device=dev) for t in circle_table(
+        dataclasses.replace(cfg, n=r * 64), r, c, inverse,
+        "natural" if natural else "raw"))
+    kw = dict(epi=e, transpose_out=turned_out, inverse=inverse,
+              natural=natural, transpose_in=turned_in)
+    for dt in (torch.int32, torch.int64):
+        x = [torch.as_tensor(v).to(dt).to(dev) for v in (xr, xi)]
+        before = fused_pass.launches
+        yr, yi = fused_pass(*x, cfg, tables, out_dtype=dt, **kw)
+        torch.cuda.synchronize()
+        assert fused_pass.launches == before + 1
+        wr, wi = fused_pass_reference(*x, cfg, tables, out_dtype=dt, **kw)
+        assert torch.equal(yr, wr) and torch.equal(yi, wi)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+def test_group_split_of_the_library_on_card(dev, wide):
+    """The split the kernel's host code computes is the Python one the
+    audit sums a transform by."""
+    for log_rows in range(3, 13):
+        assert ps.library_group_split(log_rows, wide) == ps.group_split(
+            log_rows, wide) == audit_sass.group_split(log_rows, wide)
+
+
 @pytest.mark.parametrize("n", [8, 1024, 4096])
 @pytest.mark.parametrize("order", ["natural", "bitrev"])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
@@ -587,6 +631,13 @@ def test_pass_at_batch_65536_on_card(dev):
     assert torch.equal(y[0], w[0]) and torch.equal(y[1], w[1])
 
 
+def test_tall_tile_steps_on_card(dev):
+    """K10 on the tallest tile, [4096, 4] with rows padded to 5 words:
+    ``TALL_STEPS`` equal to their plain versions in both configs."""
+    worst = ps.bit_checks(dev, ps.TALL_ROWS, ps.TALL_STEPS)
+    assert set(worst) == set(ps.TALL_STEPS) and max(worst.values()) == 0
+
+
 @pytest.mark.parametrize("config", [ps.check_config, ps.probe_config],
                          ids=["unscaled", "scaled_round"])
 @pytest.mark.parametrize("step", list(ps.STEPS))
@@ -603,7 +654,7 @@ def test_stage_step_on_card(dev, step, config):
               for v in _stimulus((cfg.n, 2 * tc), 16, seed=s.order + 1))
     tables = ps.stage_tables(cfg, dev)
     epi = ps.epilogue_table(cfg, tc, dev)
-    for once, k in ((True, 1), (False, 1), (False, ps.MAX_CHECK_K)):
+    for once, k in ((True, 1), (False, 1), (False, ps.check_k(step, cfg))):
         before = ps.stage_loop.launches
         got = ps.stage_loop(step, xr, xi, k, cfg, tables, epi, once=once)
         torch.cuda.synchronize()

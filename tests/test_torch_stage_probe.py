@@ -3,10 +3,14 @@ step (intfftk_tpu_torch.tools.probe_stages.stage_loop_reference) against
 the JAX package's own stage function ``_dif_stage_rows`` on jnp arrays (the
 same numpy-seeded tile through both, exactly), against the TPU tool's
 production step (``tools/probe_stages.py:make_prod_step``) and its op
-images; the step table, the guards and the refusals.  Tolerance 0
-throughout."""
+images; the plain version of the stage group (``group_reference``, the
+group steps) against the JAX package's multi-stage bodies
+(``_dif_pair_stage_rows``, ``_dif_stage_rows`` and ``_dit_stage_rows``
+composed, ``_transform_rows`` for a whole factor through ``group_split``);
+the step table, the guards and the refusals.  Tolerance 0 throughout."""
 
 import importlib.util
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -16,7 +20,9 @@ import torch
 
 from intfftk_tpu.config import FFTConfig as JaxConfig
 from intfftk_tpu.ops import intmath as jm
-from intfftk_tpu.ops.pallas_fft import _dif_stage_rows, _pack_tables
+from intfftk_tpu.ops.pallas_fft import (_cmult_plans, _dif_pair_stage_rows,
+                                        _dif_stage_rows, _dit_stage_rows,
+                                        _pack_tables, _transform_rows)
 from intfftk_tpu_torch.convert import config_from_jax as P
 from intfftk_tpu_torch.tools import probe_stages as ps
 
@@ -127,7 +133,7 @@ def test_variant_reference_is_the_production_stage(step):
     run the one plain version."""
     cfg = _cfg("unscaled")
     xr, xi = _tile(ps.STEPS[step].order, 16, "adversarial", seed=3)
-    for k in (1, ps.MAX_CHECK_K):
+    for k in (1, ps.check_k(step, P(cfg))):
         got = _port(step, cfg, xr, xi, k)
         want = _port(ps.STEPS[step].variant_of, cfg, xr, xi, k)
         assert all(np.array_equal(g, w) for g, w in zip(got, want))
@@ -192,11 +198,173 @@ def test_int64_tile_steps_equal_the_int32_ones(step):
     xr, xi = (torch.from_numpy(v) for v in _tile(7, 16, "adversarial"))
     epi = ps.epilogue_table(cfg, 4, "cpu")
     tabs = ps.stage_tables(cfg, "cpu")
-    narrow = step.replace("64", "")
+    narrow = re.sub(r"64_(?=\d)", "", step).replace("64", "")
     got = ps.stage_loop(step, xr.long(), xi.long(), 3, cfg, tabs, epi)
     want = ps.stage_loop(narrow, xr, xi, 3, cfg, tabs, epi)
     assert got[0].dtype == torch.int64
     assert all(torch.equal(g, w.long()) for g, w in zip(got, want))
+
+
+GROUP_MODES = dict(MODES, scaled_truncate=dict(mode="scaled",
+                                               rounding="truncate"))
+#: (top order, stages) of the int32 group steps.
+GROUPS = [(s.order, s.stages) for name, s in ps.STEPS.items()
+          if name.startswith("group") and not s.wide and not s.variant_of]
+
+
+def _group_cfg(mode, data_width=16, n=N):
+    return JaxConfig(n=n, data_width=data_width, twiddle_width=16,
+                     **GROUP_MODES[mode])
+
+
+def _plan(cfg, s, inverse=False):
+    """The product plan of stage index s (``_cmult_plans``): forward at the
+    stage's output width, inverse at its input width."""
+    in_w = cfg.stage_input_width(s)
+    dw = in_w if inverse else in_w + 1 - cfg.scale
+    return jm.CmultPlan(data_width=dw, twiddle_width=cfg.twiddle_width,
+                        shift=cfg.twiddle_shift, out_width=dw)
+
+
+def _jax_group(cfg, xr, xi, top, stages, k=1, inverse=False, pair=False):
+    """The JAX package's stages of the orders top ... top - stages + 1, one
+    after the other, k times: stage index i runs at the width of stage i of
+    a pass.  Forward from the top order down (``pair``: two stages through
+    ``_dif_pair_stage_rows``), inverse from the bottom order up."""
+    w_re, w_im = (jnp.asarray(t) for t in _pack_tables(cfg, inverse))
+    xr, xi = jnp.asarray(xr), jnp.asarray(xi)
+    orders = list(range(top, top - stages, -1))
+    for i in range(k):
+        s0 = i * stages
+        if pair:
+            plans = {s0: _plan(cfg, s0), s0 + 1: _plan(cfg, s0 + 1)}
+            xr, xi = _dif_pair_stage_rows(xr, xi, cfg, s0, top, w_re, w_im,
+                                          plans)
+            continue
+        for j, q in enumerate(reversed(orders) if inverse else orders):
+            stage = _dit_stage_rows if inverse else _dif_stage_rows
+            xr, xi = stage(xr, xi, cfg, s0 + j, q, w_re, w_im,
+                           _plan(cfg, s0 + j, inverse) if q >= 2 else None)
+    return np.asarray(xr), np.asarray(xi)
+
+
+@pytest.mark.parametrize("stimulus", ["random", "adversarial"])
+@pytest.mark.parametrize("mode", list(GROUP_MODES))
+@pytest.mark.parametrize("top,stages", GROUPS)
+def test_group_reference_equals_jax_stages_composed(top, stages, mode,
+                                                    stimulus):
+    """A group step's plain version is its stages one after the other, each
+    wrapped to its own width: ``_dif_stage_rows`` composed, once and
+    twice (the second application three bits wider in unscaled mode)."""
+    cfg = _group_cfg(mode)
+    step = f"group{stages}_p{top}"
+    for k in (1, 2):
+        xr, xi = _tile(top, 16, stimulus, seed=top * 8 + stages + k)
+        want = _jax_group(cfg, xr, xi, top, stages, k)
+        got = _port(step, cfg, xr, xi, k)
+        for g, w in zip(got, want):
+            assert g.dtype == np.int32
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("stimulus", ["random", "adversarial"])
+@pytest.mark.parametrize("mode", list(GROUP_MODES))
+@pytest.mark.parametrize("top", [7, 5, 4])
+def test_two_stage_group_equals_jax_pair_stage(top, mode, stimulus):
+    """Two stages of a group against the JAX package's own two-stage body
+    ``_dif_pair_stage_rows`` (orders p and p - 1, both >= 3)."""
+    cfg = _group_cfg(mode)
+    pc = P(cfg)
+    xr, xi = _tile(top, 16, stimulus, seed=top)
+    want = _jax_group(cfg, xr, xi, top, 2, pair=True)
+    got = ps.group_reference(torch.from_numpy(xr).long(),
+                             torch.from_numpy(xi).long(), pc, top, 2,
+                             pc.data_width, ps.stage_tables(pc, "cpu"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    if top == 7:
+        for g, w in zip(_port("group2_p7", cfg, xr, xi, 1), want):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("stimulus", ["random", "adversarial"])
+@pytest.mark.parametrize("mode", list(GROUP_MODES))
+@pytest.mark.parametrize("top,stages", GROUPS)
+def test_inverse_group_reference_equals_jax_dit_stages(top, stages, mode,
+                                                       stimulus):
+    """The inverse group runs its orders from the bottom up, B times the
+    conjugate twiddle first: ``_dit_stage_rows`` composed."""
+    cfg = _group_cfg(mode)
+    pc = P(cfg)
+    xr, xi = _tile(top - stages + 1, 16, stimulus, seed=top + 40)
+    want = _jax_group(cfg, xr, xi, top, stages, inverse=True)
+    got = ps.group_reference(torch.from_numpy(xr).long(),
+                             torch.from_numpy(xi).long(), pc, top, stages,
+                             pc.data_width, ps.stage_tables(pc, "cpu"),
+                             inverse=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("mode", list(GROUP_MODES))
+@pytest.mark.parametrize("n", [8, 16, 32, 64, 256])
+def test_groups_of_a_factor_equal_jax_transform_rows(n, mode, inverse):
+    """A whole factor as the pass runs it: the groups of ``group_split``,
+    forward from the top, inverse from the bottom, against
+    ``_transform_rows`` in the raw (bit-reversed spectrum) contract, on
+    full-scale adversarial columns.  n = 8 ... 64 cover remainders 0, 1
+    and 2 of the group size."""
+    cfg = _group_cfg(mode, n=n)
+    pc = P(cfg)
+    xr, xi = _tile(0, 16, "adversarial", seed=n, n=n)
+    w_re, w_im = (jnp.asarray(t) for t in _pack_tables(cfg, inverse))
+    want = _transform_rows(jnp.asarray(xr), jnp.asarray(xi), cfg, inverse,
+                           w_re, w_im, _cmult_plans(cfg, inverse))
+    groups = ps.group_split(cfg.stages)
+    yr, yi = torch.from_numpy(xr).long(), torch.from_numpy(xi).long()
+    done = 0
+    for top, stages in (reversed(groups) if inverse else groups):
+        yr, yi = ps.group_reference(
+            yr, yi, pc, top, stages,
+            pc.data_width + done * (1 - pc.scale),
+            ps.stage_tables(pc, "cpu"), inverse=inverse)
+        done += stages
+    assert done == cfg.stages
+    np.testing.assert_array_equal(yr.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(yi.numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("mode", list(GROUP_MODES))
+@pytest.mark.parametrize("step", [s for s in ps.TALL_STEPS
+                                  if s.startswith("group")])
+def test_tall_tile_group_steps_equal_jax_stages(step, mode):
+    """The group steps timed on the tallest tile (``TALL_ROWS`` rows): their
+    plain version there against ``_dif_stage_rows`` composed, on full-scale
+    adversarial columns."""
+    s = ps.STEPS[step]
+    cfg = _group_cfg(mode, n=ps.TALL_ROWS)
+    xr, xi = _tile(s.order, 16, "adversarial", seed=s.order, n=ps.TALL_ROWS)
+    want = _jax_group(cfg, xr, xi, s.order, s.stages)
+    for g, w in zip(_port(step, cfg, xr, xi, 1), want):
+        np.testing.assert_array_equal(g, w)
+    assert set(ps.TALL_STEPS) <= set(ps.STEPS) and ps.TALL_ROWS == 4096
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("log_rows", range(3, 13))
+def test_group_split_covers_every_stage_once(log_rows, wide):
+    """Every twiddle order log_rows - 1 ... 0 lies in exactly one group,
+    from the top down; no group holds more than the tile's group size, and
+    only the last holds fewer."""
+    groups = ps.group_split(log_rows, wide)
+    orders = [q for top, r in groups for q in range(top, top - r, -1)]
+    assert orders == list(range(log_rows - 1, -1, -1))
+    size = ps.GROUP_SIZE[wide]
+    assert all(r == size for _, r in groups[:-1])
+    assert 1 <= groups[-1][1] <= size
+    from intfftk_tpu_torch.tools import audit_sass
+    assert audit_sass.group_split(log_rows, wide) == groups
 
 
 def test_step_table():
@@ -218,6 +386,14 @@ def test_step_table():
     assert ps.kernel_index("prodmode_p7", rnd) == ps.PROD_ROUND
     assert ps.kernel_index("prodmode_p7", uns) == ps.PROD_UNSCALED
     assert ps.kernel_index("prod_p7", uns) == ps.PROD
+    assert ps.kernel_index("groupmode3_p7", rnd) == ps.GROUP_ROUND3
+    assert ps.kernel_index("groupmode2_p1", uns) == ps.GROUP_UNSCALED2
+    assert ps.kernel_index("group3_p7", rnd) == ps.GROUP3 == 11
+    assert all(ps.STEPS[s].stages == int(re.match(
+        r"group(?:64_|mode)?(\d)_p", s).group(1)) for s in ps.STEPS
+        if s.startswith("group"))
+    assert ps.check_k("group3_p7", uns) == 5 and ps.check_k(
+        "group3_p7", rnd) == ps.MAX_CHECK_K == ps.check_k("prod_p7", uns)
     assert ps.K_BASE[0] < ps.K_BASE[1] < ps.K_BASE[2]
 
 
@@ -238,6 +414,8 @@ def test_wrapper_checks():
     with pytest.raises(ValueError, match="rows"):
         ps.stage_loop("prod_p7", xr[:64], xi[:64], 1, P(_cfg("unscaled",
                                                              n=64)), tabs)
+    with pytest.raises(ValueError, match="outgrow"):
+        ps.stage_loop("group3_p7", xr, xi, 6, cfg, tabs)
     with pytest.raises(ValueError, match="scaled/truncate"):
         ps.stage_loop("prodmode_p0", xr, xi, 1, P(JaxConfig(
             n=N, mode="scaled", rounding="truncate", data_width=16,
