@@ -123,15 +123,32 @@ Phases; any failure exits non-zero and prints no result line:
     also with the host's time to issue one call beside the device time; the
     64k headline also as it read after phases 3, 12 and 16 and at the end,
     so that a reading that moves with what ran before it is seen to;
-18. a JSON line describing each ported kernel, then the result line
+18. the distributed layer over NCCL (a FileStore in a temporary
+    directory, world size 1, pod_mesh(1, 1) on the card): config 5 at full
+    width (bench_config5: n = 2^20 = 1024 x 1024, scaled/round, 16-bit
+    data and twiddles, random_stimulus(n, 15, seed=31) at batch 2) through
+    FourStepPlan, natural, exactly 2 launches per call, bit-equal to
+    four_step_int and to LargeFFTPlan(1024, 1024), kernel == plain;
+    natural_out=False against four_step_int, the inverse against the
+    inverse LargeFFTPlan; its time beside its bound and the host's time to
+    issue it, split into the three turns and the two passes, and the
+    copies one rank of D = 4 makes per turn; then every rank of D = 4:
+    its column pass (its own [1024, 256] epilogue slice) and row pass on
+    the card against the plain version on the CPU, the four ranks' results
+    joined bit-equal to four_step_int; the Channelizer (config 3, cn and
+    nc) over 'ch' and the config-4 halo convolution (T = 4) over 'fft' on
+    that mesh, equal to their mesh-less runs; the process group destroyed;
+19. a JSON line describing each ported kernel, then the result line
     {"ok": true, "device": {...}} as the last line.
 """
 
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -142,6 +159,7 @@ N, BATCH, CHAIN = 65536, 64, 50
 CH, CH_N, CH_CHAIN, PLAIN_CHAIN = 4096, 4096, 20, 3
 RT_BATCH = 8
 N1M, B1M = 1 << 20, 4
+B5 = 2
 N512K, B512K = 1 << 19, 8
 N16M = 1 << 24
 EPI_MODES = ("host", "device", "inkernel")
@@ -274,7 +292,15 @@ def main() -> int:
     from intfftk_tpu_torch.ops.twiddle_synth import (EpiSynth, coarse_table,
                                                      device_circle_table,
                                                      synth_circle_block)
-    from intfftk_tpu_torch.parallel import Channelizer, OverlapSaveConv
+    import torch.distributed as dist
+
+    from intfftk_tpu_torch.golden import random_stimulus
+    from intfftk_tpu_torch.parallel import (Channelizer, FourStepPasses,
+                                            FourStepPlan, OverlapSaveConv,
+                                            column_pass, initialize_multihost,
+                                            pod_mesh, row_pass)
+    from intfftk_tpu_torch.parallel.four_step import (join_received,
+                                                      send_buffer)
     from intfftk_tpu_torch.tools import audit_sass, probe_stages, probe_vpu
     from intfftk_tpu_torch.tools.probe_vpu import (chain_reference,
                                                    copy_reference,
@@ -325,7 +351,7 @@ def main() -> int:
     # largest |kernel - plain| over the comparisons of each ported kernel
     max_err = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K6": 0, "K1w": 0,
                "K2w": 0, "K5": 0, "K7": 0, "K8": 0, "K9": 0, "conv": 0,
-               "K10": 0, "K11": 0, "P1": 0}
+               "K10": 0, "K11": 0, "P1": 0, "K2d": 0}
 
     def same(a, b, what, kernel="K1"):
         err = max(int((x.long() - y.long()).abs().max())
@@ -1741,13 +1767,175 @@ def main() -> int:
           "MHz, memory MHz, W, temperature just after): " + "; ".join(
               f"{where} {t:.4f} ({bufs} buffers over {span} MiB; {clk})"
               for where, (t, bufs, span, clk) in headline_at.items()))
+
+    # ---- 18. the distributed layer over NCCL: config 5 on a mesh of one
+    lap(18)
+    c5 = FFTConfig(n=N1M, mode="scaled", rounding="round", data_width=16,
+                   twiddle_width=16)
+    store5 = tempfile.mkdtemp()
+    try:
+        initialize_multihost(f"file://{store5}/store", 1, 0)
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "process group: NCCL, world size 1 (a FileStore, no port)")
+        mesh = pod_mesh(1, 1)
+        check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+              and mesh.mesh_dim_names == ("ch", "fft"),
+              "pod_mesh(1, 1): the ('ch', 'fft') mesh on the card")
+        xr5, xi5 = random_stimulus(N1M, 15, seed=31, batch=(B5,))
+        p5 = FourStepPlan(c5, 1024, 1024, mesh)
+        check(p5.kernel == "pallas" and p5.passes.er.device == dev
+              and tuple(p5.passes.er.shape) == (1024, 1024),
+              "config-5 FourStepPlan on the card: the kernel, its epilogue "
+              "slice [1024, 1024] on the device")
+        x5 = [p5.shard(v).int() for v in (xr5, xi5)]
+        torch.cuda.synchronize()
+        fused_pass.launches = 0
+        y5 = p5(*x5)
+        torch.cuda.synchronize()
+        launches_c5 = fused_pass.launches
+        check(launches_c5 == 2, f"config 5 FourStepPlan: {launches_c5} "
+              f"launches per call (column pass, row pass)")
+        g5 = four_step_int(xr5, xi5, c5, 1024, 1024)
+        check(y5[0].dtype == torch.int32 and tuple(y5[0].shape) == (B5, N1M)
+              and all(np.array_equal(a.cpu().numpy(), b)
+                      for a, b in zip(y5, g5)),
+              f"config 5 (1M = 1024 x 1024, scaled/round 16-bit, batch {B5}) "
+              f"FourStepPlan forward, natural, over NCCL: bit-equal to "
+              f"four_step_int")
+        large5 = LargeFFTPlan(c5, 1024, 1024, device=dev)
+        check(all(torch.equal(a.int(), b) for a, b in zip(large5(*x5), y5)),
+              "config 5 FourStepPlan == LargeFFTPlan(c5, 1024, 1024)")
+        same(y5, p5(*x5, pass_fn=fused_pass_reference),
+             "config 5 FourStepPlan forward", "K2d")
+        ym = FourStepPlan(c5, 1024, 1024, mesh, natural_out=False)(*x5)
+        check(all(np.array_equal(a.cpu().numpy(), b.reshape(
+            B5, 1024, 1024).swapaxes(-1, -2)) for a, b in zip(ym, g5)),
+              "config 5 natural_out=False: D[k1, k2] bit-equal to "
+              "four_step_int")
+        yinv = FourStepPlan(c5, 1024, 1024, mesh, inverse=True)(*x5)
+        linv = LargeFFTPlan(c5, 1024, 1024, inverse=True, device=dev)(*x5)
+        check(all(torch.equal(a, b.int()) for a, b in zip(yinv, linv)),
+              "config 5 inverse FourStepPlan == LargeFFTPlan inverse")
+
+        # timing: the call, and its parts each alone at D = 1
+        c5_ms = _turns(p5, lambda a, b: p5(a, b, pass_fn=fused_pass_reference),
+                       *x5, 20, 2)
+        paced5 = _paced(p5, *x5, calls=20)
+        cost_c5 = counted(large_fft_cost(N1M, B5, itemsize=4), B5 * N1M,
+                          t_instr(1024, 1024))
+        report(f"config 5 FourStepPlan [{B5}, 2^20] int32 over NCCL, D = 1 "
+               f"(2 launches, 3 turns)", B5 * N1M, *c5_ms,
+               moved=B5 * N1M * 16, cost=cost_c5)
+        print(f"    device ms / host ms to issue one call: {paced5[0]:.4f} / "
+              f"{paced5[1]:.4f}")
+        b5 = [v.reshape(B5, 1024, 1024) for v in x5]
+        turn = lambda sp, co: lambda a, b: (p5.turn(a, sp, co),
+                                            p5.turn(b, sp, co))
+        split5 = {
+            "turn 1": _event_ms(turn(2, 1), *b5, calls=20),
+            "column pass": _event_ms(
+                lambda a, b: column_pass(a, b, p5, 0, 1), *b5, calls=20),
+            "turn 2": _event_ms(turn(1, 2), *b5, calls=20),
+            "row pass": _event_ms(lambda a, b: row_pass(a, b, p5, 0, 1),
+                                  *b5, calls=20),
+            "turn 3": _event_ms(turn(1, 2), *b5, calls=20)}
+        views = all(send_buffer(b5[0], sp, 1).data_ptr() == b5[0].data_ptr()
+                    and join_received(b5[0][None], co).data_ptr()
+                    == b5[0].data_ptr() for sp, co in ((2, 1), (1, 2)))
+        check(views, "D = 1: no turn copies (send and receive are views)")
+        print("  config 5 split, ms each alone (a turn: all_to_all_single "
+              "on re and im, no copy at D = 1): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in split5.items()))
+        # the copies one rank of D = 4 makes per turn, on its own shapes
+        q = lambda shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+        copies4 = {
+            "turn 1 send": (q((B5, 256, 1024)), 2, None),
+            "turn 1 receive": (q((4, B5, 256, 256)), None, 1),
+            "turns 2, 3 send": (q((B5, 1024, 256)), 1, None),
+            "turns 2, 3 receive": (q((4, B5, 256, 256)), None, 2)}
+        copy_ms = {
+            what: _event_ms(fixed(
+                (lambda u, v, sp=sp: (send_buffer(u, sp, 4),
+                                      send_buffer(v, sp, 4))) if sp
+                else (lambda u, v, co=co: (join_received(u, co),
+                                           join_received(v, co)))),
+                t, t, calls=20)
+            for what, (t, sp, co) in copies4.items()}
+        print("  the copies of one rank of D = 4 (re and im), ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in copy_ms.items()))
+
+        # ---- each rank of D = 4: its column and row pass, card vs CPU
+        xg = [torch.as_tensor(v.reshape(B5, 1024, 1024), dtype=torch.int32)
+              for v in (xr5, xi5)]
+        cols, rows4 = [], []
+        on4 = {r: {d: FourStepPasses(c5, 1024, 1024, rank=r, size=4,
+                                     device=d) for d in (dev, "cpu")}
+               for r in range(4)}
+        for r in range(4):
+            xc = [v[:, :, r * 256:(r + 1) * 256].contiguous() for v in xg]
+            cols.append(column_pass(*xc, on4[r]["cpu"], r, 4))
+            fused_pass.launches = 0
+            yk = column_pass(*(v.to(dev) for v in xc), on4[r][dev], r, 4)
+            check(fused_pass.launches == 1, f"D = 4 rank {r} column pass: "
+                  f"1 launch")
+            same([v.cpu() for v in yk], cols[r], f"D = 4 rank {r} column "
+                 f"pass [{B5}, 1024, 256] (its epilogue slice)", "K2d")
+        full = [torch.cat([c[i] for c in cols], 2) for i in (0, 1)]
+        for r in range(4):
+            xk = [v[:, r * 256:(r + 1) * 256].contiguous() for v in full]
+            rows4.append(row_pass(*xk, on4[r]["cpu"], r, 4))
+            yk = row_pass(*(v.to(dev) for v in xk), on4[r][dev], r, 4)
+            same([v.cpu() for v in yk], rows4[r], f"D = 4 rank {r} row pass "
+                 f"[{B5}, 256, 1024] read turned", "K2d")
+        xc0 = [v[:, :, :256].to(dev).contiguous() for v in xg]
+        xk0 = [v[:, :256].to(dev).contiguous() for v in full]
+        rank_ms = {
+            "column pass": _event_ms(fixed(lambda u, v: column_pass(
+                u, v, on4[0][dev], 0, 4)), *xc0, calls=20),
+            "row pass": _event_ms(fixed(lambda u, v: row_pass(
+                u, v, on4[0][dev], 0, 4)), *xk0, calls=20)}
+        joined = [torch.cat([o[i] for o in rows4], 2).reshape(B5, N1M)
+                  for i in (0, 1)]
+        check(all(np.array_equal(a.numpy(), b) for a, b in zip(joined, g5)),
+              "D = 4: the four ranks' passes, joined as the turns join "
+              "them, bit-equal to four_step_int")
+        print(f"  one rank of D = 4 on the card, ms (rank 0; {B5} x 1M / 4 "
+              f"samples): " + ", ".join(f"{k} {v:.4f}"
+                                        for k, v in rank_ms.items()))
+
+        # ---- the channelizer over 'ch' and the halo convolution over
+        # 'fft' on the mesh of one rank, against their mesh-less runs
+        for layout in ("cn", "nc"):
+            chm = Channelizer(ccfg, layout=layout, mesh=mesh)
+            src = (hr, hi) if layout == "cn" else (hr.T, hi.T)
+            fused_pass.launches = 0
+            ych = chm(chm.shard(src[0]), chm.shard(src[1]))
+            torch.cuda.synchronize()
+            check(fused_pass.launches == 1 and all(
+                torch.equal(a, b) for a, b in zip(ych, batched[layout,
+                                                              False])),
+                  f"Channelizer {layout} [{CH} x {CH_N}] on the 'ch' mesh "
+                  f"of one rank: 1 launch, == the mesh-less run")
+        convm = OverlapSaveConv(spec, h_re, h_im, mesh=mesh)
+        fused_pass.launches = spectrum_product.launches = 0
+        ycv = convm(*conv_x[4])
+        torch.cuda.synchronize()
+        check((fused_pass.launches, spectrum_product.launches) == (4, 1)
+              and all(torch.equal(a, b) for a, b in zip(ycv,
+                                                        conv(*conv_x[4]))),
+              "config 4, T = 4 payloads, halo convolution on the 'fft' mesh "
+              "of one rank: 4 + 1 launches, == the mesh-less run")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store5, ignore_errors=True)
     check("jax" not in sys.modules and not any(
         m == "intfftk_tpu" or m.startswith("intfftk_tpu.")
         for m in sys.modules),
         "neither JAX nor the JAX package was imported")
 
-    # ---- 18. results
-    lap(18)
+    # ---- 19. results
+    lap(19)
     src = "intfftk_tpu_torch/csrc/fused_pass.cuh"
     psrc = "intfftk_tpu_torch/csrc/probe.cu"
     mean = lambda layout, k=0: sum(ch_ms[layout, inverse][k]
@@ -1807,6 +1995,10 @@ def main() -> int:
         cost_mono512)
     row("fused_pass: K1/K2 wide, config-2 chain (4 launches)", k1,
         launches_c2, "K1w", *c2_ms[:2], cost_c2)
+    row(f"fused_pass: K2 sharded four-step, FourStepPlan config 5 (1M = "
+        f"1024 x 1024, batch {B5}, NCCL mesh of one rank, 3 turns): column "
+        f"pass with the rank's epilogue slice + row pass read turned", k2,
+        launches_c5, "K2d", *c5_ms[:2], cost_c5)
     row("fused_pass: K2 widening pass (64k unscaled 24-bit)", k2,
         launches_w24, "K2w", *w24_ms[:2], cost_w24)
     row("fused_pass: K5 PallasWideFFTPlan [4096, 1024] (4 plans; timed: "

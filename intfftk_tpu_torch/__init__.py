@@ -23,9 +23,20 @@ compute path:
 * ``ops.single_pass`` — ``PallasFFTPlan`` and ``FusedAxisFFT``, the
   n <= 4096 engines, and ``PallasWideFFTPlan``, their int64 twin for data
   paths of 33..64 bits, one launch per call;
-* ``parallel``        — ``Channelizer`` and ``OverlapSaveConv`` (overlap-save
-  convolution: forward, frequency product, inverse) on one device;
-* ``runtime``         — ``StreamExecutor`` on CUDA streams;
+* ``parallel``        — ``Channelizer``, ``OverlapSaveConv`` (overlap-save
+  convolution: forward, frequency product, inverse) and ``FourStepPlan``
+  (the four-step FFT with all-to-all corner turns), on one device or
+  sharded over a ``torch.distributed`` device mesh (``make_mesh``,
+  ``pod_mesh``, ``initialize_multihost``; SPMD: each rank holds its
+  shard), NCCL on the card, gloo on the CPU;
+* ``runtime``         — ``StreamExecutor`` on CUDA streams, and
+  ``NativeGolden``, the bindings of the repository's native C++ golden
+  engine;
+* ``utils``           — the ``.dat`` stimulus format, the two-lane stream
+  formats, the cost model;
+* ``entry``           — ``entry()``, the flagship step on one card, and
+  ``dryrun_multiprocess(n)``, the distributed layer in n CPU processes;
+  ``examples/``, the two walkthroughs;
 * ``tools.probe_vpu`` — the card's integer-instruction and device-memory
   ceilings, measured by the hand-written kernels of ``csrc/probe.cu``
   (dependent op chains, a streaming copy); ``utils.roofline``, the cost
@@ -40,6 +51,17 @@ Outputs are bit-identical to ``golden`` and to the JAX plans.
 
 from .config import FFTConfig, snr_db
 
-from .ops import PallasWideFFTPlan, WideFFTPlan
+from .ops import (FFTPlan, FusedAxisFFT, LargeFFTPlan, PallasFFTPlan,
+                  PallasWideFFTPlan, WideFFTPlan)
+from .parallel import (Channelizer, FourStepPlan, OverlapSaveConv,
+                       initialize_multihost, make_mesh, pod_mesh)
+from .runtime import StreamExecutor
 
-__all__ = ["FFTConfig", "snr_db", "PallasWideFFTPlan", "WideFFTPlan"]
+__version__ = "0.1.0"
+
+#: the config and every plan of the package
+__all__ = ["FFTConfig", "snr_db", "__version__", "FFTPlan", "WideFFTPlan",
+           "LargeFFTPlan", "PallasFFTPlan", "FusedAxisFFT",
+           "PallasWideFFTPlan", "Channelizer", "OverlapSaveConv",
+           "FourStepPlan", "StreamExecutor", "make_mesh", "pod_mesh",
+           "initialize_multihost"]

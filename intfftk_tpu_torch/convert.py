@@ -33,6 +33,14 @@ port's counterpart: ``LargeFFTPlan.load_tables`` (the four-step's
 ``wsr``, ``wsi``, ``t2r``, ``t2i``), or ``load_state_dict`` of
 ``PallasFFTPlan``/``FusedAxisFFT``/``PallasWideFFTPlan``.
 
+The sharded ``FourStepPlan`` (``intfftk_tpu/parallel/four_step.py:114-116``)
+holds the full circle table ``w_re``/``w_im`` [n] and gathers W[m] per
+shard, and the factor plans' consts ``p1``/``p2`` (``FusedAxisFFT``'s
+packed columns, or the staged ``FFTPlan``'s per-stage tables).
+``four_step_tables_from_jax`` turns them into the state of one rank's
+``parallel.FourStepPasses``: that rank's epilogue slice ``er``/``ei``
+[n1, n2/D] and the packed tables of ``plan1``/``plan2``.
+
 The JAX wide path carries a value as two int32 planes, v = hi * 2^24 + lo
 with lo in [0, 2^24) (``intfftk_tpu/ops/wideint.py:13-16``); the port
 carries int64.  ``int64_from_planes`` and ``planes_from_int64`` convert
@@ -133,4 +141,39 @@ def tables_from_jax(consts: dict) -> dict[str, torch.Tensor]:
         return {k: _vec(consts[k]) for k in ("w_re", "w_im")}
     if "er" in consts:
         out["er"], out["ei"] = _mat(consts["er"]), _mat(consts["ei"])
+    return out
+
+
+def _factor_tables(consts, prefix: str) -> dict[str, torch.Tensor]:
+    """A JAX factor plan's consts -> ``prefix.w_re``/``w_im`` [n]: the
+    packed columns of the Pallas plan, or the staged plan's per-stage
+    tables packed by order (order p at [2^p, 2^(p+1)), its table's length
+    2^p)."""
+    if "w_re" in consts:
+        w = [_vec(consts["w_re"]), _vec(consts["w_im"])]
+    else:
+        w = np.zeros((2, len(consts["bitrev"])), np.int32)
+        for re, im in consts["tables"].values():
+            k = len(re)
+            w[0, k:2 * k], w[1, k:2 * k] = re, im
+        w = [torch.as_tensor(v) for v in w]
+    return {f"{prefix}.w_re": w[0], f"{prefix}.w_im": w[1]}
+
+
+def four_step_tables_from_jax(consts: dict, n1: int, n2: int, inverse: bool,
+                              rank: int, size: int) -> dict[str, torch.Tensor]:
+    """A JAX ``FourStepPlan``'s consts (leaves as numpy) -> the state dict
+    of the port's ``FourStepPasses`` for rank ``rank`` of ``size``: ``er``,
+    ``ei`` = W[m], m = k1 * j2 mod n (negated for the inverse) over that
+    rank's global columns j2, as the JAX plan gathers it per shard; and
+    ``plan1.w_re`` ... ``plan2.w_im``."""
+    n, w = n1 * n2, n2 // size
+    j2 = rank * w + np.arange(w)
+    m = (np.arange(n1)[:, None] * j2[None, :]) % n
+    if inverse:
+        m = (n - m) & (n - 1)
+    wr, wi = (np.asarray(consts[k]).reshape(-1) for k in ("w_re", "w_im"))
+    out = {"er": _mat(wr[m]), "ei": _mat(wi[m])}
+    out.update(_factor_tables(consts["p1"], "plan1"))
+    out.update(_factor_tables(consts["p2"], "plan2"))
     return out

@@ -1,4 +1,4 @@
-"""Overlap-save FFT convolution on one device.
+"""Overlap-save FFT convolution, on one device or sharded over a mesh axis.
 
 Counterpart of ``intfftk_tpu/parallel/convolve.py`` (BASELINE config 4): a
 long signal is cut into blocks of n = L + M - 1 samples, each block the L
@@ -7,23 +7,46 @@ integer pipeline of the host oracle ``golden.convolve.overlap_save_int``
 (forward unscaled block FFT, renormalised frequency product, scaled inverse
 FFT, cut of the first M - 1 samples) and the result is bit-identical to it.
 
-The JAX class also shards the signal over a mesh axis and fetches each
-shard's halo from its neighbour with ``ppermute`` (:203-210).  That waits
-for the ``torch.distributed`` slice: there is no ``mesh`` argument here
-yet.
+With a ``mesh`` the signal is split contiguously over its ``axis`` (SPMD:
+each rank holds [..., T/D]) and each rank takes the M - 1 samples before
+its chunk from its left neighbour, the halo of ``:203-210``: every rank
+sends its last M - 1 samples to rank + 1 (``dist.batch_isend_irecv`` on
+the axis's group) and rank 0 receives zeros.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 
-from ..device import resolve, use_kernel
+from ..device import use_kernel
 from ..golden.convolve import ConvSpec, taps_spectrum_int
 from ..ops.fused_fft import LargeFFTPlan, fused_pass
 from ..ops.intmath import spectrum_product
 from .four_step import local_plan
+from .mesh import FFT_AXIS, plan_device, single_axis_size
+
+
+def halo_exchange(tails, group, rank: int, size: int):
+    """Every rank's ``tails`` (tensors) to rank + 1 of ``group``, in one
+    ``dist.batch_isend_irecv``: returns what arrived from rank - 1, zeros on
+    rank 0."""
+    heads = [torch.zeros_like(t) for t in tails]
+    peer = lambda r: dist.get_global_rank(group, r)
+    ops = []
+    if rank + 1 < size:
+        ops += [dist.P2POp(dist.isend, t, peer(rank + 1), group)
+                for t in tails]
+    if rank > 0:
+        ops += [dist.P2POp(dist.irecv, h, peer(rank - 1), group)
+                for h in heads]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return heads
 
 
 class OverlapSaveConv(nn.Module):
@@ -59,14 +82,19 @@ class OverlapSaveConv(nn.Module):
     ``spec.payload`` (pad on the host; ``golden.convolve`` documents the
     semantics).  Returns the first T samples of the causal linear
     convolution, scaled by 2^-``spec.scale_log2``: int32, or int64 when
-    the product is wide.
+    the product is wide.  With ``mesh``, the call takes and returns this
+    rank's contiguous chunk [..., T/D] of a signal split over ``axis``;
+    T must be a multiple of payload * D, and each chunk at least M - 1
+    samples long; the device is the mesh's unless named.
     """
 
     def __init__(self, spec: ConvSpec, h_re, h_im, kernel: str = "auto",
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 mesh: DeviceMesh | None = None, axis: str = FFT_AXIS):
         super().__init__()
-        device = resolve(device)
+        device = plan_device(mesh, device)
         self.spec = spec
+        self.mesh, self.axis = mesh, axis
         hr, hi = taps_spectrum_int(np.asarray(h_re), np.asarray(h_im), spec)
         if kernel == "auto":
             kernel = "pallas"
@@ -103,17 +131,20 @@ class OverlapSaveConv(nn.Module):
             self.register_buffer(name, torch.as_tensor(
                 h.astype(np.int32), device=device))
 
-    def _blocks(self, xr, xi, pass_fn, product_fn):
-        """[..., T] on the device -> the conv chunk [..., T]."""
+    def _blocks(self, xr, xi, pass_fn, product_fn, heads=None):
+        """[..., T] on the device (and the M - 1 samples before each row,
+        [rows, M - 1], or None for zeros) -> the conv chunk [..., T]."""
         spec = self.spec
         n, m, lpay = spec.n, spec.taps_len, spec.payload
         t = xr.shape[-1]
         shp = xr.shape[:-1]
 
-        def windows(x):
-            # [..., M-1 zeros | T] -> overlapping [rows, nb, n]: one
+        def windows(x, head):
+            # [..., M-1 before | T] -> overlapping [rows, nb, n]: one
             # strided view, one contiguous copy (no index gather)
-            e = torch.nn.functional.pad(x.reshape(-1, t), (m - 1, 0))
+            x = x.reshape(-1, t)
+            e = (torch.nn.functional.pad(x, (m - 1, 0)) if head is None
+                 else torch.cat([head, x], -1))
             return e.unfold(-1, n, lpay)
 
         def product(fr, fi):
@@ -130,7 +161,8 @@ class OverlapSaveConv(nn.Module):
             return y.reshape(shp + (-1, n))[..., m - 1:].reshape(
                 shp + (t,)).to(self.out_dtype)
 
-        br, bi = windows(xr), windows(xi)
+        hr, hi = (None, None) if heads is None else heads
+        br, bi = windows(xr, hr), windows(xi, hi)
         if self.large:
             blk = lambda b: b.reshape((-1,) + self.fwd.block_in_shape).to(
                 self.fwd.in_dtype).contiguous()
@@ -153,9 +185,22 @@ class OverlapSaveConv(nn.Module):
         dev = self.hr.device
         xr = torch.as_tensor(x_re).to(device=dev, dtype=torch.int32)
         xi = torch.as_tensor(x_im).to(device=dev, dtype=torch.int32)
-        t = xr.shape[-1]
-        if t % self.spec.payload:
-            raise ValueError(f"signal length {t} must be a multiple of "
-                             f"payload = {self.spec.payload} (pad "
-                             f"host-side)")
-        return self._blocks(xr, xi, pass_fn, product_fn)
+        t, lpay = xr.shape[-1], self.spec.payload
+        if self.mesh is None:
+            if t % lpay:
+                raise ValueError(f"signal length {t} must be a multiple of "
+                                 f"payload = {lpay} (pad host-side)")
+            return self._blocks(xr, xi, pass_fn, product_fn)
+        d = single_axis_size(self.mesh, self.axis)
+        if t % lpay:
+            raise ValueError(f"signal length {t * d} must be a multiple of "
+                             f"payload*devices = {lpay * d} (pad host-side)")
+        m = self.spec.taps_len
+        if t < m - 1:
+            raise ValueError(f"a chunk of {t} samples holds less than the "
+                             f"{m - 1} of the halo")
+        tails = [x.reshape(-1, t)[:, t - (m - 1):].contiguous()
+                 for x in (xr, xi)]
+        heads = halo_exchange(tails, self.mesh.get_group(self.axis),
+                              self.mesh.get_local_rank(self.axis), d)
+        return self._blocks(xr, xi, pass_fn, product_fn, heads)

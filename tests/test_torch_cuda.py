@@ -690,3 +690,36 @@ def test_stage_probe_and_audit_on_card(dev):
     head = audit_sass.audit_headline(sass)
     assert audit_sass.issued(head["int64"]["per_sample"]) > audit_sass.issued(
         head["narrow"]["per_sample"])
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("rank", range(4))
+def test_four_step_rank_passes_on_card(dev, rank, inverse):
+    """Each rank's passes of the sharded four-step at D = 4, 1024 x 1024
+    (config 5, scaled/round 16-bit, batch 2): the column pass (the
+    epilogue from this rank's [1024, 256] column slice, k1 rows stored
+    outermost) and the row pass in both store layouts, one launch each on
+    the card, equal to the plain version on the CPU."""
+    from intfftk_tpu_torch.parallel import (FourStepPasses, column_pass,
+                                            row_pass)
+    cfg = FFTConfig(n=1 << 20, mode="scaled", rounding="round",
+                    data_width=16, twiddle_width=16)
+    xc = _stimulus((2, 1024 * 256), 16, 40 + rank)
+    xr_ = _stimulus((2, 256 * 1024), 16, 50 + rank)
+    for natural_out in (True, False):
+        on = {d: FourStepPasses(cfg, 1024, 1024, inverse, natural_out,
+                                rank=rank, size=4, device=d)
+              for d in (dev, "cpu")}
+        for fn, x, shape in ((column_pass, xc, (2, 1024, 256)),
+                             (row_pass, xr_, (2, 256, 1024))):
+            if fn is column_pass and not natural_out:
+                continue                  # the column pass has one layout
+            got, want = ([torch.as_tensor(v.reshape(shape), dtype=torch.int32,
+                                          device=d) for v in x]
+                         for d in (dev, "cpu"))
+            before = fused_pass.launches
+            got = fn(*got, on[dev], rank, 4)
+            assert fused_pass.launches == before + 1
+            want = fn(*want, on["cpu"], rank, 4)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b), (fn.__name__, natural_out)

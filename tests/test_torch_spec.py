@@ -309,9 +309,14 @@ def test_port_imports_neither_in_a_fresh_process():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'intfftk_tpu')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if "
-        "m.startswith('intfftk_tpu_torch')]))\n")
+        "print(' '.join(m for m in sys.modules if "
+        "m.startswith('intfftk_tpu_torch')))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout) >= 20
+    walked = set(res.stdout.split())
+    assert len(walked) >= 30
+    assert {f"intfftk_tpu_torch.{m}" for m in (
+        "parallel.mesh", "parallel.multihost", "parallel.four_step",
+        "utils.dat_io", "utils.lanes", "runtime.native", "entry",
+        "examples.fft_single", "examples.fft_ifft_pair")} <= walked
