@@ -119,6 +119,13 @@ Phases; any failure exits non-zero and prints no result line:
     and int64; the library's split of every factor size into groups equal
     to the audit's; a missing cuobjdump or an opcode in no class is a
     failure;
+16b. calls captured into CUDA graphs (runtime.graph.captured, the
+    counterpart of jax.jit): one pass first, then every path the host
+    paced (the 64k headline, the 64k raw roundtrip, the config-2 chain,
+    config 4 at T = 4 and T = 64, monolithic 512K x 2), each replay
+    torch.equal to the eager call with the eager call's launches counted,
+    and a replay after the inputs change giving the new result in the
+    same static outputs;
 17. timing with CUDA events, kernel and plain version in turns (plain,
     kernel, kernel, plain), over chained calls (the wide path rereads one
     fixed input); every timed path beside its bound: the larger of its
@@ -130,7 +137,13 @@ Phases; any failure exits non-zero and prints no result line:
     SASS instructions its groups issue per sample (phase 16) over the
     card's instructions/s, which falls when a design issues fewer
     instructions and so cannot show a redesign's gain; the config-2 chain and the convolution
-    also with the host's time to issue one call beside the device time; the
+    also with the host's time to issue one call beside the device time;
+    every path the host paced (phase 16b's) three ways: the per-pass eager
+    path (one fused_pass call per pass, as before the prepared chains) and
+    the prepared chain, each as device ms and host ms to issue one call,
+    and the captured device ms of one call, read from one graph of CHAIN
+    chained calls (the reference times K chained calls as one jit(scan)
+    dispatch); the
     64k headline also as it read after phases 3, 12 and 16 and at the end,
     so that a reading that moves with what ran before it is seen to;
 18. the distributed layer over NCCL (a FileStore in a temporary
@@ -278,6 +291,39 @@ def _paced(fn, xr, xi, calls=CHAIN):
     return start.elapsed_time(end) / calls, host * 1e3 / calls
 
 
+def _captured_ms(fn, xr, xi, calls=CHAIN, replays=3):
+    """Mean device time of one call of a chained fn, read from one CUDA
+    graph of ``calls`` chained calls (``runtime.graph.captured``) replayed
+    ``replays`` times on its static inputs: the card's own time for the
+    path, with no host between the calls."""
+    import torch
+    from intfftk_tpu_torch.runtime import captured
+
+    def chained(a, b):
+        for _ in range(calls):
+            a, b = fn(a, b)
+        return a, b
+
+    call = captured(chained)
+    call(xr, xi)                          # warm-up, capture, one replay
+    static = call.static_inputs(xr, xi)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        call(*static)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def _leaves(y):
+    """The tensors of a nested tuple of outputs, in order."""
+    return [t for v in y for t in (_leaves(v) if isinstance(v, tuple)
+                                   else [v])]
+
+
 def _turns(kernel, plain, xr, xi, calls, plain_calls):
     """Kernel and plain version in turns (plain, kernel, kernel, plain):
     the two mean times and the per-turn times."""
@@ -338,8 +384,10 @@ def main() -> int:
     from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan,
                                                   circle_table, fused_pass,
                                                   fused_pass_reference)
-    from intfftk_tpu_torch.ops.intmath import (cmult_exact, spectrum_product,
+    from intfftk_tpu_torch.ops.intmath import (PreparedProduct, cmult_exact,
+                                               spectrum_product,
                                                spectrum_product_reference)
+    from intfftk_tpu_torch.runtime import captured
     from intfftk_tpu_torch.ops.single_pass import (PallasFFTPlan,
                                                    PallasWideFFTPlan)
     from intfftk_tpu_torch.ops.transform import pack_tables, pack_tables_2d
@@ -1012,11 +1060,23 @@ def main() -> int:
                      device=dev)
     hi1 = torch.zeros_like(hr1)
 
-    def product(yr, yi, product_fn=spectrum_product):
-        return product_fn(yr, yi, hr1, hi1, 23, c2.output_width, 25,
-                          torch.int64)
+    c2_products = {}
 
-    def c2_chain(a, b, pass_fn=fused_pass, product_fn=spectrum_product):
+    def product(yr, yi, product_fn=None):
+        """The unity product; ``product_fn=None``: prepared once per shape
+        (``PreparedProduct``), as the convolution prepares its own."""
+        args = (hr1, hi1, 23, c2.output_width, 25, torch.int64)
+        if product_fn is None:
+            key = (yr.shape, yr.dtype)
+            if key not in c2_products:
+                c2_products[key] = PreparedProduct(yr, yi, *args)
+            return c2_products[key](yr, yi)
+        return product_fn(yr, yi, *args)
+
+    def c2_chain(a, b, pass_fn=None, product_fn=None):
+        """The config-2 chain: by default the plans' prepared chains and
+        the prepared product; ``fused_pass``, ``spectrum_product``: one
+        call per pass and per product, as before the prepared chains."""
         y = f2.apply_blocks(a, b, pass_fn=pass_fn)
         return y, i2.apply_blocks(*product(*y, product_fn), pass_fn=pass_fn)
 
@@ -1462,6 +1522,87 @@ def main() -> int:
 
     headline_now("after phase 16")
 
+    # ---- 16b. calls captured into CUDA graphs (runtime/graph.py)
+    lap("16b")
+
+    def launch_counts():
+        return fused_pass.launches, spectrum_product.launches
+
+    def check_captured(what, call, eager, x1, x2):
+        """A CapturedCall against the same path called eagerly: a replay
+        torch.equal to the eager call on x1 with its launches counted, then
+        on x2 the new result in the same static outputs.  Returns (pass,
+        product) launches per call."""
+        c0 = launch_counts()
+        want = [t.clone() for t in _leaves(eager(*x1))]
+        c1 = launch_counts()
+        call(*x1)                         # warm-up, capture, replay
+        c2_ = launch_counts()
+        got = call(*x1)
+        c3 = launch_counts()
+        torch.cuda.synchronize()
+        per = (c1[0] - c0[0], c1[1] - c0[1])
+        check(all(torch.equal(a, b) for a, b in zip(_leaves(got), want))
+              and (c3[0] - c2_[0], c3[1] - c2_[1]) == per,
+              f"captured {what}: replay == eager call, {per[0]} pass + "
+              f"{per[1]} product launches counted per replay as per eager "
+              f"call")
+        want = [t.clone() for t in _leaves(eager(*x2))]
+        got2 = call(*x2)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(_leaves(got2), want))
+              and all(a is b for a, b in zip(_leaves(got2), _leaves(got))),
+              f"captured {what}: a replay after the inputs change gives the "
+              f"new result, in the same static outputs")
+        return per
+
+    # one pass first: a fault shows at its smallest
+    one_pass = lambda a, b: fused_pass(a, b, plan.cfg1, (plan.w1r, plan.w1i),
+                                       epi=(plan.er, plan.ei),
+                                       transpose_out=True)
+    check_captured("one pass (the headline's pass 1, [64, 256, 256] int16, "
+                   "fused_pass)", captured(one_pass), one_pass,
+                   blocks(plan, *_stimulus(BATCH, N, 5)),
+                   blocks(plan, *_stimulus(BATCH, N, 40)))
+
+    def roundtrip(a, b):
+        return inv.apply_blocks(*fwd.apply_blocks(a, b))
+
+    c2_fixed = lambda a, b: c2_chain(a, b)
+    rng = np.random.default_rng(2)
+    c2_x2 = blocks(f2, *(rng.integers(-(1 << 27), 1 << 27, (RT_BATCH, N))
+                         for _ in range(2)))
+    captured_paths = {
+        "64k headline [64, 256, 256] int16": (
+            plan.capture(), plan.apply_blocks,
+            blocks(plan, *_stimulus(BATCH, N, 5)),
+            blocks(plan, *_stimulus(BATCH, N, 41))),
+        "64k raw roundtrip [8, 256, 256] int16": (
+            captured(roundtrip), roundtrip,
+            blocks(fwd, *_stimulus(RT_BATCH, N, 14)),
+            blocks(fwd, *_stimulus(RT_BATCH, N, 42))),
+        "config-2 chain [8, 256, 256] int32 -> int64": (
+            captured(c2_fixed), c2_fixed,
+            blocks(f2, *(rng.integers(-(1 << 27), 1 << 27, (RT_BATCH, N))
+                         for _ in range(2))), c2_x2),
+        "monolithic 512K x 2 int16": (
+            m512.capture(), m512.apply_blocks,
+            blocks(m512, *_stimulus(2, N512K, 29)),
+            blocks(m512, *_stimulus(2, N512K, 43))),
+    }
+    for payloads, x in conv_x.items():
+        x2 = [torch.roll(v, 1000) for v in x]
+        captured_paths[f"config 4, T = {payloads} payloads"] = (
+            conv.capture(), conv, x, x2)
+    captured_launches = {}
+    for what, (call, eager, x1, x2) in captured_paths.items():
+        captured_launches[what] = check_captured(what, call, eager, x1, x2)
+    check(captured_launches["64k headline [64, 256, 256] int16"] == (2, 0)
+          and captured_launches["config 4, T = 4 payloads"] == (4, 1),
+          "captured headline: 2 launches per call; captured config 4: 4 + 1")
+    del captured_paths
+    torch.cuda.synchronize()
+
     # ---- 17. timing, kernel and plain in turns
     # (from an empty allocator cache, so that where the earlier phases left
     # their blocks does not place this phase's buffers)
@@ -1541,9 +1682,6 @@ def main() -> int:
     print(f"    device ms / host ms to issue one call: {paced_64k[0]:.4f} / "
           f"{paced_64k[1]:.4f}")
     x_64k = x
-
-    def roundtrip(a, b):
-        return inv.apply_blocks(*fwd.apply_blocks(a, b))
 
     def roundtrip_plain(a, b):
         return plain_blocks(inv, *plain_blocks(fwd, a, b))
@@ -1680,8 +1818,8 @@ def main() -> int:
         return lambda a, b: (fn(a, b), (a, b))[1]
 
     rng = np.random.default_rng(0)
-    x = blocks(f2, *(rng.integers(-(1 << 27), 1 << 27, (RT_BATCH, N))
-                     for _ in range(2)))
+    x = x_c2 = blocks(f2, *(rng.integers(-(1 << 27), 1 << 27, (RT_BATCH, N))
+                            for _ in range(2)))
     # two transforms, their twiddles and the product; int32 in, int64 out,
     # the [n] int64 spectrum table read once.  The bound counts 32-bit
     # ops; the int64 tile does 64-bit sums and 128-bit products for each.
@@ -1837,6 +1975,59 @@ def main() -> int:
     report(f"K8 copy o = x + 1 over {xc.numel() * 4} bytes each way "
            f"(torch.add: {add_ms:.4f} ms)", xc.numel(), *probe_ms["K8"],
            moved=2 * xc.numel() * 4, cost=cost_probe["K8"])
+    # the paths the host paced, three ways: the per-pass eager path (one
+    # C call per pass and per product), the prepared chain, both as
+    # device / host ms per call, and the captured device ms of one call
+    # (one graph of the chained calls)
+    def m512_blocks(pass_fn):
+        shape = (2,) + m512.block_in_shape
+        return lambda u, v: tuple(t.reshape(2, -1) for t in m512.apply_blocks(
+            u.reshape(shape), v.reshape(shape), pass_fn=pass_fn))
+
+    x_m512 = [torch.as_tensor(v, dtype=torch.int16, device=dev)
+              for v in _stimulus(2, N512K, 29)]
+    paced_rows = {
+        "64k headline [64, 256, 256] int16 (2 launches)": (
+            lambda a, b: plan.apply_blocks(a, b, pass_fn=fused_pass),
+            plan.apply_blocks, x_64k, CHAIN, cost_64k),
+        "64k raw roundtrip [8, 256, 256] int16 (4 launches)": (
+            lambda a, b: inv.apply_blocks(*fwd.apply_blocks(
+                a, b, pass_fn=fused_pass), pass_fn=fused_pass),
+            roundtrip, blocks(fwd, *_stimulus(RT_BATCH, N, 14)), CHAIN,
+            cost_rt),
+        "config-2 chain [8, 256, 256] (4 + 1 P1 launches)": (
+            fixed(lambda a, b: c2_chain(a, b, fused_pass, spectrum_product)),
+            fixed(c2_chain), x_c2, CHAIN, cost_c2),
+        "monolithic 512K x 2 (2 launches)": (
+            m512_blocks(fused_pass), m512_blocks(None), x_m512, CHAIN,
+            cost_mono512)}
+    for payloads in conv_x:
+        paced_rows[f"config 4, T = {payloads} (4 + 1 P1 launches + glue)"] = (
+            fixed(lambda a, b: conv(a, b, pass_fn=fused_pass,
+                                    product_fn=spectrum_product)),
+            fixed(conv), conv_x[payloads], 20, cost_conv[payloads])
+    paced_ms = {}
+    print(f"  the paths the host paced (eager per pass: one C call per pass "
+          f"and per product; prepared: the plans' chains, one C call per "
+          f"plan call; captured: one graph of the chained calls), on "
+          f"{card}:")
+    for what, (per_pass, chain, xs, calls, cost) in paced_rows.items():
+        e = _paced(per_pass, *xs, calls=calls)
+        c = _paced(chain, *xs, calls=calls)
+        g = _captured_ms(chain, *xs, calls=calls)
+        paced_ms[what] = (e, c, g)
+        pace = "card" if c[1] < 0.9 * c[0] else "host"
+        print(f"    {what}: eager per pass device {e[0]:.4f} / host "
+              f"{e[1]:.4f} ms; prepared chain device {c[0]:.4f} / host "
+              f"{c[1]:.4f} ms (the {pace} sets its pace); captured "
+              f"{g:.4f} ms per call ({calls} chained calls in one graph)"
+              + share(g, cost))
+    # a captured call as a caller makes it: each call copies its input
+    # planes into the graph's static inputs (2 x 8 MiB read and written)
+    cap_paced = _paced(plan.capture(), *x_64k)
+    print(f"    64k headline through plan.capture(), one graph replay per "
+          f"call with its input copies: device {cap_paced[0]:.4f} / host "
+          f"{cap_paced[1]:.4f} ms per call")
     headline_now("after phase 17's other paths", x_64k)
     print("  64k headline through the run, ms per call (distinct output "
           "buffers of the chained calls, the MiB their addresses span; SM "

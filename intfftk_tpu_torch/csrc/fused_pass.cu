@@ -116,6 +116,15 @@
 // The batch is the grid's y dimension, which holds at most 65 535 items: a
 // larger batch goes out as several launches of that many items each, on
 // the same stream.
+//
+// Submission: at the 64k path's size a pass takes the card tens of
+// microseconds, about what the host took to check, resolve and issue it
+// anew on every call, so the host set the pace.  A pass is now checked, resolved and granted its shared memory
+// once (intfft_prepare_pass, at a plan's first call with a shape), and a
+// plan's call launches all its passes in one C call (intfft_fused_chain),
+// which checks only that each descriptor was prepared for this device and
+// these tables.  The launches go onto the caller's stream as they are, so
+// a CUDA graph captures them (intfftk_tpu_torch/runtime/graph.py).
 
 #include "fused_pass.cuh"
 
@@ -168,35 +177,43 @@ int smem_optin(int device) {
 #error "compile with -DINTFFT_THREAD_MASK=the thread counts the library holds"
 #endif
 
-// The pass's launch and query functions of kT threads per CTA, by pair of
-// block types and direction (fused_pass_inst.cu instantiates them).
+// The pass's launch, grant and query functions of kT threads per CTA, by
+// pair of block types and direction (fused_pass_inst.cu instantiates them).
 using Launch = cudaError_t (*)(const PassPtrs&, const PassParams&,
-                               const SynthParams&, int, cudaStream_t, int*);
+                               const SynthParams&, size_t, cudaStream_t,
+                               int*);
+using Grant = cudaError_t (*)(bool, size_t, int);
 using Query = cudaError_t (*)(bool, size_t, int, int*);
-#define INTFFT_TABLE(WHAT)                                                    \
-  {{intfft::WHAT##_pass_i16_fwd<kT>, intfft::WHAT##_pass_i16_inv<kT>},        \
-   {intfft::WHAT##_pass_i32_fwd<kT>, intfft::WHAT##_pass_i32_inv<kT>},        \
-   {intfft::WHAT##_pass_i32_i64_fwd<kT>,                                      \
-    intfft::WHAT##_pass_i32_i64_inv<kT>},                                     \
-   {intfft::WHAT##_pass_i64_fwd<kT>, intfft::WHAT##_pass_i64_inv<kT>}}
+struct PassFns {
+  Launch launch;
+  Grant grant;
+  Query query;
+};
+#define INTFFT_FNS(BLOCKS, DIR)                                               \
+  {intfft::launch_pass_##BLOCKS##_##DIR<kT>,                                  \
+   intfft::grant_pass_##BLOCKS##_##DIR<kT>,                                   \
+   intfft::query_pass_##BLOCKS##_##DIR<kT>}
 template <int kT>
-const Launch kLaunch[4][2] = INTFFT_TABLE(launch);
-template <int kT>
-const Query kQuery[4][2] = INTFFT_TABLE(query);
-#undef INTFFT_TABLE
+const PassFns kFns[4][2] = {{INTFFT_FNS(i16, fwd), INTFFT_FNS(i16, inv)},
+                            {INTFFT_FNS(i32, fwd), INTFFT_FNS(i32, inv)},
+                            {INTFFT_FNS(i32_i64, fwd),
+                             INTFFT_FNS(i32_i64, inv)},
+                            {INTFFT_FNS(i64, fwd), INTFFT_FNS(i64, inv)}};
+#undef INTFFT_FNS
 
-// Calls fn(the tables of kT) for the kT among the library's thread counts
-// (INTFFT_THREAD_MASK) that equals `threads`; cudaErrorInvalidValue where
-// none does.  Only the counts the mask names are instantiated.
-template <int kT = 128, typename Fn>
-cudaError_t with_threads(int threads, Fn fn) {
+// The functions of block form `blocks` (block_form) and direction at the
+// kT among the library's thread counts (INTFFT_THREAD_MASK) that equals
+// `threads`; null where none does.  Only the counts the mask names are
+// instantiated.
+template <int kT = 128>
+const PassFns* pass_fns(int threads, int blocks, int inverse) {
   if constexpr (kT > 1024) {
-    return cudaErrorInvalidValue;
+    return nullptr;
   } else {
     if constexpr ((INTFFT_THREAD_MASK & (kT / 128)) != 0) {
-      if (threads == kT) return fn(kLaunch<kT>, kQuery<kT>);
+      if (threads == kT) return &kFns<kT>[blocks][inverse != 0];
     }
-    return with_threads<kT * 2>(threads, fn);
+    return pass_fns<kT * 2>(threads, blocks, inverse);
   }
 }
 
@@ -220,9 +237,44 @@ bool synth_ok(const SynthParams& s, int rows, int cols) {
          static_cast<long long>(rows - 1) * (cols - 1) < (1LL << s.log_n);
 }
 
+// Which table pointers a pass takes (PreparedPass::tables): the stage
+// tables w, the 2-D tables t2, the epilogue table e, the coarse table c.
+constexpr int kTableW = 1, kTableT2 = 2, kTableE = 4, kTableC = 8;
+constexpr unsigned long long kPrepared = 0x696e74666674ULL;  // "intfft"
+
+// One pass as intfft_prepare_pass resolved it: checked, its kernel chosen
+// and granted its shared memory on `device`.  The host holds it as an
+// opaque block of intfft_prepared_size() bytes and hands it back to
+// intfft_fused_chain on every call.
+struct PreparedPass {
+  unsigned long long magic;  // kPrepared once filled
+  int device;                // the device it was prepared and granted on
+  int tables;                // the table pointers it takes (kTable*)
+  size_t smem;               // dynamic shared memory per CTA
+  Launch launch;
+  PassParams p;
+  SynthParams syn;
+};
+
+int table_mask(const PassPtrs& a) {
+  return (a.w_re != nullptr ? kTableW : 0) |
+         (a.t2_re != nullptr ? kTableT2 : 0) |
+         (a.e_re != nullptr ? kTableE : 0) | (a.c_re != nullptr ? kTableC : 0);
+}
+
+// Pass i's pointers of a chain: 12 per pass, in PassPtrs order.
+PassPtrs pass_ptrs(void* const* v) {
+  return PassPtrs{v[0], v[1], v[2], v[3], v[4], v[5],
+                  v[6], v[7], v[8], v[9], v[10], v[11]};
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes (intfftk_tpu_torch/ops/_build.py).
+// A pass is prepared once (intfft_prepare_pass: every check, the kernel of
+// its form and thread count, the shared-memory grant) and launched on every
+// call (intfft_fused_chain: the passes of a plan in one call, no check but
+// that each descriptor was prepared on this device for these tables).
 // Pointers are device pointers.  Stage tables: w_re/w_im [rows], or, when
 // t2_re/t2_im are given, 2-D tables [rows, cols] (w may be null then).
 // Epilogue: e_re/e_im [rows, cols], or the coarse table c_re/c_im [512]
@@ -234,11 +286,111 @@ bool synth_ok(const SynthParams& s, int rows, int cols) {
 // per CTA, one of the counts this library was compiled for (the tuning
 // row's, ops/tuning.py, or a sweep's variant, ops/_build.py); the tile of
 // tc columns must fit the card's shared memory per CTA.  What does not is
-// refused with cudaErrorInvalidValue, never clamped.  out[0] receives the
-// kernel launches made: one for every 65 535 items of the batch, or part of
-// them; out[1..4] TC, threads per CTA, the dynamic shared memory of a CTA
-// in bytes and the CTAs along the columns.
-// Returns a cudaError_t: 0 when every launch was accepted.
+// refused with cudaErrorInvalidValue, never clamped.
+
+extern "C" int intfft_prepared_size() {
+  return static_cast<int>(sizeof(PreparedPass));
+}
+
+// Prepares one pass into `desc` (intfft_prepared_size() bytes, 8-byte
+// aligned) for `device`: the arguments of intfft_fused_pass but the
+// pointers, and `tables`, which of the table pointers every launch will
+// give (1 w, 2 t2, 4 e, 8 c).  report[0..3]: TC, threads per CTA, the
+// dynamic shared memory of a CTA in bytes and the CTAs along the columns.
+// Returns a cudaError_t; `desc` is usable only when it is 0.
+extern "C" int intfft_prepare_pass(
+    int batch, int rows, int cols, int in_size, int out_size, int data_width,
+    int scale, int round, int tw_shift, int bypass, int inverse, int natural,
+    int transpose_in, int transpose_out, int synth_log_n, int mathpi,
+    int xshift, int sh_cnt, int tc, int threads, int tables, int device,
+    void* desc, int* report) {
+  auto* d = static_cast<PreparedPass*>(desc);
+  d->magic = 0;
+  const int log_rows = log2_exact(rows);
+  const int log_tc = tc >= 1 && tc <= 1024 ? log2_exact(tc) : -1;
+  const SynthParams syn{synth_log_n, mathpi, xshift, sh_cnt};
+  const int blocks = block_form(in_size, out_size);
+  const bool wide = blocks >= 2;
+  const bool two_d = (tables & kTableT2) != 0;
+  const bool synth = (tables & kTableC) != 0;
+  if (log_rows < 3 || log_rows > 12 || batch < 1 || cols < 1 ||
+      data_width < 1 || blocks < 0 || log_tc < 0 ||
+      data_width + (1 - scale) * log_rows > (wide ? 64 : 32) ||
+      (tables & ~(kTableW | kTableT2 | kTableE | kTableC)) != 0 ||
+      (tables & (kTableW | kTableT2)) == 0 ||
+      ((tables & kTableE) != 0 && synth) || (wide && (two_d || synth)) ||
+      (synth && !synth_ok(syn, rows, cols)) || device < 0 ||
+      device >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const PassFns* fns = pass_fns(threads, blocks, inverse);
+  if (fns == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = pass_smem(rows, tc, wide ? 8 : 4, synth);
+  if (smem > static_cast<size_t>(smem_optin(device))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = fns->grant(two_d, smem, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  d->device = device;
+  d->tables = tables;
+  d->smem = smem;
+  d->launch = fns->launch;
+  d->p = PassParams{batch,    rows,       cols,  log_rows, tc,
+                    log_tc,   data_width, scale, round,    tw_shift,
+                    bypass,   natural,    transpose_in,    transpose_out};
+  d->syn = syn;
+  d->magic = kPrepared;
+  report[0] = tc;
+  report[1] = threads;
+  report[2] = static_cast<int>(smem);
+  report[3] = (cols + tc - 1) / tc;
+  return 0;
+}
+
+// Launches n_passes prepared passes (descs: an array of them) in order on
+// `stream`, on `device`: pass i reads and writes the 12 device pointers
+// ptrs[12 i .. 12 i + 11] (x_re, x_im, w_re, w_im, t2_re, t2_im, e_re,
+// e_im, c_re, c_im, y_re, y_im), so a plan's input, the intermediate of
+// each pass but the last and its output, and the tables.  Before any launch
+// every descriptor must have been prepared, on `device`, for exactly the
+// table pointers given, with x and y given: else cudaErrorInvalidValue and
+// nothing launched.  A batch of more than 65 535 items takes several
+// launches.  out[0] receives the kernel launches made.  Returns a
+// cudaError_t: 0 when every launch was accepted.
+extern "C" int intfft_fused_chain(const void* descs, int n_passes,
+                                  void* const* ptrs, int device, void* stream,
+                                  int* out) {
+  out[0] = 0;
+  const auto* d = static_cast<const PreparedPass*>(descs);
+  if (d == nullptr || ptrs == nullptr || n_passes < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int i = 0; i < n_passes; ++i) {
+    const PassPtrs a = pass_ptrs(ptrs + 12 * i);
+    if (d[i].magic != kPrepared || d[i].device != device ||
+        d[i].tables != table_mask(a) || a.x_re == nullptr ||
+        a.x_im == nullptr || a.y_re == nullptr || a.y_im == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto s = static_cast<cudaStream_t>(stream);
+  for (int i = 0; i < n_passes; ++i) {
+    err = d[i].launch(pass_ptrs(ptrs + 12 * i), d[i].p, d[i].syn, d[i].smem,
+                      s, out);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// One pass, prepared and launched in one call: out[0] receives the kernel
+// launches made, one for every 65 535 items of the batch or part of them;
+// out[1..4] TC, threads per CTA, the dynamic shared memory of a CTA in
+// bytes and the CTAs along the columns.  Returns a cudaError_t: 0 when
+// every launch was accepted.
 extern "C" int intfft_fused_pass(
     const void* x_re, const void* x_im, void* y_re, void* y_im,
     const void* w_re, const void* w_im, const void* t2_re, const void* t2_im,
@@ -249,40 +401,21 @@ extern "C" int intfft_fused_pass(
     int synth_log_n, int mathpi, int xshift, int sh_cnt, int tc, int threads,
     int device, void* stream, int* out) {
   out[0] = 0;
-  const int log_rows = log2_exact(rows);
-  const int log_tc = tc >= 1 && tc <= 1024 ? log2_exact(tc) : -1;
-  const SynthParams syn{synth_log_n, mathpi, xshift, sh_cnt};
-  const int blocks = block_form(in_size, out_size);
-  const bool wide = blocks >= 2;
-  if (log_rows < 3 || log_rows > 12 || batch < 1 || cols < 1 ||
-      data_width < 1 || blocks < 0 || log_tc < 0 ||
-      data_width + (1 - scale) * log_rows > (wide ? 64 : 32) ||
-      (t2_re == nullptr && w_re == nullptr) ||
-      (e_re != nullptr && c_re != nullptr) ||
-      (wide && (t2_re != nullptr || c_re != nullptr)) ||
-      (c_re != nullptr && !synth_ok(syn, rows, cols)) || device < 0 ||
-      device >= kMaxDevices) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (pass_smem(rows, tc, wide ? 8 : 4, c_re != nullptr) >
-      static_cast<size_t>(smem_optin(device))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const PassParams p{batch,    rows,       cols,  log_rows, tc,
-                     log_tc,   data_width, scale, round,    tw_shift,
-                     bypass,   natural,    transpose_in,    transpose_out};
-  const PassPtrs a{x_re, x_im, w_re, w_im, t2_re, t2_im, e_re, e_im,
-                   c_re, c_im, y_re, y_im};
-  // one function per pair of block types, direction and thread count, each
-  // compiled in an object of its own
-  err = with_threads(
-      threads, [&](const Launch(&launch)[4][2], const Query(&)[4][2]) {
-        return launch[blocks][inverse != 0](
-            a, p, syn, device, static_cast<cudaStream_t>(stream), out);
-      });
-  return static_cast<int>(err);
+  void* const ptrs[12] = {
+      const_cast<void*>(x_re),  const_cast<void*>(x_im),
+      const_cast<void*>(w_re),  const_cast<void*>(w_im),
+      const_cast<void*>(t2_re), const_cast<void*>(t2_im),
+      const_cast<void*>(e_re),  const_cast<void*>(e_im),
+      const_cast<void*>(c_re),  const_cast<void*>(c_im),
+      y_re,                     y_im};
+  PreparedPass d;
+  const int err = intfft_prepare_pass(
+      batch, rows, cols, in_size, out_size, data_width, scale, round,
+      tw_shift, bypass, inverse, natural, transpose_in, transpose_out,
+      synth_log_n, mathpi, xshift, sh_cnt, tc, threads,
+      table_mask(pass_ptrs(ptrs)), device, &d, out + 1);
+  if (err != 0) return err;
+  return intfft_fused_chain(&d, 1, ptrs, device, stream, out);
 }
 
 // What the compiled pass of one form takes at `threads` threads per CTA
@@ -302,6 +435,8 @@ extern "C" int intfft_pass_attributes(int in_size, int out_size, int inverse,
       device >= kMaxDevices) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const PassFns* fns = pass_fns(threads, blocks, inverse);
+  if (fns == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = pass_smem(rows, tc, blocks >= 2 ? 8 : 4, synth != 0);
@@ -309,10 +444,7 @@ extern "C" int intfft_pass_attributes(int in_size, int out_size, int inverse,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   out[4] = static_cast<int>(smem);
-  return static_cast<int>(with_threads(
-      threads, [&](const Launch(&)[4][2], const Query(&query)[4][2]) {
-        return query[blocks][inverse != 0](two_d != 0, smem, device, out);
-      }));
+  return static_cast<int>(fns->query(two_d != 0, smem, device, out));
 }
 
 // The [n1, n2] inter-factor table W_n^(+-k*j) from the coarse table

@@ -42,13 +42,18 @@ struct PassPtrs {
 // int16 -> int16 and int32 -> int32 on the int32 tile, int32 -> int64 (the
 // widening pass) and int64 -> int64 on the int64 tile, with kT threads per
 // CTA and p.tc columns per CTA; each instantiated by one compilation of
-// fused_pass_inst.cu, for one thread count.  out[0] counts the kernel
-// launches made; out[1..4] receive what was launched: TC, threads per CTA,
-// dynamic shared memory in bytes and CTAs along the columns.
+// fused_pass_inst.cu, for one thread count.  The launch takes `smem` bytes
+// of dynamic shared memory per CTA, which the grant below has allowed on
+// the current device, and adds the kernel launches it made to *launches.
 #define INTFFT_LAUNCH_PASS(NAME)                                              \
   cudaError_t NAME(const PassPtrs& a, const PassParams& p,                    \
-                   const SynthParams& syn, int device, cudaStream_t stream,   \
-                   int* out)
+                   const SynthParams& syn, size_t smem, cudaStream_t stream,  \
+                   int* launches)
+// Allows the kernel of that pass (two_d: the form with 2-D stage tables)
+// `smem` bytes of dynamic shared memory per CTA on `device`, the current
+// device: the cudaFuncSetAttribute a launch needs, made once per size.
+#define INTFFT_GRANT_PASS(NAME)                                               \
+  cudaError_t NAME(bool two_d, size_t smem, int device)
 // What the compiled kernel of that pass takes: out[0] registers per
 // thread, out[1] bytes of local memory per thread (spills), out[2] the most
 // threads per CTA it can be launched with, out[3] the CTAs an SM holds with
@@ -59,6 +64,8 @@ struct PassPtrs {
 #define INTFFT_PASS_FUNCTIONS(BLOCKS, DIR)                                    \
   template <int kT>                                                           \
   INTFFT_LAUNCH_PASS(launch_pass_##BLOCKS##_##DIR);                           \
+  template <int kT>                                                           \
+  INTFFT_GRANT_PASS(grant_pass_##BLOCKS##_##DIR);                             \
   template <int kT>                                                           \
   INTFFT_QUERY_PASS(query_pass_##BLOCKS##_##DIR)
 INTFFT_PASS_FUNCTIONS(i16, fwd);
@@ -364,10 +371,10 @@ int log2_exact(int v) {
   return (1 << l) == v ? l : -1;
 }
 
-// Raises the dynamic shared memory this kernel may use on `device` to
-// `smem` when a launch (or a query) needs more than any before it, not on
-// every call.  One cache per instantiation: each thread count is a kernel
-// of its own.
+// Raises the dynamic shared memory this kernel may use on `device` (the
+// current device) to `smem` when a prepared pass (or a query) needs more
+// than any before it, not on every launch.  One cache per instantiation:
+// each thread count is a kernel of its own.
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
           int kT>
 cudaError_t grant_smem(int device, size_t smem) {
@@ -380,29 +387,23 @@ cudaError_t grant_smem(int device, size_t smem) {
   return err;
 }
 
-// The launch of p.tc columns and kT threads per CTA.  TC and the thread
-// count come from the host (ops/tuning.py: the card's row, or a plan's
-// override), and the C entry has checked them: nothing here clamps.
-// Sixteen int16 columns are one 32-byte sector per row; a narrower tile
-// reads shorter row segments and lets an SM hold more CTAs at large m.
+// The launch of p.tc columns and kT threads per CTA, with `smem` bytes of
+// dynamic shared memory per CTA, granted by the prepare step.  TC and the
+// thread count come from the host (ops/tuning.py: the card's row, or a
+// plan's override), and the prepare step has checked them: nothing here
+// clamps.  Sixteen int16 columns are one 32-byte sector per row; a narrower
+// tile reads shorter row segments and lets an SM hold more CTAs at large m.
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
           int kT>
 cudaError_t launch(const PassPtrs& a, const PassParams& p,
-                   const SynthParams& syn, int device, cudaStream_t stream,
-                   int* out) {
-  const size_t smem = pass_smem(p.rows, p.tc, sizeof(V), a.c_re != nullptr);
-  cudaError_t err =
-      grant_smem<Tin, Tout, V, kInverse, kTwoD, kT>(device, smem);
-  if (err != cudaSuccess) return err;
+                   const SynthParams& syn, size_t smem, cudaStream_t stream,
+                   int* launches) {
   const auto kernel = fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT>;
   const auto i32 = [](const void* v) {
     return static_cast<const int32_t*>(v);
   };
   const unsigned tiles = (p.cols + p.tc - 1) / p.tc;
-  out[1] = p.tc;
-  out[2] = kT;
-  out[3] = static_cast<int>(smem);
-  out[4] = static_cast<int>(tiles);
+  cudaError_t err = cudaSuccess;
   const size_t item = static_cast<size_t>(p.rows) * p.cols;
   // gridDim.y holds at most kMaxGridY items: a larger batch takes several
   // launches, each on its own slice of x and y and each counted
@@ -417,7 +418,7 @@ cudaError_t launch(const PassPtrs& a, const PassParams& p,
         static_cast<Tout*>(a.y_im) + off, p, syn);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    ++out[0];
+    ++*launches;
   }
   return cudaSuccess;
 }
@@ -444,16 +445,27 @@ cudaError_t query(size_t smem, int device, int* out) {
 // has no 2-D form (the caller checks).
 template <typename Tin, typename Tout, typename V, bool kInverse, int kT>
 cudaError_t launch_tables(const PassPtrs& a, const PassParams& p,
-                          const SynthParams& syn, int device,
-                          cudaStream_t stream, int* out) {
+                          const SynthParams& syn, size_t smem,
+                          cudaStream_t stream, int* launches) {
   if constexpr (sizeof(V) == 4) {
     if (a.t2_re != nullptr) {
-      return launch<Tin, Tout, V, kInverse, true, kT>(a, p, syn, device,
-                                                      stream, out);
+      return launch<Tin, Tout, V, kInverse, true, kT>(a, p, syn, smem,
+                                                      stream, launches);
     }
   }
-  return launch<Tin, Tout, V, kInverse, false, kT>(a, p, syn, device, stream,
-                                                   out);
+  return launch<Tin, Tout, V, kInverse, false, kT>(a, p, syn, smem, stream,
+                                                   launches);
+}
+
+template <typename Tin, typename Tout, typename V, bool kInverse, int kT>
+cudaError_t grant_tables(bool two_d, size_t smem, int device) {
+  if constexpr (sizeof(V) == 4) {
+    if (two_d) {
+      return grant_smem<Tin, Tout, V, kInverse, true, kT>(device, smem);
+    }
+  }
+  if (two_d) return cudaErrorInvalidValue;
+  return grant_smem<Tin, Tout, V, kInverse, false, kT>(device, smem);
 }
 
 template <typename Tin, typename Tout, typename V, bool kInverse, int kT>

@@ -5,10 +5,10 @@
 // library holds, side by side:
 //   -DINTFFT_BLOCKS=i16 | i32 | i32_i64 | i64   -DINTFFT_DIR=fwd | inv
 //   -DINTFFT_THREADS=128 | 256 | 512 | 1024
-// and each compilation instantiates the two function templates
-// launch_pass_<blocks>_<dir><threads> and query_pass_<blocks>_<dir><threads>
-// that fused_pass.cu, which holds the C interface and says what the kernel
-// replaces and what bounds it, calls.
+// and each compilation instantiates the three function templates
+// launch_pass_<blocks>_<dir><threads>, grant_pass_<blocks>_<dir><threads>
+// and query_pass_<blocks>_<dir><threads> that fused_pass.cu, which holds the
+// C interface and says what the kernel replaces and what bounds it, calls.
 
 #include "fused_pass.cuh"
 
@@ -37,7 +37,12 @@ namespace intfft {
 
 template <int kT>
 INTFFT_LAUNCH_PASS(INTFFT_NAME(launch)) {
-  return launch_tables<INTFFT_FORM>(a, p, syn, device, stream, out);
+  return launch_tables<INTFFT_FORM>(a, p, syn, smem, stream, launches);
+}
+
+template <int kT>
+INTFFT_GRANT_PASS(INTFFT_NAME(grant)) {
+  return grant_tables<INTFFT_FORM>(two_d, smem, device);
 }
 
 template <int kT>
@@ -46,6 +51,7 @@ INTFFT_QUERY_PASS(INTFFT_NAME(query)) {
 }
 
 template INTFFT_LAUNCH_PASS(INTFFT_NAME(launch)<INTFFT_THREADS>);
+template INTFFT_GRANT_PASS(INTFFT_NAME(grant)<INTFFT_THREADS>);
 template INTFFT_QUERY_PASS(INTFFT_NAME(query)<INTFFT_THREADS>);
 
 }  // namespace intfft

@@ -38,6 +38,27 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kCtasPerSm = 8;
+constexpr int kMaxDevices = 64;  // devices a process may launch on
+
+// Makes `device` the calling thread's current device unless it is already
+// (a cudaSetDevice on every call cost the host time on every launch).
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
+}
+
+// The SMs of `device`, read once per device; 0 where it cannot be read.
+int sm_count(int device) {
+  static int sms[kMaxDevices] = {};
+  if (sms[device] == 0 &&
+      cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess) {
+    sms[device] = 0;
+  }
+  return sms[device];
+}
 
 // elements of a run: 16 bytes of the wider type
 template <typename Tin, typename Tout>
@@ -142,14 +163,14 @@ extern "C" int intfft_spectrum_product(
   if (n < 1 || block < 1 || n % block != 0 ||
       (in_size != 4 && in_size != 8) || (out_size != 4 && out_size != 8) ||
       (wide_product && in_size != 8) || shift < 0 || shift > 62 ||
-      out_width < 1 || out_width > 8 * out_size) {
+      out_width < 1 || out_width > 8 * out_size || device < 0 ||
+      device >= kMaxDevices) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int sms = sm_count(device);
+  if (sms == 0) return static_cast<int>(cudaErrorInvalidDevice);
   const ProductArgs a{f_re, f_im, h_re, h_im,    y_re,      y_im,
                       n,    block, shift, out_width, sms * kCtasPerSm};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

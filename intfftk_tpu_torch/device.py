@@ -70,3 +70,12 @@ def resolve(device: torch.device | str | None = None) -> torch.device:
         device = torch.device("cuda", torch.cuda.current_device())
     use_kernel(device)
     return device
+
+
+def stream_handle(device: torch.device) -> int:
+    """The handle of the current stream of CUDA ``device``, as the C entry
+    points take it: the launches of a call go onto the caller's stream (a
+    CUDA graph's capture stream while one captures).  Read as torch's own
+    generated code reads it: ``torch.cuda.current_stream`` builds a Stream
+    object on every call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

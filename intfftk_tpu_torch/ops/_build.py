@@ -132,8 +132,10 @@ def library(threads: int | None = None):
     """The loaded kernel library, built first if needed; with ``threads``
     outside ``PASS_THREADS``, the variant of the factor pass at that many
     threads per CTA (its C interface alone: ``intfft_fused_pass``,
-    ``intfft_pass_attributes``, ``intfft_circle_table``,
-    ``intfft_group_split``, ``intfft_error_string``)."""
+    ``intfft_prepared_size``, ``intfft_prepare_pass``,
+    ``intfft_fused_chain``, ``intfft_pass_attributes``,
+    ``intfft_circle_table``, ``intfft_group_split``,
+    ``intfft_error_string``)."""
     import ctypes
 
     if threads in PASS_THREADS:
@@ -144,6 +146,14 @@ def library(threads: int | None = None):
     lib.intfft_fused_pass.argtypes = ([ptr] * 12 + [i32] * 21
                                      + [ptr, ctypes.POINTER(i32)])
     lib.intfft_fused_pass.restype = i32
+    lib.intfft_prepared_size.argtypes = []
+    lib.intfft_prepared_size.restype = i32
+    lib.intfft_prepare_pass.argtypes = ([i32] * 22
+                                        + [ptr, ctypes.POINTER(i32)])
+    lib.intfft_prepare_pass.restype = i32
+    lib.intfft_fused_chain.argtypes = [ptr, i32, ptr, i32, ptr,
+                                       ctypes.POINTER(i32)]
+    lib.intfft_fused_chain.restype = i32
     lib.intfft_pass_attributes.argtypes = [i32] * 9 + [ctypes.POINTER(i32)]
     lib.intfft_pass_attributes.restype = i32
     lib.intfft_circle_table.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]

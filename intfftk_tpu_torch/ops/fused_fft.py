@@ -27,8 +27,15 @@ path first outgrows 32 bits.
 
 ``fused_pass`` launches ``csrc/fused_pass.cu`` for a CUDA tensor and runs
 its plain PyTorch version ``fused_pass_reference`` for a CPU tensor; there
-is no other route and no fallback.  Its launch geometry (threads per CTA,
-TC columns per CTA) comes from the card's tuning row (``ops/tuning.py``):
+is no other route and no fallback.  A plan's call does not go through
+``fused_pass`` on the card: its passes are prepared once per input
+(shape, dtype, device) as a ``PreparedChain`` (the checks and the C
+prepare step, ``intfft_prepare_pass``), and each call launches them all in
+one C call (``intfft_fused_chain``), the host's whole cost of a call where
+``fused_pass`` checked, resolved and issued each pass anew.  The plans'
+``capture()`` records that call into a CUDA graph (``runtime/graph.py``).
+The launch geometry of a pass (threads per CTA, TC columns per CTA) comes
+from the card's tuning row (``ops/tuning.py``):
 a plan resolves it once, at build, records the row as ``plan.tuning`` and
 hands each pass its geometry; the bits do not depend on it.
 """
@@ -38,6 +45,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import itertools
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -47,7 +57,7 @@ from ..config import FFTConfig
 from ..golden.float_model import bitrev_indices
 from ..golden.twiddle import circle_twiddles_int
 
-from ..device import resolve, use_kernel
+from ..device import resolve, stream_handle, use_kernel
 from . import _build
 from .intmath import cmult_exact
 from .transform import (check_width, fft_stages, fft_stages_2d, pack_tables,
@@ -103,8 +113,21 @@ def circle_table(cfg: FFTConfig, n1: int, n2: int, inverse: bool = False,
     return wc_re[m].astype(np.int32), wc_im[m].astype(np.int32)
 
 
-def _check_pass(x_re, x_im, cfg: FFTConfig, tables, epi, synth, tables_2d,
-                natural, transpose_in, out_dtype):
+def _check_blocks(x_re, x_im):
+    """The re and im blocks of a call: contiguous, of one shape, dtype and
+    device."""
+    if not (x_re.is_contiguous() and x_im.is_contiguous()):
+        raise ValueError("blocks must be contiguous")
+    if (x_im.shape != x_re.shape or x_im.dtype != x_re.dtype
+            or x_im.device != x_re.device):
+        raise ValueError("re and im blocks differ in shape, dtype or device")
+
+
+def _check_pass(shape, dtype, dev, cfg: FFTConfig, tables, epi, synth,
+                tables_2d, natural, transpose_in, out_dtype):
+    """What a pass on blocks of ``shape`` and ``dtype`` on ``dev`` takes:
+    the factor, the block and table shapes, dtypes and devices, the
+    widths."""
     check_width(cfg)
     if not MIN_ROWS <= cfg.n <= MAX_ROWS:
         raise ValueError(f"factor size {cfg.n} outside [{MIN_ROWS}, "
@@ -114,18 +137,13 @@ def _check_pass(x_re, x_im, cfg: FFTConfig, tables, epi, synth, tables_2d,
     if epi is not None and synth is not None:
         raise ValueError("give either an epilogue table or synth")
     axis = 2 if transpose_in else 1
-    if (x_re.dtype, out_dtype) not in PASS_DTYPES:
+    if (dtype, out_dtype) not in PASS_DTYPES:
         raise TypeError(f"a pass takes (in, out) blocks {PASS_DTYPES}, got "
-                        f"({x_re.dtype}, {out_dtype})")
-    for x in (x_re, x_im):
-        if x.dim() != 3 or x.shape[axis] != cfg.n:
-            want = "[B, C, {}]" if transpose_in else "[B, {}, C]"
-            raise ValueError(f"expected {want.format(cfg.n)} blocks, got "
-                             f"{tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError("blocks must be contiguous")
-    if x_im.shape != x_re.shape or x_im.dtype != x_re.dtype:
-        raise ValueError("re and im blocks differ in shape or dtype")
+                        f"({dtype}, {out_dtype})")
+    if len(shape) != 3 or shape[axis] != cfg.n:
+        want = "[B, C, {}]" if transpose_in else "[B, {}, C]"
+        raise ValueError(f"expected {want.format(cfg.n)} blocks, got "
+                         f"{tuple(shape)}")
     bits = torch.iinfo(out_dtype).bits
     if cfg.output_width > bits:
         raise ValueError(f"{out_dtype} blocks hold <= {bits} "
@@ -135,8 +153,7 @@ def _check_pass(x_re, x_im, cfg: FFTConfig, tables, epi, synth, tables_2d,
         raise ValueError("int64 blocks take neither the in-kernel synthesis "
                          "nor the 2-D stage tables (the JAX package has "
                          "no wide form of either)")
-    dev = x_re.device
-    cols = x_re.shape[3 - axis]
+    cols = shape[3 - axis]
     want = []
     if tables is not None:
         want += [((cfg.n,), t) for t in tables]
@@ -150,12 +167,41 @@ def _check_pass(x_re, x_im, cfg: FFTConfig, tables, epi, synth, tables_2d,
         check_block(cfg.n, cols, 0, synth.n)
         synth_params(cfg, synth.n)
         want += [((512,), t) for t in (synth.re, synth.im)]
-    for shape, t in want:
-        if (tuple(t.shape) != shape or t.dtype != torch.int32
+    for shape_, t in want:
+        if (tuple(t.shape) != shape_ or t.dtype != torch.int32
                 or t.device != dev or not t.is_contiguous()):
             raise ValueError(
-                f"table must be contiguous int32 {shape} on {dev}, got "
+                f"table must be contiguous int32 {shape_} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _pass_ints(cfg: FFTConfig, shape, in_dtype, out_dtype, synth, inverse,
+               natural, transpose_in, transpose_out, lane_tile, threads):
+    """The integers of a pass on blocks of ``shape``, as the C entries take
+    them: batch, rows, cols, the element sizes, the numerics, the layout,
+    the synthesis constants, TC and threads per CTA."""
+    r = cfg.n
+    c = shape[1] if transpose_in else shape[2]
+    prm = synth_params(cfg, synth.n) if synth is not None else (0, 0, 0, 0)
+    return (shape[0], r, c, in_dtype.itemsize, out_dtype.itemsize,
+            cfg.data_width, cfg.scale, int(cfg.rounding == "round"),
+            cfg.twiddle_shift, int(cfg.bypass_fly), int(inverse),
+            int(natural), int(transpose_in), int(transpose_out), *prm,
+            lane_tile, threads)
+
+
+def _table_ptrs(tables, tables_2d, epi, synth) -> tuple:
+    """The device pointers of a pass's tables, in the C entries' order
+    (w, t2, e, c; re then im), None where a pass takes none."""
+    pair = lambda p: ((p[0].data_ptr(), p[1].data_ptr()) if p is not None
+                      else (None, None))
+    return (*pair(tables), *pair(tables_2d), *pair(epi),
+            *pair(synth[:2] if synth is not None else None))
+
+
+def _out_shape(shape, cfg: FFTConfig, transpose_in, transpose_out):
+    c = shape[1] if transpose_in else shape[2]
+    return (shape[0], c, cfg.n) if transpose_out else (shape[0], cfg.n, c)
 
 
 def fused_pass_reference(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
@@ -233,9 +279,10 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
     columns, as the C entry reports them); a CPU tensor runs
     ``fused_pass_reference``."""
     out_dtype = out_dtype or x_re.dtype
-    _check_pass(x_re, x_im, cfg, tables, epi, synth, tables_2d, natural,
-                transpose_in, out_dtype)
     dev = x_re.device
+    _check_blocks(x_re, x_im)
+    _check_pass(x_re.shape, x_re.dtype, dev, cfg, tables, epi, synth,
+                tables_2d, natural, transpose_in, out_dtype)
     if not use_kernel(dev):
         return fused_pass_reference(x_re, x_im, cfg, tables, epi=epi,
                                     synth=synth, tables_2d=tables_2d,
@@ -243,37 +290,38 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
                                     inverse=inverse, natural=natural,
                                     transpose_in=transpose_in,
                                     out_dtype=out_dtype)
-    nb = x_re.shape[0]
-    r = cfg.n
-    c = x_re.shape[1] if transpose_in else x_re.shape[2]
-    if lane_tile is None or threads is None:
-        g = _device_geometry(dev, r, c, out_dtype == torch.int64)
-        lane_tile = g["lane_tile"] if lane_tile is None else lane_tile
-        threads = g["threads"] if threads is None else threads
-    oshape = (nb, c, r) if transpose_out else (nb, r, c)
+    lane_tile, threads = _geometry(dev, cfg, x_re.shape, transpose_in,
+                                   out_dtype, lane_tile, threads)
+    oshape = _out_shape(x_re.shape, cfg, transpose_in, transpose_out)
     y_re = torch.empty(oshape, dtype=out_dtype, device=dev)
     y_im = torch.empty(oshape, dtype=out_dtype, device=dev)
-    ptrs = lambda pair: ((pair[0].data_ptr(), pair[1].data_ptr())
-                         if pair is not None else (None, None))
-    prm = synth_params(cfg, synth.n) if synth is not None else (0, 0, 0, 0)
     lib = _build.library(threads)
     out = _REPORT()
     err = lib.intfft_fused_pass(
         x_re.data_ptr(), x_im.data_ptr(), y_re.data_ptr(), y_im.data_ptr(),
-        *ptrs(tables), *ptrs(tables_2d), *ptrs(epi),
-        *ptrs(synth[:2] if synth is not None else None),
-        nb, r, c, x_re.element_size(), y_re.element_size(), cfg.data_width,
-        cfg.scale,
-        int(cfg.rounding == "round"), cfg.twiddle_shift, int(cfg.bypass_fly),
-        int(inverse), int(natural), int(transpose_in), int(transpose_out),
-        *prm, lane_tile, threads, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream, out)
+        *_table_ptrs(tables, tables_2d, epi, synth),
+        *_pass_ints(cfg, x_re.shape, x_re.dtype, out_dtype, synth, inverse,
+                    natural, transpose_in, transpose_out, lane_tile,
+                    threads),
+        dev.index, stream_handle(dev), out)
     if err:
         _build.check(lib, err, f"fused_pass launch (TC {lane_tile}, "
                      f"{threads} threads per CTA)")
     fused_pass.launches += out[0]
     fused_pass.geometry = tuple(out[1:])
     return y_re, y_im
+
+
+def _geometry(dev, cfg: FFTConfig, shape, transpose_in, out_dtype,
+              lane_tile, threads):
+    """(TC, threads per CTA) of a pass: the caller's, else the device
+    row's."""
+    if lane_tile is None or threads is None:
+        c = shape[1] if transpose_in else shape[2]
+        g = _device_geometry(dev, cfg.n, c, out_dtype == torch.int64)
+        lane_tile = g["lane_tile"] if lane_tile is None else lane_tile
+        threads = g["threads"] if threads is None else threads
+    return lane_tile, threads
 
 
 @functools.lru_cache(maxsize=256)
@@ -283,14 +331,188 @@ def _device_geometry(dev: torch.device, rows: int, cols: int, wide: bool):
     return pass_geometry(device_tuning(dev), rows, cols, wide)
 
 
-#: Kernel launches made by ``fused_pass`` (a plain count; reset it to 0).
+#: Kernel launches made by ``fused_pass`` and by the prepared chains
+#: (``PreparedChain``): a plain count; reset it to 0.
 fused_pass.launches = 0
 #: (TC, threads per CTA, shared memory per CTA in bytes, CTAs along the
-#: columns) of the last launch, as the C entry reported it.
+#: columns) of the last pass launched, as the C entry reported it.
 fused_pass.geometry = None
 
 
-class LargeFFTPlan(nn.Module):
+class PreparedPass:
+    """One ``fused_pass`` resolved once for blocks of one shape and dtype on
+    one CUDA device: its arguments checked (``fused_pass``'s checks), its
+    launch geometry resolved, and the C prepare step run
+    (``intfft_prepare_pass``: the library's checks, the kernel of its form
+    and thread count, the shared-memory grant), which fills ``desc``.
+    ``PreparedChain`` launches it; it keeps the tables it reads alive.
+    ``geometry`` is what the C entry reported (TC, threads per CTA, shared
+    memory per CTA in bytes, CTAs along the columns); ``out_shape`` and
+    ``out_dtype`` are its output's.  Raises ValueError on a CPU device: the
+    plain version needs no preparing."""
+
+    def __init__(self, shape, dtype, dev, cfg: FFTConfig, tables, *,
+                 epi=None, synth: EpiSynth | None = None, tables_2d=None,
+                 transpose_out: bool, inverse: bool = False,
+                 natural: bool = True, transpose_in: bool = False,
+                 out_dtype: torch.dtype | None = None,
+                 lane_tile: int | None = None, threads: int | None = None):
+        out_dtype = out_dtype or dtype
+        _check_pass(shape, dtype, dev, cfg, tables, epi, synth, tables_2d,
+                    natural, transpose_in, out_dtype)
+        if not use_kernel(dev):
+            raise ValueError(f"a prepared pass launches the kernel; {dev} "
+                             f"runs the plain version (fused_pass)")
+        lane_tile, threads = _geometry(dev, cfg, shape, transpose_in,
+                                       out_dtype, lane_tile, threads)
+        self.lib = _build.library(threads)
+        self.out_shape = _out_shape(shape, cfg, transpose_in, transpose_out)
+        self.out_dtype = out_dtype
+        self.keep = [t for pair in (tables, tables_2d, epi, synth)
+                     if pair is not None for t in pair[:2]]
+        self.table_ptrs = _table_ptrs(tables, tables_2d, epi, synth)
+        size = self.lib.intfft_prepared_size()
+        self.desc = (ctypes.c_uint64 * (size // 8))()
+        report = (ctypes.c_int * 4)()
+        mask = sum(bit for bit, pair in ((1, tables), (2, tables_2d),
+                                         (4, epi), (8, synth))
+                   if pair is not None)
+        err = self.lib.intfft_prepare_pass(
+            *_pass_ints(cfg, shape, dtype, out_dtype, synth, inverse,
+                        natural, transpose_in, transpose_out, lane_tile,
+                        threads), mask, dev.index, self.desc, report)
+        if err:
+            _build.check(self.lib, err, f"fused_pass prepare (TC "
+                         f"{lane_tile}, {threads} threads per CTA)")
+        self.geometry = tuple(report)
+
+
+class PreparedChain:
+    """Passes prepared once for one input (shape, dtype, CUDA device) and
+    launched in order by one C call per call (``intfft_fused_chain``), where
+    ``fused_pass`` checks, resolves and launches one pass per call.
+
+    ``passes``: (cfg, keyword arguments of ``fused_pass``) in launch order,
+    as ``LargeFFTPlan.passes()`` gives them; pass i reads pass i - 1's
+    output.  A call takes contiguous re and im blocks of the prepared
+    shape, dtype and device (else ValueError; nothing else is checked
+    again), allocates each pass's re and im output as two fresh tensors
+    (as ``fused_pass`` does: the two halves of one allocation, a power of
+    two bytes apart, made the card slower on the config-2 chain,
+    ``tools/ab_torch_paths.py``), launches every pass on the current
+    stream (no
+    synchronisation), adds the launches made to ``fused_pass.launches``,
+    leaves the last pass's geometry in ``fused_pass.geometry`` and returns
+    the last pass's output.  The bits are ``fused_pass``'s, pass by pass.
+    Passes of one thread-count library go out in one C call; a sweep's
+    variant (``_build.library(threads)``) is a library of its own, so a
+    chain that mixes it with the tuning rows' counts takes one C call per
+    run of passes in one library."""
+
+    def __init__(self, shape, dtype, dev, passes):
+        self.in_shape, self.in_dtype, self.device = tuple(shape), dtype, dev
+        self.passes = []
+        for cfg, kw in passes:
+            p = PreparedPass(shape, dtype, dev, cfg, **kw)
+            self.passes.append(p)
+            shape, dtype = p.out_shape, p.out_dtype
+        # the runs of passes in one library: (library, its first pass,
+        # their descriptors side by side, their 12 pointers each, count)
+        self.runs = []
+        size = ctypes.sizeof(self.passes[0].desc)
+        for lib, run in itertools.groupby(enumerate(self.passes),
+                                          key=lambda e: e[1].lib):
+            run = list(run)
+            descs = (ctypes.c_uint64 * (size // 8 * len(run)))()
+            ptrs = (ctypes.c_void_p * (12 * len(run)))()
+            for k, (_, p) in enumerate(run):
+                ctypes.memmove(ctypes.addressof(descs) + k * size, p.desc,
+                               size)
+                ptrs[12 * k + 2:12 * k + 10] = p.table_ptrs
+            self.runs.append((lib, run[0][0], descs, ptrs, len(run)))
+        self.geometry = self.passes[-1].geometry
+        self._report = (ctypes.c_int * 1)()
+        # the pointer arrays are filled in and read by the C call, which
+        # runs without the interpreter lock: one call at a time
+        self._lock = threading.Lock()
+
+    def __call__(self, x_re, x_im):
+        if (x_re.shape != self.in_shape or x_re.dtype != self.in_dtype
+                or x_re.device != self.device):
+            raise ValueError(
+                f"this chain was prepared for {self.in_dtype} "
+                f"{self.in_shape} blocks on {self.device}, got "
+                f"{x_re.dtype} {tuple(x_re.shape)} on {x_re.device}")
+        _check_blocks(x_re, x_im)
+        dev = self.device
+        outs = [tuple(torch.empty(p.out_shape, dtype=p.out_dtype, device=dev)
+                      for _ in range(2)) for p in self.passes]
+        stream = stream_handle(dev)
+        launches = 0
+        try:
+            with self._lock:
+                x = (x_re.data_ptr(), x_im.data_ptr())
+                for lib, first, descs, ptrs, n in self.runs:
+                    for k in range(n):
+                        y = outs[first + k]
+                        ptrs[12 * k], ptrs[12 * k + 1] = x
+                        x = (y[0].data_ptr(), y[1].data_ptr())
+                        ptrs[12 * k + 10], ptrs[12 * k + 11] = x
+                    err = lib.intfft_fused_chain(descs, n, ptrs, dev.index,
+                                                 stream, self._report)
+                    launches += self._report[0]
+                    if err:
+                        _build.check(lib, err, "fused_pass chain launch")
+        finally:
+            fused_pass.launches += launches
+        fused_pass.geometry = self.geometry
+        return outs[-1]
+
+
+class PreparedPlan(nn.Module):
+    """What the modules whose calls on the card go through prepared
+    launches share: one prepared object (a ``PreparedChain``, or the
+    convolution's ``PreparedProduct``) per key of input shape, dtype,
+    device and form, made at the first call with that key, and the
+    ``CapturedCall``s made from the module (``capture()``), all dropped
+    when the launch geometry or a buffer changes (``retune``, ``.to()``:
+    ``invalidate``)."""
+
+    def __init__(self):
+        super().__init__()
+        self._prepared = {}
+        self._captures = weakref.WeakSet()
+
+    def _prepare(self, key, make):
+        """The object prepared for ``key``, made by ``make()`` at its first
+        use."""
+        obj = self._prepared.get(key)
+        if obj is None:
+            obj = self._prepared[key] = make()
+        return obj
+
+    def _track(self, call):
+        """Register ``call`` (a ``CapturedCall`` that runs this module) to
+        be reset with the module's prepared launches; returns it."""
+        self._captures.add(call)
+        return call
+
+    def invalidate(self):
+        """Drop the prepared launches and the graphs of every
+        ``CapturedCall`` that runs this module: the next call prepares, and
+        captures, again."""
+        self._prepared.clear()
+        for call in list(self._captures):
+            call.reset()
+
+    def _apply(self, *args, **kwargs):
+        # .to(), .cuda() and the like replace the buffers the prepared
+        # launches read by address
+        self.invalidate()
+        return super()._apply(*args, **kwargs)
+
+
+class LargeFFTPlan(PreparedPlan):
     """Large-n FFT on one device as two ``fused_pass`` launches.
 
     ``schedule="fourstep"`` (default): numerics identical to
@@ -455,8 +677,10 @@ class LargeFFTPlan(nn.Module):
         override kept): pass 1 runs on [B, R, C] = ``block_in_shape``, pass
         2 on pass 1's turned output, [B, C, R]; each on the int64 tile
         where it stores int64.  The build calls it with the device's row;
-        ``tools/sweep_tuning.py`` with the rows it times."""
+        ``tools/sweep_tuning.py`` with the rows it times.  The prepared
+        chains and the captured graphs of the old geometry are dropped."""
         r, c = self.block_in_shape
+        self.invalidate()
         self.tuning = tuning
         self.pass_geometry = tuple(
             pass_geometry(tuning, rows, cols, dt == torch.int64,
@@ -499,7 +723,9 @@ class LargeFFTPlan(nn.Module):
 
     def load_tables(self, tables: dict[str, torch.Tensor]):
         """Copy in stage and epilogue tables (``convert.tables_from_jax``);
-        each must match its buffer's shape."""
+        each must match its buffer's shape.  The buffers are written in
+        place, so the prepared chains and captured graphs, which read them
+        by address, see the new tables."""
         bufs = dict(self.named_buffers())
         for name, t in tables.items():
             buf = bufs.get(name)
@@ -530,14 +756,35 @@ class LargeFFTPlan(nn.Module):
                 (self.cfg2, dict(two, transpose_out=False,
                                  out_dtype=self.out_dtype, **g2, **kw))]
 
-    def apply_blocks(self, xr, xi, pass_fn=fused_pass):
+    def apply_blocks(self, xr, xi, pass_fn=None):
         """[B, *block_in_shape] blocks in ``in_dtype`` -> [B,
-        *block_out_shape] blocks in ``out_dtype``: two ``fused_pass``
-        calls, every reorder inside them (``pass_fn=fused_pass_reference``:
-        the plain version on any device)."""
+        *block_out_shape] blocks in ``out_dtype``: the two passes, every
+        reorder inside them.  On a CUDA tensor the plan's ``PreparedChain``
+        for this batch, dtype and device (prepared at the first call with
+        them) launches both passes in one C call; on a CPU tensor the plain
+        version runs.  ``pass_fn`` runs the passes one call each instead:
+        ``fused_pass`` (its checks, resolution and C call per pass) or
+        ``fused_pass_reference`` (the plain version on any device)."""
+        if pass_fn is None:
+            if use_kernel(xr.device):
+                key = (xr.shape, xr.dtype, xr.device)
+                return self._prepare(key, lambda: PreparedChain(
+                    *key, self.passes()))(xr, xi)
+            pass_fn = fused_pass
         for cfg, kw in self.passes():
             xr, xi = pass_fn(xr, xi, cfg, **kw)
         return xr, xi
+
+    def capture(self):
+        """``runtime.graph.captured(self.apply_blocks)``: ``apply_blocks``
+        replayed from one CUDA graph per input (shape, dtype, device), the
+        port's counterpart of the JAX plan's ``jax.jit``.  Its outputs are
+        static: each call overwrites the previous call's outputs of the
+        same key (see ``CapturedCall``).  ``retune`` and ``.to()`` drop its
+        graphs."""
+        from ..runtime.graph import captured
+
+        return self._track(captured(self.apply_blocks))
 
     def forward(self, x_re, x_im):
         """Flat [B, n] integers -> flat [B, n] in ``out_dtype``, on the

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ..device import use_kernel
+from ..device import stream_handle, use_kernel
 
 
 def _bits(x: torch.Tensor) -> int:
@@ -175,35 +175,71 @@ def spectrum_product(fr: torch.Tensor, fi: torch.Tensor, hr: torch.Tensor,
     A CUDA tensor launches the kernel of ``csrc/product.cu`` on the current
     stream (no synchronisation) and adds one to
     ``spectrum_product.launches``; a CPU tensor runs
-    ``spectrum_product_reference``."""
-    dev = fr.device
-    if not use_kernel(dev):
+    ``spectrum_product_reference``.  ``PreparedProduct`` checks all this
+    once for a caller that repeats the call."""
+    if not use_kernel(fr.device):
         return spectrum_product_reference(fr, fi, hr, hi, shift, out_width,
                                           spectrum_width, out_dtype)
-    out_dtype = _check_product(fr, fi, hr, hi, shift, out_width,
-                               spectrum_width, out_dtype)
-    if any(t.device != dev or not t.is_contiguous()
-           for t in (fr, fi, hr, hi)):
-        raise ValueError("the product kernel takes contiguous tensors on "
-                         "one device")
-    yr = torch.empty(fr.shape, dtype=out_dtype, device=dev)
-    yi = torch.empty(fr.shape, dtype=out_dtype, device=dev)
-    if fr.numel() == 0:
+    return PreparedProduct(fr, fi, hr, hi, shift, out_width, spectrum_width,
+                           out_dtype)(fr, fi)
+
+
+class PreparedProduct:
+    """``spectrum_product`` resolved once for data of the shape, dtype and
+    CUDA device of ``fr``/``fi`` against the table ``hr``/``hi``: every
+    check made once.  A call takes contiguous data of that shape, dtype
+    and device (else ValueError; nothing else is checked again), allocates
+    re and im as two fresh tensors and makes the one C
+    call: one launch, counted in ``spectrum_product.launches``.  It keeps
+    the table alive.  Raises ValueError on a CPU device: the plain version
+    needs no preparing."""
+
+    def __init__(self, fr, fi, hr, hi, shift: int, out_width: int,
+                 spectrum_width: int = 27,
+                 out_dtype: torch.dtype | None = None):
+        dev = fr.device
+        if not use_kernel(dev):
+            raise ValueError(f"a prepared product launches the kernel; "
+                             f"{dev} runs the plain version")
+        self.out_dtype = _check_product(fr, fi, hr, hi, shift, out_width,
+                                        spectrum_width, out_dtype)
+        if any(t.device != dev or not t.is_contiguous()
+               for t in (fr, fi, hr, hi)):
+            raise ValueError("the product kernel takes contiguous tensors "
+                             "on one device")
+        self.shape, self.dtype, self.device = fr.shape, fr.dtype, dev
+        self.table = (hr, hi)
+        self.ints = (fr.numel(), hr.numel(), fr.element_size(),
+                     self.out_dtype.itemsize,
+                     int(_wide_product(fr, out_width, spectrum_width)),
+                     shift, out_width, dev.index)
+
+    def __call__(self, fr, fi):
+        for f in (fr, fi):
+            if (f.shape != self.shape or f.dtype != self.dtype
+                    or f.device != self.device or not f.is_contiguous()):
+                raise ValueError(
+                    f"this product was prepared for contiguous "
+                    f"{self.dtype} {tuple(self.shape)} data on "
+                    f"{self.device}, got {f.dtype} {tuple(f.shape)} on "
+                    f"{f.device}")
+        yr = torch.empty(self.shape, dtype=self.out_dtype, device=self.device)
+        yi = torch.empty(self.shape, dtype=self.out_dtype, device=self.device)
+        if fr.numel() == 0:
+            return yr, yi
+        from . import _build
+
+        lib = _build.library()
+        hr, hi = self.table
+        err = lib.intfft_spectrum_product(
+            fr.data_ptr(), fi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+            yr.data_ptr(), yi.data_ptr(), *self.ints,
+            stream_handle(self.device))
+        _build.check(lib, err, "spectrum_product launch")
+        spectrum_product.launches += 1
         return yr, yi
-    from . import _build
-
-    lib = _build.library()
-    err = lib.intfft_spectrum_product(
-        fr.data_ptr(), fi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-        yr.data_ptr(), yi.data_ptr(), fr.numel(), hr.numel(),
-        fr.element_size(), yr.element_size(),
-        int(_wide_product(fr, out_width, spectrum_width)), shift, out_width,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "spectrum_product launch")
-    spectrum_product.launches += 1
-    return yr, yi
 
 
-#: Kernel launches made by ``spectrum_product`` (a plain count; reset it
-#: to 0).
+#: Kernel launches made by ``spectrum_product`` and ``PreparedProduct`` (a
+#: plain count; reset it to 0).
 spectrum_product.launches = 0

@@ -31,8 +31,8 @@ from torch import nn
 
 from ..config import FFTConfig
 
-from ..device import resolve
-from .fused_fft import fused_pass
+from ..device import resolve, use_kernel
+from .fused_fft import PreparedChain, PreparedPlan, fused_pass
 from .transform import check_width, pack_tables
 from .tuning import KernelTuning, device_tuning, pass_geometry
 
@@ -52,9 +52,11 @@ def _check_single(cfg: FFTConfig, order: str, wide: bool,
         raise ValueError(f"bad order {order!r}")
 
 
-class _SinglePass(nn.Module):
+class _SinglePass(PreparedPlan):
     """What the single-pass engines share: the tuning row, the launch
-    geometry of their one pass, and the packed stage tables."""
+    geometry of their one pass, the packed stage tables, and the launch:
+    on a CUDA tensor through a chain of the one pass prepared for that
+    shape, on a CPU tensor through ``fused_pass``'s plain version."""
 
     wide = False
 
@@ -73,10 +75,37 @@ class _SinglePass(nn.Module):
         """Record ``tuning`` as ``self.tuning`` and the launch geometry it
         gives the pass as ``geometry`` (the ``lane_tile`` override kept).
         The build calls it with the device's row;
-        ``tools/sweep_tuning.py`` with the rows it times."""
+        ``tools/sweep_tuning.py`` with the rows it times.  The prepared
+        chains and the captured graphs of the old geometry are dropped."""
+        self.invalidate()
         self.tuning = tuning
         self.geometry = pass_geometry(tuning, self.cfg.n, None, self.wide,
                                       self.lane_tile)
+
+    def _pass(self, x_re, x_im, turned: bool = False):
+        """The one pass on [1, n, B] blocks, or on [1, B, n] blocks read and
+        stored turned, in the plan's block dtype (int64 on the wide
+        plan)."""
+        kw = lambda: dict(tables=(self.w_re, self.w_im), inverse=self.inverse,
+                          natural=self.order == "natural",
+                          transpose_in=turned, transpose_out=turned,
+                          **self.geometry)
+        if use_kernel(x_re.device):
+            key = (x_re.shape, x_re.dtype, x_re.device, turned)
+            return self._prepare(key, lambda: PreparedChain(
+                *key[:3], [(self.cfg, kw())]))(x_re, x_im)
+        return fused_pass(x_re, x_im, self.cfg, **kw())
+
+    def capture(self):
+        """``runtime.graph.captured(self)``: this plan's call replayed from
+        one CUDA graph per input (shape, dtype, device), the port's
+        counterpart of the JAX plan's ``jax.jit``.  Its outputs are static:
+        each call overwrites the previous call's outputs of the same key
+        (see ``CapturedCall``).  ``retune`` and ``.to()`` drop its
+        graphs."""
+        from ..runtime.graph import captured
+
+        return self._track(captured(self))
 
 
 class FusedAxisFFT(_SinglePass):
@@ -96,15 +125,6 @@ class FusedAxisFFT(_SinglePass):
                  lane_tile: int | None = None):
         super().__init__()
         self._setup(cfg, inverse, order, device, lane_tile)
-
-    def _pass(self, x_re, x_im, turned: bool):
-        """One ``fused_pass`` on int32 [1, n, B] blocks, or on [1, B, n]
-        blocks read and stored turned."""
-        return fused_pass(x_re, x_im, self.cfg, (self.w_re, self.w_im),
-                          inverse=self.inverse,
-                          natural=self.order == "natural",
-                          transpose_in=turned, transpose_out=turned,
-                          **self.geometry)
 
     def forward(self, x_re, x_im):
         """[..., n] integers -> int32 [..., n], on the input's device."""
@@ -171,8 +191,5 @@ class PallasWideFFTPlan(_SinglePass):
         if len(shp) != 2 or shp[0] != n:
             raise ValueError(f"expected a [n={n}, B] tile, got {shp}")
         blk = lambda x: x.to(torch.int64).reshape(1, n, -1).contiguous()
-        yr, yi = fused_pass(blk(x_re), blk(x_im), self.cfg,
-                            (self.w_re, self.w_im), inverse=self.inverse,
-                            natural=self.order == "natural",
-                            transpose_out=False, **self.geometry)
+        yr, yi = self._pass(blk(x_re), blk(x_im))
         return yr.reshape(shp), yi.reshape(shp)

@@ -24,8 +24,8 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..device import use_kernel
 from ..golden.convolve import ConvSpec, taps_spectrum_int
-from ..ops.fused_fft import LargeFFTPlan, fused_pass
-from ..ops.intmath import spectrum_product
+from ..ops.fused_fft import LargeFFTPlan, PreparedPlan
+from ..ops.intmath import PreparedProduct, spectrum_product
 from .four_step import local_plan
 from .mesh import FFT_AXIS, plan_device, single_axis_size
 
@@ -49,7 +49,7 @@ def halo_exchange(tails, group, rank: int, size: int):
     return heads
 
 
-class OverlapSaveConv(nn.Module):
+class OverlapSaveConv(PreparedPlan):
     """Streaming integer FIR convolution by overlap-save.
 
     taps: integer arrays (h_re, h_im) of length ``spec.taps_len``.  The
@@ -152,10 +152,14 @@ class OverlapSaveConv(nn.Module):
             # inverse's input dtype out unless that is int16
             if fr.dtype == torch.int16:
                 fr, fi = fr.int(), fi.int()
-            return product_fn(
-                fr.contiguous(), fi.contiguous(), self.hr, self.hi,
-                spec.product_shift, spec.product_width, spec.spectrum_width,
-                self.out_dtype)
+            fr, fi = fr.contiguous(), fi.contiguous()
+            args = (self.hr, self.hi, spec.product_shift, spec.product_width,
+                    spec.spectrum_width, self.out_dtype)
+            if product_fn is None and use_kernel(fr.device):
+                key = (fr.shape, fr.dtype, fr.device, "product")
+                return self._prepare(key, lambda: PreparedProduct(
+                    fr, fi, *args))(fr, fi)
+            return (product_fn or spectrum_product)(fr, fi, *args)
 
         def cut(y):
             return y.reshape(shp + (-1, n))[..., m - 1:].reshape(
@@ -176,12 +180,16 @@ class OverlapSaveConv(nn.Module):
             yr, yi = self.inv(*product(fr, fi))
         return cut(yr), cut(yi)
 
-    def forward(self, x_re, x_im, pass_fn=fused_pass,
-                product_fn=spectrum_product):
+    def forward(self, x_re, x_im, pass_fn=None, product_fn=None):
         """Integer [..., T] (tensors or arrays) -> (y_re, y_im) [..., T] on
-        this module's device.  ``pass_fn=fused_pass_reference`` and
-        ``product_fn=spectrum_product_reference`` run the plain versions of
-        the four-step engine and of the product on any device."""
+        this module's device.  On the card the four-step engine's passes
+        go out as its plans' prepared chains and the product as a
+        ``PreparedProduct`` (prepared at the first call with a shape);
+        ``pass_fn`` and ``product_fn`` run them one call each instead
+        (``fused_pass``, ``spectrum_product``), and
+        ``pass_fn=fused_pass_reference`` with
+        ``product_fn=spectrum_product_reference`` the plain versions on any
+        device."""
         dev = self.hr.device
         xr = torch.as_tensor(x_re).to(device=dev, dtype=torch.int32)
         xi = torch.as_tensor(x_im).to(device=dev, dtype=torch.int32)
@@ -204,3 +212,24 @@ class OverlapSaveConv(nn.Module):
         heads = halo_exchange(tails, self.mesh.get_group(self.axis),
                               self.mesh.get_local_rank(self.axis), d)
         return self._blocks(xr, xi, pass_fn, product_fn, heads)
+
+    def capture(self):
+        """``runtime.graph.captured(self)``: the whole call (windows, both
+        transforms, the product, the cut) replayed from one CUDA graph per
+        input (shape, dtype, device), the port's counterpart of the JAX
+        module's ``jax.jit``.  It takes CUDA tensors only (an array or a
+        CPU tensor would be a host copy inside the graph: it raises), and
+        not with a ``mesh`` (its halo exchange is a collective).  Its
+        outputs are static: each call overwrites the previous call's
+        outputs of the same key (see ``CapturedCall``).  A ``retune`` of
+        either plan and ``.to()`` drop its graphs."""
+        from ..runtime.graph import captured
+
+        if self.mesh is not None:
+            raise NotImplementedError("a convolution over a mesh exchanges "
+                                      "halos between calls: no capture")
+        call = self._track(captured(self))
+        for plan in (self.fwd, self.inv):
+            if isinstance(plan, PreparedPlan):
+                plan._track(call)
+        return call

@@ -1,7 +1,10 @@
-"""Host runtime of the port: the native golden engine's bindings and
-streaming execution on CUDA streams."""
+"""Host runtime of the port: the native golden engine's bindings,
+streaming execution on CUDA streams, and calls captured into CUDA
+graphs."""
 
+from .graph import CapturedCall, captured
 from .native import NativeGolden, native_available
 from .stream import StreamExecutor
 
-__all__ = ["NativeGolden", "native_available", "StreamExecutor"]
+__all__ = ["CapturedCall", "NativeGolden", "StreamExecutor", "captured",
+           "native_available"]

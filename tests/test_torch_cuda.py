@@ -848,3 +848,204 @@ def test_device_row_and_override_on_card(dev):
     w1 = PallasWideFFTPlan(c, device=dev, lane_tile=1)(*xw)
     assert fused_pass.geometry[0] == 1
     assert torch.equal(w0[0], w1[0]) and torch.equal(w0[1], w1[1])
+
+
+# ---- the submission layer: prepared chains and captured calls
+
+def _headline(dev):
+    cfg = FFTConfig(n=1 << 16, mode="scaled", rounding="round",
+                    data_width=16, twiddle_width=16)
+    return LargeFFTPlan(cfg, device=dev)
+
+
+def _on(dev, plan, batch, seed, w=16):
+    xr, xi = _stimulus((batch,) + plan.block_in_shape, w, seed)
+    return [torch.as_tensor(v).to(plan.in_dtype).to(dev) for v in (xr, xi)]
+
+
+def test_chain_equals_per_pass_on_card(dev):
+    """The prepared chain (one C call, both passes) is bit-equal to the
+    per-pass fused_pass path at the 64k path's [64, 256, 256] int16 blocks
+    and across the 65 535-item loop at batch 65 536 (n = 64 = 8 x 8: two
+    launches per pass), with the same launches."""
+    for plan, batch in ((_headline(dev), 64),
+                        (LargeFFTPlan(FFTConfig(n=64, mode="scaled",
+                                                rounding="round"), 8, 8,
+                                      device=dev), 65536)):
+        x = _on(dev, plan, batch, seed=batch)
+        before = fused_pass.launches
+        want = plan.apply_blocks(*x, pass_fn=fused_pass)
+        per_pass = fused_pass.launches - before
+        got = plan.apply_blocks(*x)
+        torch.cuda.synchronize()
+        assert fused_pass.launches - before == 2 * per_pass
+        assert per_pass == (2 if batch < 65536 else 4)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_chain_refuses_foreign_descriptor(dev):
+    """intfft_fused_chain launches nothing for a descriptor that was not
+    prepared, or was prepared for another device than the one named."""
+    import ctypes
+
+    from intfftk_tpu_torch.ops import _build
+    from intfftk_tpu_torch.ops.fused_fft import PreparedChain
+
+    plan = _headline(dev)
+    x = _on(dev, plan, 2, seed=3)
+    chain = PreparedChain(x[0].shape, x[0].dtype, x[0].device, plan.passes())
+    lib, _, descs, ptrs, n = chain.runs[0]
+    out = (ctypes.c_int * 1)()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    blank = (ctypes.c_uint64 * (len(descs)))()
+    for d, device in ((blank, x[0].device.index),
+                      (descs, x[0].device.index + 1)):
+        assert lib.intfft_fused_chain(d, n, ptrs, device, stream, out) == 1
+        assert out[0] == 0
+    y = chain(*x)
+    torch.cuda.synchronize()
+    want = plan.apply_blocks(*x, pass_fn=fused_pass)
+    assert torch.equal(y[0], want[0]) and torch.equal(y[1], want[1])
+
+
+def _captured_paths(dev):
+    """name -> (the callable, a function of a seed giving its inputs):
+    the paths whose host time paced them, at small batches."""
+    from intfftk_tpu_torch.ops.intmath import spectrum_product as prod
+
+    head = _headline(dev)
+    cfg = head.cfg
+    fwd = LargeFFTPlan(cfg, order="raw", device=dev)
+    inv = LargeFFTPlan(dataclasses.replace(cfg, data_width=cfg.output_width),
+                       fwd.n2, fwd.n1, inverse=True, order="raw", device=dev)
+    c2 = FFTConfig(n=1 << 16, mode="unscaled", data_width=32,
+                   twiddle_width=20)
+    f2 = LargeFFTPlan(c2, order="raw", device=dev)
+    i2 = LargeFFTPlan(dataclasses.replace(c2, mode="scaled", rounding="round",
+                                          data_width=c2.output_width),
+                      f2.n2, f2.n1, inverse=True, order="raw", device=dev)
+    h1 = torch.full(f2.block_out_shape, 1 << 23, dtype=torch.int32,
+                    device=dev)
+    h0 = torch.zeros_like(h1)
+    mono = LargeFFTPlan(FFTConfig(n=1 << 19, mode="scaled", rounding="round",
+                                  data_width=16, twiddle_width=16),
+                        schedule="monolithic", device=dev)
+    spec = make_conv_spec(n=1 << 16, taps_len=(1 << 13) + 1,
+                          twiddle_width=16, max_product_width=44,
+                          max_spectrum_width=25)
+    rng = np.random.default_rng(1)
+    conv = OverlapSaveConv(spec, rng.integers(-(1 << 13), 1 << 13, 8193),
+                           np.zeros(8193, np.int64), device=dev)
+    pc = head.passes()[0]
+    sp = PallasFFTPlan(FFTConfig(n=1024, mode="scaled", rounding="round"),
+                       layout="bn", device=dev)
+    return {
+        "one pass": (lambda a, b: fused_pass(a, b, pc[0], **pc[1]),
+                     lambda s: _on(dev, head, 4, s)),
+        "headline": (head.capture(), lambda s: _on(dev, head, 8, s)),
+        "roundtrip": (lambda a, b: inv.apply_blocks(*fwd.apply_blocks(a, b)),
+                      lambda s: _on(dev, fwd, 8, s)),
+        "config 2": (lambda a, b: i2.apply_blocks(*prod(
+            *f2.apply_blocks(a, b), h1, h0, 23, 48, 25, torch.int64)),
+            lambda s: _on(dev, f2, 2, s, w=28)),
+        "monolithic 512K": (mono.capture(), lambda s: _on(dev, mono, 2, s)),
+        "config 4": (conv.capture(), lambda s: [
+            torch.as_tensor(v, dtype=torch.int32, device=dev)
+            for v in _stimulus((2, 2 * spec.payload), 14, s)]),
+        "single pass": (sp.capture(), lambda s: [
+            torch.as_tensor(v, dtype=torch.int32, device=dev)
+            for v in _stimulus((40, 1024), 16, s)]),
+    }
+
+
+def _flat(y):
+    return [t for v in y for t in (_flat(v) if isinstance(v, tuple)
+                                   else [v])]
+
+
+CAPTURED = ["one pass", "headline", "roundtrip", "config 2",
+            "monolithic 512K", "config 4", "single pass"]
+
+
+@pytest.mark.parametrize("name", CAPTURED)
+def test_captured_replay_on_card(dev, name):
+    """A captured path replays bit-equal to its eager call, with the eager
+    call's launches counted on each replay; a replay after the input
+    changes gives the new result; another batch captures again; and each
+    call overwrites the previous call's outputs (they are static)."""
+    from intfftk_tpu_torch.ops.intmath import spectrum_product as prod
+    from intfftk_tpu_torch.runtime import CapturedCall, captured
+
+    fn, inputs = _captured_paths(dev)[name]
+    call = fn if isinstance(fn, CapturedCall) else captured(fn)
+    eager = call.fn
+    x1, x2 = inputs(1), inputs(2)
+    counts = lambda: (fused_pass.launches, prod.launches)
+    c0 = counts()
+    want1 = [t.clone() for t in _flat(eager(*x1))]
+    c1 = counts()
+    per_call = (c1[0] - c0[0], c1[1] - c0[1])
+    got = call(*x1)                       # warm-up, capture, replay
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(_flat(got), want1))
+    c2 = counts()
+    got2 = call(*x2)
+    torch.cuda.synchronize()
+    assert (counts()[0] - c2[0], counts()[1] - c2[1]) == per_call
+    want2 = _flat(eager(*x2))
+    assert all(torch.equal(a, b) for a, b in zip(_flat(got2), want2))
+    assert all(a is b for a, b in zip(_flat(got), _flat(got2)))
+    assert not all(torch.equal(a, b) for a, b in zip(_flat(got), want1))
+    s = call.static_inputs(*x1)
+    for t, v in zip(s, x1):
+        t.copy_(v)
+    again = call(*s)                      # the static inputs: no copy
+    assert all(torch.equal(a, b) for a, b in zip(_flat(again), want1))
+    if name in ("headline", "single pass"):
+        x3 = [torch.cat([v, v[:1]]) for v in x1]     # another batch
+        got3 = call(*x3)
+        assert len(call._graphs) == 2
+        want3 = _flat(eager(*x3))
+        assert all(torch.equal(a, b) for a, b in zip(_flat(got3), want3))
+
+
+def test_captured_interleaved_and_retuned_on_card(dev):
+    """Two captured calls interleaved keep their own graphs and outputs;
+    retune drops a plan's graphs and the next call captures the new
+    geometry, with the same bits."""
+    from intfftk_tpu_torch.ops.tuning import TUNINGS
+
+    a = _headline(dev)
+    b = LargeFFTPlan(a.cfg, order="raw", device=dev)
+    ca, cb = a.capture(), b.capture()
+    xa, xb = _on(dev, a, 4, 5), _on(dev, b, 4, 6)
+    wa, wb = a.apply_blocks(*xa), b.apply_blocks(*xb)
+    for _ in range(2):
+        ya, yb = ca(*xa), cb(*xb)
+        assert torch.equal(ya[0], wa[0]) and torch.equal(yb[1], wb[1])
+        assert torch.equal(ya[1], wa[1]) and torch.equal(yb[0], wb[0])
+    a.retune(TUNINGS["default"])
+    assert not ca._graphs and a.pass_geometry[0]["lane_tile"] == 16
+    ya = ca(*xa)
+    torch.cuda.synchronize()
+    assert fused_pass.geometry[:2] == (16, 256)
+    assert torch.equal(ya[0], wa[0]) and torch.equal(ya[1], wa[1])
+
+
+def test_captured_refusals_on_card(dev):
+    """A captured call raises on CPU tensors and on a call that
+    synchronises with the host inside the capture; nothing runs eagerly in
+    its place and no graph is kept."""
+    from intfftk_tpu_torch.runtime import captured
+
+    plan = _headline(dev)
+    call = plan.capture()
+    x = _on(dev, plan, 2, 7)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        call(*(v.cpu() for v in x))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        call(x[0], x[1].cpu())
+    bad = captured(lambda u: (u + 1, int(u.sum().item())))
+    with pytest.raises(RuntimeError):
+        bad(x[0])
+    assert not bad._graphs and not call._graphs

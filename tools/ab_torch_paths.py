@@ -21,9 +21,14 @@ one JSON line: the seconds its kernels took to build, per path the device ms of 
 calls, four readings; the headline again after the other paths have loaded
 the card, each time with the number of distinct output buffers its chained
 calls cycled through and the span of their addresses; the paths the host
-paces, the convolution at 4 payloads, the config-2 chain and one
+paces, the convolution at 4 payloads, the config-2 chain, one
 ``fused_pass`` (the 64k headline's second pass, issued as the plan issues
-it), as [device ms, host ms to issue one call] pairs), and the headline
+it), the headline's ``apply_blocks``, the 64k raw roundtrip at batch 8,
+monolithic 512K x 2 and config 5 (``FourStepPlan``, 1M at batch 2, over
+NCCL on a mesh of one rank), as [device ms, host ms to issue one call,
+captured ms] triples, the last the card's own time for one call: a CUDA
+graph of the chained calls, replayed once; none for config 5, whose turns
+are collectives), and the headline
 kernel's instruction
 count and a hash of its opcode sequence, read with the ``audit_sass`` of
 the tree that holds this file.  ``--rounds N`` runs the four processes N
@@ -46,6 +51,7 @@ READINGS = 4
 
 def _read(root: str) -> dict:
     """The readings of the tree at ``root``, taken in this process."""
+    import dataclasses
     import hashlib
     import importlib.util
 
@@ -94,8 +100,32 @@ def _read(root: str) -> dict:
         """fn on one fixed input, for a path whose output is no input."""
         return lambda a, b: (fn(a, b), (a, b))[1]
 
-    def paced(fn, x, calls):
-        """[device ms, host ms to issue] per call, ``READINGS`` times."""
+    def graph(fn, x, calls):
+        """One CUDA graph of ``calls`` chained calls of fn on x (torch's
+        own ``torch.cuda.graph``, so that a tree without the port's
+        ``runtime.graph`` is read the same way), or None where the tree's
+        path cannot be captured."""
+        a, b = x
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(a, b)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(g):
+                for _ in range(calls):
+                    a, b = fn(a, b)
+        except RuntimeError:
+            return None
+        return g
+
+    def paced(fn, x, calls, capture=True):
+        """[device ms, host ms to issue, captured ms] per call, ``READINGS``
+        times: the last is the card's own time for the call, one replay of
+        a graph of ``calls`` chained calls over ``calls`` (None where the
+        path cannot be captured, or ``capture`` is off)."""
+        g = graph(fn, x, calls) if capture else None
         out = []
         for _ in range(READINGS):
             for _ in range(3):
@@ -110,8 +140,15 @@ def _read(root: str) -> dict:
             host = time.perf_counter() - t0
             end.record()
             end.synchronize()
-            out.append([round(start.elapsed_time(end) / calls, 4),
-                        round(host * 1e3 / calls, 4)])
+            reading = [round(start.elapsed_time(end) / calls, 4),
+                       round(host * 1e3 / calls, 4), None]
+            if g is not None:
+                start.record()
+                g.replay()
+                end.record()
+                end.synchronize()
+                reading[2] = round(start.elapsed_time(end) / calls, 4)
+            out.append(reading)
         return out
 
     def placement(fn, x, calls):
@@ -186,6 +223,29 @@ def _read(root: str) -> dict:
         return i2.apply_blocks(*y)
 
     x2 = data((8,) + tuple(f2.block_in_shape), torch.int32, 28)
+    # the 64k raw roundtrip at batch 8 and monolithic 512K x 2
+    rf = LargeFFTPlan(FFTConfig(n=1 << 16, **kw), order="raw", device=dev)
+    ri = LargeFFTPlan(dataclasses.replace(rf.cfg,
+                                          data_width=rf.cfg.output_width),
+                      rf.n2, rf.n1, inverse=True, order="raw", device=dev)
+    xrt = data((8,) + tuple(rf.block_in_shape), torch.int16)
+    m512 = LargeFFTPlan(FFTConfig(n=1 << 19, **kw), schedule="monolithic",
+                        device=dev)
+    xm512 = data((2,) + tuple(m512.block_in_shape), torch.int16)
+    # config 5: FourStepPlan over NCCL on a mesh of one rank (its turns are
+    # collectives: not captured)
+    import tempfile
+
+    import torch.distributed as dist
+    from intfftk_tpu_torch.golden import random_stimulus
+    from intfftk_tpu_torch.parallel import (FourStepPlan, initialize_multihost,
+                                            pod_mesh)
+
+    store = tempfile.mkdtemp()
+    initialize_multihost(f"file://{store}/store", 1, 0)
+    p5 = FourStepPlan(FFTConfig(n=1 << 20, **kw), 1024, 1024, pod_mesh(1, 1))
+    x5c = [p5.shard(v).int()
+           for v in random_stimulus(1 << 20, 15, seed=31, batch=(2,))]
     out = {"root": root, "build_s": build_s,
            "64k_fresh": four(plan.apply_blocks, x64, 50),
            "64k_fresh_buffers": placement(plan.apply_blocks, x64, 50),
@@ -201,11 +261,18 @@ def _read(root: str) -> dict:
            "config4_t4_device_host": paced(conv, xconv[4], 20),
            "config2_chain_device_host": paced(c2_chain, x2, 50),
            "fused_pass_device_host": paced(plan_pass2, x64, 50),
+           "64k_device_host": paced(plan.apply_blocks, x64, 50),
+           "roundtrip_device_host": paced(lambda a, b: ri.apply_blocks(
+               *rf.apply_blocks(a, b)), xrt, 50),
+           "monolithic_512k_x2_device_host": paced(fixed(m512.apply_blocks),
+                                                   xm512, 50),
+           "config5_device_host": paced(p5, x5c, 20, capture=False),
            "monolithic_64k": four(mono.apply_blocks, x64, 50),
            "1m_chain": four(lambda a, b: b1m.apply_blocks(
                *a1m.apply_blocks(a, b)), x1m, 20),
            "64k_loaded": four(plan.apply_blocks, x64, 50),
            "64k_loaded_buffers": placement(plan.apply_blocks, x64, 50)}
+    dist.destroy_process_group()
     # the compiled headline kernel, read with this tree's parser
     spec = importlib.util.spec_from_file_location(
         "ab_audit_sass", HERE.parents[1] / "intfftk_tpu_torch" / "tools"
@@ -233,16 +300,18 @@ def _read(root: str) -> dict:
 
 def summary(a: list[dict], b: list[dict]) -> dict:
     """Per reading, the least value each tree showed over all its processes
-    (a hiccup of the host only adds time; for [device, host] pairs, each of
-    the two), and B's over A's."""
+    (a hiccup of the host only adds time; for [device, host, captured]
+    triples, each of the three), and B's over A's."""
     out = {}
     for key, value in a[0].items():
         if not isinstance(value, list) or key.endswith("_buffers"):
             continue
         if isinstance(value[0], list):
-            least = [[min(v[i] for r in rs for v in r[key]) for i in (0, 1)]
-                     for rs in (a, b)]
-            ratio = [round(least[1][i] / least[0][i], 4) for i in (0, 1)]
+            least = [[min((v[i] for r in rs for v in r[key]
+                           if v[i] is not None), default=None)
+                      for i in range(len(value[0]))] for rs in (a, b)]
+            ratio = [round(y / x, 4) if x and y else None
+                     for x, y in zip(*least)]
         else:
             least = [min(v for r in rs for v in r[key]) for rs in (a, b)]
             ratio = round(least[1] / least[0], 4)
