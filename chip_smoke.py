@@ -188,12 +188,21 @@ Phases; any failure exits non-zero and prints no result line:
     joined bit-equal to four_step_int; the Channelizer (config 3, cn and
     nc) over 'ch' and the config-4 halo convolution (T = 4) over 'fft' on
     that mesh, equal to their mesh-less runs; the process group destroyed;
+18b. the benchmark (bench_torch): every cell of bench_torch.cells once, with
+    BENCH_READINGS captured readings each (the channelizer's eager) and
+    no per-mode readings, its output (one call as a CUDA graph replays it,
+    and eagerly) bit-equal to golden and at least one launch per call;
+    then every bench_torch verify family below 512K, bit-equal to golden;
 19. the tuning row the card resolved (ops/tuning.device_tuning: the
     measured "sm_90" row on an H100), what its fuse="auto" takes at the
-    headline, and the launch geometry each path's plans took from it; a
-    JSON line describing each ported kernel (the whole form's rows with
-    the split's ms beside them), then the
-    result line {"ok": true, "device": {...}} as the last line.
+    headline, and the launch geometry each path's plans took from it; the
+    bench line (phase 18b's cells and families); a JSON line describing
+    each ported kernel (the whole form's rows with the split's ms beside
+    them), then the result line {"ok": true, "device": {...}} as the last
+    line.
+
+Device times come from bench_torch/timing.py (event_ms, paced,
+captured_ms), the benchmark's own timing.
 """
 
 import dataclasses
@@ -209,8 +218,13 @@ from pathlib import Path
 
 import numpy as np
 
+from bench_torch.timing import CHAIN
+from bench_torch.timing import captured_ms as _captured_ms
+from bench_torch.timing import event_ms as _event_ms
+from bench_torch.timing import paced as _paced
+
 ROOT = Path(__file__).resolve().parent
-N, BATCH, CHAIN = 65536, 64, 50
+N, BATCH = 65536, 64
 CH, CH_N, CH_CHAIN, PLAIN_CHAIN = 4096, 4096, 20, 3
 RT_BATCH = 8
 N1M, B1M = 1 << 20, 4
@@ -220,6 +234,9 @@ N16M = 1 << 24
 EPI_MODES = ("host", "device", "inkernel")
 #: the 16M golden model runs when it is estimated under this many seconds
 GOLDEN_16M_LIMIT_S = 60.0
+#: timed readings of each benchmark cell in phase 18b (the benchmark takes
+#: 40)
+BENCH_READINGS = 10
 
 
 class SmokeFailure(Exception):
@@ -278,73 +295,6 @@ def _ptxas(log, tag=""):
             print(f"  ptxas {tag}{entry}: {line.split(':', 1)[-1].strip()}")
         if line.startswith("nvcc ") and line.rstrip().endswith(" s"):
             print(f"  {tag}{line.strip()}")
-
-
-def _event_ms(fn, xr, xi, calls=CHAIN, warmup=3):
-    """Mean device time of one call of a chained xr, xi -> fn(xr, xi)."""
-    import torch
-
-    for _ in range(warmup):
-        xr, xi = fn(xr, xi)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        xr, xi = fn(xr, xi)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
-
-
-def _paced(fn, xr, xi, calls=CHAIN):
-    """(device ms, host ms) per call of a chained fn: the time between two
-    CUDA events around ``calls`` calls, and the host's clock from the first
-    call to the return of the last, before any wait.  Where the two agree
-    the card ran each call as it arrived and the host sets the pace; where
-    the host is done long before the card, the card does."""
-    import torch
-
-    for _ in range(3):
-        xr, xi = fn(xr, xi)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        xr, xi = fn(xr, xi)
-    host = time.perf_counter() - t0
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls, host * 1e3 / calls
-
-
-def _captured_ms(fn, xr, xi, calls=CHAIN, replays=3):
-    """Mean device time of one call of a chained fn, read from one CUDA
-    graph of ``calls`` chained calls (``runtime.graph.captured``) replayed
-    ``replays`` times on its static inputs: the card's own time for the
-    path, with no host between the calls."""
-    import torch
-    from intfftk_tpu_torch.runtime import captured
-
-    def chained(a, b):
-        for _ in range(calls):
-            a, b = fn(a, b)
-        return a, b
-
-    call = captured(chained)
-    call(xr, xi)                          # warm-up, capture, one replay
-    static = call.static_inputs(xr, xi)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        call(*static)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (replays * calls)
 
 
 def _leaves(y):
@@ -2483,6 +2433,31 @@ def main() -> int:
         if dist.is_initialized():
             dist.destroy_process_group()
         shutil.rmtree(store5, ignore_errors=True)
+    # ---- 18b. the benchmark: every cell once, the bit checks below 512K
+    lap("18b")
+    from bench_torch import __main__ as bench
+    from bench_torch import cells as bench_cells
+    from bench_torch import verify as bench_verify
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    env = bench.environment()
+    bench_lines = {}
+    for name in bench_cells.CELLS:
+        line = bench.run_cell(name, dev, env, count=BENCH_READINGS,
+                              modes=False)
+        bench_lines[name] = line
+        check(line["correct"] and line["launches_per_call"],
+              f"bench_torch cell {name}: output equal to golden, launches "
+              f"per call {line['launches_per_call']}, "
+              f"{line['value']:.1f} Msamples/s (the window of "
+              f"{BENCH_READINGS} {line['timed']} readings)")
+        torch.cuda.empty_cache()
+    families = bench_verify.verify(dev, large=False)
+    bad = [k for k, ok in families if not ok]
+    check(not bad, f"bench_torch verify, families below 512K: "
+          f"{len(families) - len(bad)} of {len(families)} bit-equal to "
+          f"golden" + (f"; not: {bad}" if bad else ""))
     check("jax" not in sys.modules and not any(
         m == "intfftk_tpu" or m.startswith("intfftk_tpu.")
         for m in sys.modules),
@@ -2657,6 +2632,13 @@ def main() -> int:
           f"ops/s (measured in this run), {ceil[1] / 1e12:.3f} TB/s (the "
           f"card's memory clock x bus width); issue limits of the code as "
           f"compiled: {instr_rate / 1e12:.3f} T instructions/s")
+    print(json.dumps({"bench": {
+        "readings": BENCH_READINGS, "cells": [
+            {k: line[k] for k in ("cell", "msamples_per_sec",
+                                  "msamples_per_sec_readings", "bound_share",
+                                  "launches_per_call", "correct")}
+            for line in bench_lines.values()],
+        "verified": dict(families)}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,8 +24,9 @@ the pass they tune whatever a row's ``whole_max_n`` says, as the JAX sweep
 asserts its plans split (``tools/sweep_tuning.py:79``); the candidate rows
 keep ``whole_max_n`` at 0, so config 4's own plans split too.  A path whose
 host needs at least ``HOST_PACED`` of the card's time to issue a call (read
-as ``chip_smoke._paced`` does, at today's geometry) cannot judge geometry:
-it is timed and printed, marked host-paced, and does not take part.
+as ``bench_torch.timing.paced`` does, at today's geometry) cannot judge
+geometry: it is timed and printed, marked host-paced, and does not take
+part.
 
 What it does, in one process on one card:
 
@@ -36,8 +37,8 @@ What it does, in one process on one card:
    same input, then times them in turns: ``ROUNDS`` rounds, the order
    reversed every other round, today's geometry (``DEFAULT_TUNING``) at
    the start and end of each; device ms from CUDA events over chained
-   calls after warm-up, as ``chip_smoke._event_ms``, a geometry's time the
-   least of its readings (a hiccup of the host only adds time);
+   calls after warm-up, as ``bench_torch.timing.event_ms``, a geometry's
+   time the least of its readings (a hiccup of the host only adds time);
 3. prints one table per path: geometry, ms, time / bound (the bound of
    ``utils/roofline``, against the ceilings measured in this process),
    registers, CTAs per SM, spills;
@@ -373,7 +374,8 @@ def _event_ms(fn, x, calls, chained, warmup=3):
 
 
 def _paced(fn, x, calls, chained):
-    """(device ms, host ms to issue) per call, as ``chip_smoke._paced``."""
+    """(device ms, host ms to issue) per call, as
+    ``bench_torch.timing.paced``."""
     step = fn if chained else (lambda a, b: (fn(a, b), (a, b))[1])
     a, b = x
     for _ in range(3):

@@ -288,7 +288,7 @@ def _imports(path):
 
 
 PORT_FILES = sorted((ROOT / "intfftk_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "bench_torch").glob("*.py"))
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
