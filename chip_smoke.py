@@ -20,8 +20,11 @@ Phases; any failure exits non-zero and prints no result line:
    and forward raw four-step passes at [64, 256, 256]; a transposed load;
    PallasFFTPlan nb/bn x fwd/inv x natural/bitrev at n = 8, 1024, 4096
    with ragged batches 3 and 200; int32 unscaled/truncate at n = 1024;
-   the twiddle generator against the host circle table at 512K and 1M
-   (fwd/inv, twiddle_gen auto and taylor_new) and 16M (auto); the in-kernel
+   the twiddle generator against the host circle table at 256K, 512K
+   (1024 x 512) and 1M (fwd/inv, twiddle_gen auto and taylor_new), a
+   ragged 1024 x 1022 and 16M (auto), and at 1M into an output that is
+   not 16-byte aligned;
+   the in-kernel
    synthesis epilogue at [4, 1024, 1024] and the ragged [3, 1024, 40]
    (n = 2^20); the monolithic 2-D stage pass at [64, 256, 256] and
    [2, 1024, 512], both directions; the whole four-step's cluster kernel
@@ -122,15 +125,22 @@ Phases; any failure exits non-zero and prints no result line:
 15. the per-stage probe (csrc/probe_stages.cu, K10): every step's once and
     loop kernel against its plain version and every variant against the
     production step, on unscaled data and on the scaled/round config that
-    is timed: the round-trip stage, and the stage groups the factor pass
-    now runs (stage_group of csrc/stage_body.cuh, the function the pass
-    calls: three, two or one stage through one exchange of the tile, with
-    the mode read at run time and fixed at compile time, on the int32 and
-    the int64 tile); then the tool's run (tools.probe_stages.measure_all,
-    the quick target) with its guards, both fatal; one line per step: ps
-    per sample and stage, SASS instructions per butterfly by class; and the
-    round trip, the round-trip stage and three groups again on the tallest
-    tile, [4096, 4], checked and timed the same way;
+    is timed, at both geometries (the pass's own, and the probe's first
+    tile, pr6) and on both layouts of the tile (the pass's padded rows, and
+    the swizzled one): the round-trip stage, and the stage groups the
+    factor pass runs (stage_group of csrc/stage_body.cuh, the function the
+    pass calls: three, two or one stage through one exchange of the tile,
+    with the mode read at run time and fixed at compile time, on the int32
+    and the int64 tile); the library's map of the tile equal to the
+    model's (tools.probe_stages.tile_offset), and the model's bank mapping
+    of the three steps read on every tile; then the tool's run
+    (tools.probe_stages.measure_all, the quick target, the pass's geometry
+    and layout) with its guards, both fatal; one line per step: ps per
+    sample and stage, SASS instructions per butterfly by class; the round
+    trip, the round-trip stage and three groups again on the tallest tile,
+    [4096, TC], checked at every geometry and layout and timed the same
+    way; and smem_roundtrip, prod_p7 and group3_p7 on every tile in turns
+    (tools.probe_stages.tile_readings);
 16. the compiled-code audit (tools/audit_sass.py, K11): the instruction
     count of every chain body (a count other than the known one is
     printed, not fatal: a toolkit may differ), the card's instructions/s
@@ -179,6 +189,11 @@ Phases; any failure exits non-zero and prints no result line:
     clusters per launch, held at once, rounds, registers, local bytes) and
     bound; the other design elements of the whole kernel are compiled
     forms, read against the parent by tools/ab_torch_paths.py --whole;
+    the twiddle generator at 1M and 16M into one output pair, eager,
+    captured (one graph of 20 calls) and the host's time to issue one
+    call; K10's
+    prod_p7 x 16 at both geometries and on both layouts in turns on one
+    input;
 18. the distributed layer over NCCL (a FileStore in a temporary
     directory, world size 1, pod_mesh(1, 1) on the card): config 5 at full
     width (bench_config5: n = 2^20 = 1024 x 1024, scaled/round, 16-bit
@@ -564,12 +579,16 @@ def main() -> int:
              f"PallasFFTPlan n=1024 unscaled/truncate int32 inverse="
              f"{inverse} B=200", "K4")
 
-    # the twiddle generator (K6): the device table == the host table;
-    # "taylor_new" (XSER="NEW") has no pi constant for the 16M half-circle
-    # order 23 (row_twiddle_tay.vhd:134-148), so the golden model has no
-    # table there
-    for n, n1, n2, gens in ((N512K, 1024, 512, ("auto", "taylor_new")),
+    # the twiddle generator (K6): the device table == the host table,
+    # square, non-square and ragged (scalar stores for the last columns),
+    # and into an output pair that is not 16-byte aligned (scalar stores
+    # throughout); "taylor_new" (XSER="NEW") has no pi constant for the 16M
+    # half-circle order 23 (row_twiddle_tay.vhd:134-148), so the golden
+    # model has no table there
+    for n, n1, n2, gens in ((1 << 18, 512, 512, ("auto", "taylor_new")),
+                            (N512K, 1024, 512, ("auto", "taylor_new")),
                             (N1M, 1024, 1024, ("auto", "taylor_new")),
+                            (N1M, 1024, 1022, ("auto",)),
                             (N16M, 4096, 4096, ("auto",))):
         for gen in gens:
             c = FFTConfig(n=n, twiddle_gen=gen)
@@ -578,7 +597,19 @@ def main() -> int:
                         for t in circle_table(c, n1, n2, inverse)]
                 same(device_circle_table(c, n, n1, n2, inverse, dev), host,
                      f"generator [{n1}, {n2}] n={n} {gen} inverse="
-                     f"{inverse} == host circle_table", "K6")
+                     f"{inverse} {tuple(device_circle_table.launch)} == "
+                     f"host circle_table", "K6")
+                if n2 != 1024:
+                    continue
+                buf = [torch.full((n1 * n2 + 1,), 7, dtype=torch.int32,
+                                  device=dev) for _ in range(2)]
+                out = [b[1:].view(n1, n2) for b in buf]
+                device_circle_table(c, n, n1, n2, inverse, dev, out=out)
+                same(out, host, f"generator [{n1}, {n2}] n={n} {gen} "
+                     f"inverse={inverse} into an output 4 bytes past "
+                     f"16-byte alignment", "K6")
+                check(int(buf[0][0]) == int(buf[1][0]) == 7,
+                      "the unaligned output's word before it untouched")
     # the in-kernel synthesis epilogue (K6 in K2) with the 1M plan's
     # synthesis constants, and a ragged 40-column prefix of its block
     c1m = FFTConfig(n=N1M, mode="scaled", rounding="round", data_width=16,
@@ -1548,13 +1579,38 @@ def main() -> int:
 
     # ---- 15. the per-stage probe (K10)
     lap(15)
-    stage_err = probe_stages.bit_checks(dev)
-    max_err["K10"] = max(stage_err.values())
-    check(max_err["K10"] == 0 and set(stage_err) == set(probe_stages.STEPS),
-          f"K10: the once and the loop kernel of all {len(stage_err)} steps "
-          f"== plain, every variant == its production step (unscaled and "
-          f"scaled/round 16-bit data, k = 1 and up to "
-          f"{probe_stages.MAX_CHECK_K})")
+    tiles = [(g, lay) for g in probe_stages.GEOMETRIES
+             for lay in probe_stages.LAYOUTS]
+    for g, lay in tiles:
+        stage_err = probe_stages.bit_checks(dev, geometry=g, layout=lay)
+        max_err["K10"] = max(max_err["K10"], *stage_err.values())
+        check(max_err["K10"] == 0
+              and set(stage_err) == set(probe_stages.STEPS),
+              f"K10 at the {g} geometry on the {lay} layout: the once and "
+              f"the loop kernel of all {len(stage_err)} steps == plain, "
+              f"every variant == its production step (unscaled and "
+              f"scaled/round 16-bit data, k = 1 and up to "
+              f"{probe_stages.MAX_CHECK_K})")
+    # the library's map of the tile is the model's, and the model's bank
+    # mapping of the three steps read on every tile
+    for lay in probe_stages.LAYOUTS:
+        for wide, tcs in ((False, (4, 8, 16, 32)), (True, (2, 4, 8, 16))):
+            for tc in tcs:
+                for rows in (8, 256, probe_stages.TALL_ROWS):
+                    check(probe_stages.library_tile(lay, rows, tc, wide) == [
+                        probe_stages.tile_offset(lay, r, c, tc, wide)
+                        for r in range(rows) for c in range(tc)],
+                        f"the library's {lay} map of the [{rows}, {tc}] "
+                        f"{'int64' if wide else 'int32'} tile == the model's")
+    for step in probe_stages.TILE_STEPS:
+        print(f"  bank model of {step} at n = 256 (wavefronts above the "
+              f"least / warp accesses): " + ", ".join(
+                  f"{g}/{lay} TC {tc}: {ex}/{acc}"
+                  for g, lay in tiles
+                  for tc in [probe_stages.tile_geometry(step, 256, dev, g,
+                                                        lay)[0]]
+                  for ex, acc, _ in [probe_stages.bank_excess(step, 256, tc,
+                                                              lay)]))
     sass = audit_sass.library_sass()
     stage_counts = {step: audit_sass.audit_stage(step, sass)
                     for step in probe_stages.STEPS}
@@ -1593,10 +1649,13 @@ def main() -> int:
     # stage and the groups again, where a group's strided rows meet bank
     # conflicts that the [256, 16] tile does not have
     tall = probe_stages.TALL_STEPS
-    tall_err = probe_stages.bit_checks(dev, probe_stages.TALL_ROWS, tall)
-    check(max(tall_err.values()) == 0 and set(tall_err) == set(tall),
-          f"K10 on the [{probe_stages.TALL_ROWS}, 4] tile: {len(tall)} steps "
-          f"== plain (unscaled and scaled/round)")
+    for g, lay in tiles:
+        tall_err = probe_stages.bit_checks(dev, probe_stages.TALL_ROWS, tall,
+                                           g, lay)
+        check(max(tall_err.values()) == 0 and set(tall_err) == set(tall),
+              f"K10 on the [{probe_stages.TALL_ROWS}, 4] tile at the {g} "
+              f"geometry on the {lay} layout: {len(tall)} steps == plain "
+              f"(unscaled and scaled/round)")
     main_ns, stage_ns = stage_ns, {}
     try:
         probe_stages.measure_all(quick=True, device=dev, emit=stage_line,
@@ -1607,6 +1666,22 @@ def main() -> int:
     print(f"stage probe on the [{probe_stages.TALL_ROWS}, 4] tile on {card}: "
           + json.dumps({k: round(v, 6) for k, v in stage_ns.items()}))
     stage_ns = main_ns
+    # the round trip, the round-trip stage and the headline's group on
+    # every tile in turns: the probe's first tile (pr6) and the pass's
+    # geometry, each on the pass's padded layout and the swizzled one
+    try:
+        tile_ns = probe_stages.tile_readings(quick=True, rounds=2,
+                                             device=dev)
+    except probe_vpu.GuardError as e:
+        raise SmokeFailure(f"stage probe guard, tile readings: {e}") from e
+    for (g, lay), r in tile_ns.items():
+        print(f"  {g} geometry, {lay} layout: " + ", ".join(
+            f"{step} {ns * 1e3:.4f}" for step, ns in r.items())
+            + " ps per sample and stage")
+    print(f"K10 tile readings on {card} (ps per sample and stage): "
+          + json.dumps({f"{g}/{lay}": {k: round(v * 1e3, 4)
+                                       for k, v in r.items()}
+                        for (g, lay), r in tile_ns.items()}))
 
     # ---- 16. the compiled-code audit (K11)
     lap(16)
@@ -1906,26 +1981,42 @@ def main() -> int:
             u, v, c, **kw), *x, calls=20)
     print("  1M pass 1 alone (ms): " + ", ".join(
         f"{m} {t:.4f}" for m, t in pass1_1m.items()))
-    gen_ms = {}
+    gen_ms, gen_read = {}, {}
     # the generator: about 25 integer ops per entry (the hand count of
-    # csrc/fused_pass.cu) and 8 bytes written
+    # csrc/fused_pass.cu) and 8 bytes written; timed into one output pair
+    # with the coarse table on the card, so that a call allocates nothing:
+    # eager (kernel and plain in turns), captured (one graph of 20 calls:
+    # the card's own time), and the host's time to issue one call
     cost_gen = {n: KernelCost(25.0 * n, 8.0 * n) for n in (N1M, N16M)}
+    x32_dummy = [torch.zeros(1, dtype=torch.int32, device=dev)
+                 for _ in range(2)]
     for n, n1 in ((N1M, 1024), (N16M, 4096)):
         c = dataclasses.replace(c1m, n=n)
         co = coarse_table(c, dev)
-        gen_ms[n] = _turns(
-            lambda u, v, c=c, n=n, n1=n1, co=co: device_circle_table(
-                c, n, n1, n1, False, coarse=co),
-            lambda u, v, c=c, n=n, n1=n1, co=co: synth_circle_block(
-                co, n1, n1, 0, n, c, False), None, None, 20, 2)
+        o = [torch.empty((n1, n1), dtype=torch.int32, device=dev)
+             for _ in range(2)]
+
+        def gen(u, v, c=c, n=n, n1=n1, co=co, o=o):
+            device_circle_table(c, n, n1, n1, False, coarse=co, out=o)
+            return u, v
+
+        gen_ms[n] = _turns(gen, lambda u, v, c=c, n=n, n1=n1, co=co: (
+            synth_circle_block(co, n1, n1, 0, n, c, False), (u, v))[1],
+            *x32_dummy, 20, 2)
         report(f"generator, one [{n1}, {n1}] table (n = {n}; coarse table "
-               f"on the card)", n, *gen_ms[n], moved=8 * n,
+               f"on the card), eager", n, *gen_ms[n], moved=8 * n,
                cost=cost_gen[n])
-        gen_paced = _paced(
-            lambda u, v, c=c, n=n, n1=n1, co=co: device_circle_table(
-                c, n, n1, n1, False, coarse=co), None, None, calls=20)
-        print(f"    device ms / host ms to issue one call: "
-              f"{gen_paced[0]:.4f} / {gen_paced[1]:.4f}")
+        gen_read[n] = {
+            "captured": min(_captured_ms(gen, *x32_dummy, calls=20)
+                            for _ in range(2)),
+            "host": min(_paced(gen, *x32_dummy, calls=20)[1]
+                        for _ in range(2)),
+            "launch": tuple(device_circle_table.launch)}
+        r = gen_read[n]
+        print(f"    launch {r['launch']} (threads, CTAs along the columns, "
+              f"along the rows): captured {r['captured']:.4f} ms (time / "
+              f"bound {r['captured'] / bound(cost_gen[n])[0]:.2f}), host ms "
+              f"to issue one call {r['host']:.4f}")
     x = x512
     cost_512k = counted(large_fft_cost(N512K, B512K, itemsize=2),
                         B512K * N512K, t_instr(1024, 512))
@@ -2087,23 +2178,38 @@ def main() -> int:
            moved=cost_p1.hbm_bytes, cost=cost_p1)
 
     # K10 at the tool's shape: the production stage of order 7, K_STAGE
-    # applications on the tile that fills the card
+    # applications on the tile that fills the card at the probe's first
+    # geometry, at both geometries and on both layouts in turns (the pr6
+    # geometry on the pass's padded layout is the parent's kernel), the
+    # plain version once
     K_STAGE = 16
     pcfg = probe_stages.probe_config()
-    sx = probe_stages.stage_input("prod_p7", pcfg, dev)
+    sx = probe_stages.stage_input("prod_p7", pcfg, dev, geometry="pr6")
     stab = probe_stages.stage_tables(pcfg, dev)
-    k10_ms = _turns(
-        fixed(lambda u, v: probe_stages.stage_loop("prod_p7", u, v, K_STAGE,
-                                                   pcfg, stab)),
-        fixed(lambda u, v: probe_stages.stage_loop_reference(
-            "prod_p7", u, v, K_STAGE, pcfg, stab)), *sx, 20, 1)
+
+    def k10(g, lay):
+        return fixed(lambda u, v: probe_stages.stage_loop(
+            "prod_p7", u, v, K_STAGE, pcfg, stab, geometry=g, layout=lay))
+
+    k10_turns = {t: [] for t in tiles}
+    for t in [*tiles, *reversed(tiles)]:
+        k10_turns[t].append(_event_ms(k10(*t), *sx, calls=20))
+    k10_tile_ms = {t: sum(v) / len(v) for t, v in k10_turns.items()}
+    k10_plain = _event_ms(fixed(lambda u, v: probe_stages.stage_loop_reference(
+        "prod_p7", u, v, K_STAGE, pcfg, stab)), *sx, calls=1, warmup=1)
     cost_k10 = counted(
         KernelCost(OPS_PER_SAMPLE_STAGE * sx[0].numel() * K_STAGE,
                    2 * 2 * sx[0].numel() * 4),
         sx[0].numel(), K_STAGE * 0.5 * audit_sass.issued(
             stage_counts["prod_p7"]))
-    report(f"K10 stage loop prod_p7 x {K_STAGE} on int32 "
-           f"{list(sx[0].shape)}", sx[0].numel(), *k10_ms, cost=cost_k10)
+    for (g, lay), ms in k10_tile_ms.items():
+        print(f"  K10 stage loop prod_p7 x {K_STAGE} on int32 "
+              f"{list(sx[0].shape)}, {g} geometry "
+              f"{probe_stages.tile_geometry('prod_p7', 256, dev, g, lay)[:2]}"
+              f", {lay} layout: {ms:.4f} ms ("
+              + ", ".join(f"{t:.4f}" for t in k10_turns[g, lay])
+              + f"); plain {k10_plain:.4f} ms" + share(ms, cost_k10))
+    k10_ms = (k10_tile_ms["pass", "pass"], k10_plain)
 
     # the probes at the tool's shape: a chain of K_ROW iterations
     K_ROW = 256
@@ -2594,12 +2700,17 @@ def main() -> int:
             k6 if mode == "inkernel" else k2, path_launches[mode][0],
             "K6" if mode == "inkernel" else "K2", *chain_ms[mode][:2],
             cost_1m)
-    row("circle_table_kernel: K6 generator, one [1024, 1024] table (1M "
-        "device-mode plans a + b)", k6, path_launches["device"][1], "K6",
-        *gen_ms[N1M][:2], cost_gen[N1M])
-    row("circle_table_kernel: K6 generator, one [4096, 4096] table (16M "
-        "device-mode plan)", k6, path_launches["16M device"][1], "K6",
-        *gen_ms[N16M][:2], cost_gen[N16M])
+    for n, what, launches in (
+            (N1M, "one [1024, 1024] table (1M device-mode plans a + b)",
+             path_launches["device"][1]),
+            (N16M, "one [4096, 4096] table (16M device-mode plan)",
+             path_launches["16M device"][1])):
+        r = gen_read[n]
+        row(f"circle_table_kernel: K6 generator, {what}; ms: captured (a "
+            f"graph of 20 calls), eager_ms and host_ms beside it", k6,
+            launches, "K6", r["captured"], gen_ms[n][1], cost_gen[n],
+            eager_ms=gen_ms[n][0], host_ms=r["host"], launch=r["launch"],
+            source="intfftk_tpu_torch/csrc/fused_pass.cu")
     row("fused_pass: K2 split pipeline, 512K flat forward + inverse (timed: "
         "forward)", k2, launches_512k, "K2", *k512[:2], cost_512k)
     row("fused_pass: K2 split pipeline, 16M, epi_mode device", k2,
@@ -2643,9 +2754,14 @@ def main() -> int:
         source=psrc)
     row(f"stage_loop_kernel / stage_once_kernel: K10 per-stage probe, "
         f"{len(probe_stages.STEPS)} steps (launches: the probe tool's run; "
-        f"timed: prod_p7 x {K_STAGE})", "tools/probe_stages.py:55",
+        f"timed: prod_p7 x {K_STAGE} at the pass's geometry on its padded "
+        f"tile, the tool's default; ms_by_tile: at each geometry and layout, "
+        f"pr6/pass the probe's first tile)", "tools/probe_stages.py:55",
         stage_launches, "K10", *k10_ms[:2], cost_k10,
-        source="intfftk_tpu_torch/csrc/probe_stages.cu")
+        source="intfftk_tpu_torch/csrc/probe_stages.cu",
+        ms_by_tile={f"{g}/{lay}": ms for (g, lay), ms in k10_tile_ms.items()},
+        ps_by_tile={f"{g}/{lay}": {k: v * 1e3 for k, v in r.items()}
+                    for (g, lay), r in tile_ns.items()})
     row(f"chain_kernel counted by tools/audit_sass.py: K11 compiled-code "
         f"audit (launches: the two counted chains in the probe tool's run; "
         f"timed: mixed7 x {K_ROW})", "tools/audit_mosaic.py:233",

@@ -138,23 +138,80 @@
 
 namespace {
 
-// The generator: er/ei[k, j] = W_n^(+-k*j) for an [n1, n2] table, one
-// thread per entry (device_circle_table).  The coarse table is read
-// through the read-only cache: 4 KiB, shared by every thread.
-__global__ void __launch_bounds__(kThreads)
+// The generator: er/ei[k1, j2] = W_n^(+-k1*j2) for an [n1, n2] table
+// (device_circle_table).  Bounded by its bytes: 8 per entry written, about
+// 25 integer operations per entry beside them (the data-sheet memory rate
+// and the measured integer ceiling put the two within a factor of two of
+// each other at 16M entries).  The design keeps every entry's own work at
+// the synthesis itself: the row k1 is the grid's (blockIdx.y, and
+// gridDim.y further for a table of more rows than a grid has), so m =
+// k1 * j2 needs no divide or modulo (m += k1 from one column to the next),
+// a thread writes kGenCols = 4 consecutive columns of the row with one
+// 16-byte store per plane (scalar stores for a ragged tail, or where n2 or
+// the planes are not 16-byte aligned), and the 4 KiB coarse table is staged
+// once per CTA in shared memory, as the pass's synthesizing epilogue
+// stages it.  The grid (circle_launch) covers the table, a CTA row per
+// table row; a grid of whole waves of the card's CTAs, each walking many
+// rows, read slower on an H100 (PERF.md).  synth_twiddle is the
+// epilogue's, unchanged.
+constexpr int kGenThreads = 256, kGenCols = 4;
+
+__global__ void __launch_bounds__(kGenThreads)
 circle_table_kernel(const int32_t* __restrict__ cre,
                     const int32_t* __restrict__ cim, int32_t* __restrict__ er,
                     int32_t* __restrict__ ei, int n1, int n2, int inverse,
-                    const SynthParams s) {
-  const int g = blockIdx.x * kThreads + threadIdx.x;
-  if (g >= n1 * n2) return;
+                    int vec, const SynthParams s) {
+  __shared__ int32_t s_c[2 * kCoarse];
+  for (int i = threadIdx.x; i < kCoarse; i += blockDim.x) {
+    s_c[i] = __ldg(cre + i);
+    s_c[kCoarse + i] = __ldg(cim + i);
+  }
+  __syncthreads();
   const int n = 1 << s.log_n;
-  int m = (g / n2) * (g % n2);          // < n: the host checks the block
-  if (inverse) m = (n - m) & (n - 1);
-  int32_t wr, wi;
-  synth_twiddle(m, cre, cim, s, wr, wi);
-  er[g] = wr;
-  ei[g] = wi;
+  const int j = (blockIdx.x * blockDim.x + threadIdx.x) * kGenCols;
+  if (j >= n2) return;
+  const int cols = n2 - j < kGenCols ? n2 - j : kGenCols;
+  for (int k1 = blockIdx.y; k1 < n1; k1 += gridDim.y) {
+    int32_t wr[kGenCols], wi[kGenCols];
+    int m = k1 * j;                     // < n: the host checks the block
+#pragma unroll
+    for (int q = 0; q < kGenCols; ++q) {
+      if (q < cols) {
+        synth_twiddle(inverse ? (n - m) & (n - 1) : m, s_c, s_c + kCoarse,
+                      s, wr[q], wi[q]);
+        m += k1;
+      }
+    }
+    const size_t g = static_cast<size_t>(k1) * n2 + j;
+    if (vec && cols == kGenCols) {
+      *reinterpret_cast<int4*>(er + g) = make_int4(wr[0], wr[1], wr[2], wr[3]);
+      *reinterpret_cast<int4*>(ei + g) = make_int4(wi[0], wi[1], wi[2], wi[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kGenCols; ++q) {
+        if (q < cols) {
+          er[g + q] = wr[q];
+          ei[g + q] = wi[q];
+        }
+      }
+    }
+  }
+}
+
+// The generator's launch for an [n1, n2] table (circle_launch of
+// ops/twiddle_synth.py is the same rule): threads per CTA, the least power
+// of two from 32 to kGenThreads that covers a row's quads of kGenCols
+// columns; CTAs along the columns, ceil(quads / threads); along the rows
+// one per row, at most kMaxGridY.
+struct CircleLaunch {
+  int threads, grid_x, grid_y;
+};
+CircleLaunch circle_launch(int n1, int n2) {
+  const int quads = (n2 + kGenCols - 1) / kGenCols;
+  int threads = 32;
+  while (threads < quads && threads < kGenThreads) threads *= 2;
+  return {threads, (quads + threads - 1) / threads,
+          n1 < kMaxGridY ? n1 : kMaxGridY};
 }
 
 // INTFFT_THREAD_MASK: bit i is set when the library holds the pass at
@@ -415,12 +472,15 @@ extern "C" int intfft_pass_attributes(int in_size, int out_size, int inverse,
 }
 
 // The [n1, n2] inter-factor table W_n^(+-k*j) from the coarse table
-// c_re/c_im [512] (device pointers), written to er/ei [n1, n2].
+// c_re/c_im [512] (device pointers), written to er/ei [n1, n2]: one launch
+// of circle_table_kernel on `stream`, nothing allocated, no host sync
+// (so a CUDA graph captures it).  launch[0..2] receives its threads per
+// CTA and grid (circle_launch).  Returns a cudaError_t.
 extern "C" int intfft_circle_table(const void* c_re, const void* c_im,
                                    void* er, void* ei, int n1, int n2,
                                    int inverse, int log_n, int mathpi,
                                    int xshift, int sh_cnt, int device,
-                                   void* stream) {
+                                   void* stream, int* launch) {
   const SynthParams syn{log_n, mathpi, xshift, sh_cnt};
   if (n1 < 1 || n2 < 1 || !synth_ok(syn, n1, n2) ||
       static_cast<long long>(n1) * n2 > (1LL << 30)) {
@@ -428,12 +488,18 @@ extern "C" int intfft_circle_table(const void* c_re, const void* c_im,
   }
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int total = n1 * n2;
-  circle_table_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0,
+  const CircleLaunch l = circle_launch(n1, n2);
+  const int vec = n2 % kGenCols == 0 &&
+                  reinterpret_cast<uintptr_t>(er) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(ei) % 16 == 0;
+  circle_table_kernel<<<dim3(l.grid_x, l.grid_y), l.threads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(c_re), static_cast<const int32_t*>(c_im),
       static_cast<int32_t*>(er), static_cast<int32_t*>(ei), n1, n2, inverse,
-      syn);
+      vec, syn);
+  launch[0] = l.threads;
+  launch[1] = l.grid_x;
+  launch[2] = l.grid_y;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,10 +36,11 @@
 // stage_body, one butterfly of one stage in place on the tile, stays for
 // the probe's prod_p* steps: the yardstick a group is read against.
 //
-// The tile is [rows, tc] per plane, rows padded to ld = tc + 1 words; stage
-// order q pairs rows i and i + 2^q.  Butterfly u of the tile takes column
-// c = u mod tc and pair index t = u / tc: k = t mod 2^q is the twiddle
-// index, rows i = (t / 2^q) * 2^(q+1) + k and j = i + 2^q.
+// The pass's tile is [rows, tc] per plane, rows padded to ld = tc + 1
+// words (PaddedTile); stage order q pairs rows i and i + 2^q.  Butterfly u
+// of the tile takes column c = u mod tc and pair index t = u / tc:
+// k = t mod 2^q is the twiddle index, rows i = (t / 2^q) * 2^(q+1) + k and
+// j = i + 2^q.
 
 #pragma once
 
@@ -70,11 +71,25 @@ namespace {
 
 using intfft::PassParams;
 
-// Threads per CTA of the per-stage probe (probe_stages.cuh) and of the
-// twiddle generator.  The factor pass takes its count as a template
-// parameter, from the card's tuning row (ops/tuning.py); the probe keeps
-// 256 so that its readings stay comparable from one change to the next.
-constexpr int kThreads = 256;
+// The pass's map of its [rows, tc] tile: row r at r * (tc + 1) words
+// (fused_pass.cuh and fused_whole.cuh address it inline).  stage_body and
+// group_on_tile take a map, so that the probe can run them on another
+// layout of the same tile (probe_stages.cuh); pair() gives the two rows of
+// a butterfly as the pass has always formed them.
+struct PaddedTile {
+  static constexpr bool kAffine = true;
+  int ld;
+  __device__ __forceinline__ explicit PaddedTile(const PassParams& p)
+      : ld(p.tc + 1) {}
+  __device__ __forceinline__ int operator()(int r, int c) const {
+    return r * ld + c;
+  }
+  __device__ __forceinline__ void pair(int r, int c, int h, int& i,
+                                       int& j) const {
+    i = r * ld + c;
+    j = i + h * ld;
+  }
+};
 
 
 // Butterfly u of stage order q on the tile (s_re, s_im), in place; h = 2^q,
@@ -86,18 +101,19 @@ constexpr int kThreads = 256;
 // same sum and difference.  The twiddle is w[2^q + k] (w_re/w_im, the
 // packed stage tables); orders 0 and 1 multiply by nothing and by -j (+j
 // inverse) on the odd index.  With kTwoD every order multiplies, by
-// t2[2^q + k, column] (the monolithic schedule's 2-D tables).
-template <typename V, bool kInverse, bool kTwoD>
+// t2[2^q + k, column] (the monolithic schedule's 2-D tables).  `at`
+// maps (row, column) of the tile to its element (PaddedTile: the pass's).
+template <typename V, bool kInverse, bool kTwoD, typename Tile>
 __device__ __forceinline__ void stage_body(
-    V* s_re, V* s_im, int u, int q, int h, int in_w, int out_w,
-    const PassParams& p, int c0,
+    const Tile& at, V* s_re, V* s_im, int u, int q, int h, int in_w,
+    int out_w, const PassParams& p, int c0,
     const int32_t* __restrict__ w_re, const int32_t* __restrict__ w_im,
     const int32_t* __restrict__ t2_re, const int32_t* __restrict__ t2_im) {
-  const int tc = p.tc, ld = tc + 1;
+  const int tc = p.tc;
   const int c = u & (tc - 1), t = u >> p.log_tc;
   const int k = t & (h - 1);
-  const int i = (((t >> q) << (q + 1)) | k) * ld + c;
-  const int j = i + h * ld;
+  int i, j;
+  at.pair(((t >> q) << (q + 1)) | k, c, h, i, j);
   // the 2-D table's twiddle of this stage, row 2^q + k, this column
   int32_t tr = 0, ti = 0;
   if (kTwoD && c0 + c < p.cols) {
@@ -340,20 +356,42 @@ __device__ __forceinline__ void stage_group(
 
 // Task u of a group on the tile, from shared memory and back to it: what a
 // group between two others does in the pass, and what the probe's group
-// steps apply.  c0: the tile's first global column.
-template <typename V, bool kInverse, bool kTwoD, int R, int kLo>
+// steps apply.  c0: the tile's first global column; `at` the tile's map
+// (PaddedTile: the pass's, whose rows lie ld apart: the addresses the
+// pass's run_group forms; a map with kAffine is one element and a stride
+// of ld per row along the task's rows).
+template <typename V, bool kInverse, bool kTwoD, int R, int kLo,
+          typename Tile>
 __device__ __forceinline__ void group_on_tile(
-    V* s_re, V* s_im, int u, int lo, int in_w0, const PassParams& p, int c0,
-    const int32_t* __restrict__ w_re, const int32_t* __restrict__ w_im,
-    const int32_t* __restrict__ t2_re, const int32_t* __restrict__ t2_im) {
-  const int ld = p.tc + 1;
+    const Tile& at, V* s_re, V* s_im, int u, int lo, int in_w0,
+    const PassParams& p, int c0, const int32_t* __restrict__ w_re,
+    const int32_t* __restrict__ w_im, const int32_t* __restrict__ t2_re,
+    const int32_t* __restrict__ t2_im) {
   int c, k0, base;
   group_rows<R>(u, lo, p, c, k0, base);
   V xr[1 << R], xi[1 << R];
-  group_load_tile<V, R>(s_re, s_im, base * ld + c, ld << lo, xr, xi);
+  if constexpr (Tile::kAffine) {
+    group_load_tile<V, R>(s_re, s_im, at(base, c), at.ld << lo, xr, xi);
+  } else {
+#pragma unroll
+    for (int a = 0; a < (1 << R); ++a) {
+      const int e = at(base + (a << lo), c);
+      xr[a] = s_re[e];
+      xi[a] = s_im[e];
+    }
+  }
   stage_group<V, kInverse, kTwoD, R, kLo>(xr, xi, lo, k0, in_w0, p, c0 + c,
                                           w_re, w_im, t2_re, t2_im);
-  group_store_tile<V, R>(s_re, s_im, base * ld + c, ld << lo, xr, xi);
+  if constexpr (Tile::kAffine) {
+    group_store_tile<V, R>(s_re, s_im, at(base, c), at.ld << lo, xr, xi);
+  } else {
+#pragma unroll
+    for (int a = 0; a < (1 << R); ++a) {
+      const int e = at(base + (a << lo), c);
+      s_re[e] = xr[a];
+      s_im[e] = xi[a];
+    }
+  }
 }
 
 }  // namespace

@@ -64,10 +64,19 @@ WHOLE_UNITS = (("fused_whole.cu", ()),
                                      else WHOLE_SHAPES))))
 
 
+#: The compilations of the per-stage probe (K10): its C interface, told
+#: the pass's thread counts as a bit mask, and its round-trip and group
+#: steps once for each of those counts.
+PROBE_STAGE_UNITS = (
+    ("probe_stages.cu",
+     (f"INTFFT_THREAD_MASK={sum(t // 128 for t in PASS_THREADS)}",)),
+    *((source, (f"INTFFT_PROBE_THREADS={t}",)) for t in PASS_THREADS
+      for source in ("probe_stages_steps.cu", "probe_stages_groups.cu")))
+
+
 #: The compilations of the library: (source, macro definitions).
 UNITS = (*pass_units(PASS_THREADS), *WHOLE_UNITS, ("probe.cu", ()),
-         ("product.cu", ()), ("probe_stages.cu", ()),
-         ("probe_stages_groups.cu", ()))
+         ("product.cu", ()), *PROBE_STAGE_UNITS)
 SOURCES = tuple(dict.fromkeys(source for source, _ in UNITS))
 #: Headers the sources include: hashed with them, compiled through them.
 HEADERS = ("intfft_arith.cuh", "stage_body.cuh", "fused_pass.cuh",
@@ -177,7 +186,8 @@ def library(threads: int | None = None):
     lib.intfft_fused_chain.restype = i32
     lib.intfft_pass_attributes.argtypes = [i32] * 9 + [ctypes.POINTER(i32)]
     lib.intfft_pass_attributes.restype = i32
-    lib.intfft_circle_table.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.intfft_circle_table.argtypes = ([ptr] * 4 + [i32] * 8
+                                        + [ptr, ctypes.POINTER(i32)])
     lib.intfft_circle_table.restype = i32
     lib.intfft_group_split.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 2
     lib.intfft_group_split.restype = i32
@@ -202,11 +212,13 @@ def library(threads: int | None = None):
     lib.intfft_spectrum_product.argtypes = ([ptr] * 6 + [i64, i64]
                                             + [i32] * 6 + [ptr])
     lib.intfft_spectrum_product.restype = i32
-    lib.intfft_stage_probe.argtypes = [ptr] * 8 + [i32] * 12 + [ptr]
+    lib.intfft_stage_probe.argtypes = [ptr] * 8 + [i32] * 15 + [ptr]
     lib.intfft_stage_probe.restype = i32
-    lib.intfft_stage_probe_geometry.argtypes = [i32] * 5 + [
-        ctypes.POINTER(i32)] * 2
+    lib.intfft_stage_probe_geometry.argtypes = [i32] * 8 + [
+        ctypes.POINTER(i32)]
     lib.intfft_stage_probe_geometry.restype = i32
+    lib.intfft_stage_probe_tile.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.intfft_stage_probe_tile.restype = i32
     return lib
 
 

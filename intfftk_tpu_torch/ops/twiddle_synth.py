@@ -23,6 +23,8 @@ indexed load, so here it is two int32 [512] vectors (``coarse_table``).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -71,12 +73,19 @@ def coarse_table(cfg: FFTConfig, device=None):
 
 
 def synth_params(cfg: FFTConfig, n: int) -> SynthParams:
+    """The generator's constants for the full size ``n`` under ``cfg``'s
+    Taylor series (computed once per series and size)."""
+    return _synth_params(cfg.twiddle_gen == "taylor_new", n)
+
+
+@functools.lru_cache(maxsize=None)
+def _synth_params(new: bool, n: int) -> SynthParams:
     log_n = n.bit_length() - 1
     p = log_n - 1                        # half-circle stage order
     if p < TAYLOR_STAGE or 1 << log_n != n:
         raise ValueError(f"twiddle synthesis needs a power of two n >= "
                          f"{2 << TAYLOR_STAGE}, got {n}")
-    ser = "new" if cfg.twiddle_gen == "taylor_new" else "old"
+    ser = "new" if new else "old"
     return SynthParams(log_n, taylor_mathpi(p - TAYLOR_STAGE, ser),
                        23 if ser == "old" else 21,
                        p - 1 - TAYLOR_COARSE_BITS)
@@ -130,32 +139,90 @@ def synth_circle_block(coarse, rows: int, cols: int, j0: int, n: int,
     return torch.where(neg == 1, -tre, tre), torch.where(neg == 1, -tim, tim)
 
 
+#: Threads per CTA of the generator at most, the columns each thread
+#: writes and the most CTAs along the rows of one grid (``kGenThreads``,
+#: ``kGenCols`` of ``csrc/fused_pass.cu``, ``kMaxGridY`` of
+#: ``fused_pass.cuh``).
+GEN_THREADS, GEN_COLS, MAX_GRID_Y = 256, 4, 65535
+
+
+class CircleLaunch(NamedTuple):
+    """The generator's launch: threads per CTA and the grid (columns,
+    rows)."""
+    threads: int
+    grid_x: int
+    grid_y: int
+
+
+def circle_launch(n1: int, n2: int) -> CircleLaunch:
+    """The launch ``intfft_circle_table`` makes for an [n1, n2] table
+    (``circle_launch`` of ``csrc/fused_pass.cu``, the same rule): threads
+    per CTA the least power of two from 32 to ``GEN_THREADS`` that covers a
+    row's quads of ``GEN_COLS`` columns; CTAs along the columns, enough for
+    one row; along the rows one per row, at most ``MAX_GRID_Y`` (a CTA
+    then walks the rows ``grid_y`` apart)."""
+    quads = -(-n2 // GEN_COLS)
+    threads = 32
+    while threads < quads and threads < GEN_THREADS:
+        threads *= 2
+    return CircleLaunch(threads, -(-quads // threads), min(n1, MAX_GRID_Y))
+
+
+@functools.lru_cache(maxsize=None)
+def _circle_args(cfg: FFTConfig, n: int, n1: int, n2: int,
+                 inverse: bool) -> tuple:
+    """The integer arguments of ``intfft_circle_table`` after the table's
+    size, checked once per (config, n, n1, n2, direction)."""
+    check_block(n1, n2, 0, n)
+    return (n1, n2, int(inverse), *synth_params(cfg, n))
+
+
 def device_circle_table(cfg: FFTConfig, n: int, n1: int, n2: int,
-                        inverse: bool, device=None, coarse=None):
+                        inverse: bool, device=None, coarse=None, out=None):
     """The [n1, n2] epilogue table generated on ``device`` from the 4 KiB
     coarse table: one launch of the generator kernel on a CUDA device
-    (counted in ``device_circle_table.launches``), ``synth_circle_block``
-    on the CPU.  No O(N) array is built on the host.  ``device``: the
-    current CUDA device unless named (``device.resolve``).  ``coarse``: the
-    tensors of ``coarse_table`` already on the device (else uploaded)."""
+    (counted in ``device_circle_table.launches``; its launch is
+    ``device_circle_table.launch``, a ``CircleLaunch``),
+    ``synth_circle_block`` on the CPU.  No O(N) array is built on the
+    host.  ``device``: the current CUDA device unless named
+    (``device.resolve``).  ``coarse``: the tensors of ``coarse_table``
+    already on the device (else uploaded).  ``out``: two contiguous int32
+    [n1, n2] tensors on the coarse table's device to write (else
+    allocated); with ``coarse`` and ``out`` given a call allocates nothing
+    and does not synchronise, so a CUDA graph captures it.  Returns the
+    pair written."""
     if coarse is None:
         coarse = coarse_table(cfg, resolve(device))
     dev = coarse[0].device
+    if out is not None and any(
+            t.dtype != torch.int32 or tuple(t.shape) != (n1, n2)
+            or t.device != dev or not t.is_contiguous() for t in out):
+        raise ValueError(f"out takes two contiguous int32 [{n1}, {n2}] "
+                         f"tensors on {dev}")
     if not use_kernel(dev):
-        return synth_circle_block(coarse, n1, n2, 0, n, cfg, inverse)
-    check_block(n1, n2, 0, n)
-    prm = synth_params(cfg, n)
-    er = torch.empty((n1, n2), dtype=torch.int32, device=dev)
-    ei = torch.empty((n1, n2), dtype=torch.int32, device=dev)
+        er, ei = synth_circle_block(coarse, n1, n2, 0, n, cfg, inverse)
+        if out is None:
+            return er, ei
+        out[0].copy_(er)
+        out[1].copy_(ei)
+        return out
+    args = _circle_args(cfg, n, n1, n2, bool(inverse))
+    er, ei = out if out is not None else (
+        torch.empty((n1, n2), dtype=torch.int32, device=dev)
+        for _ in range(2))
     lib = _build.library()
+    launch = (ctypes.c_int * 3)()
     err = lib.intfft_circle_table(
         coarse[0].data_ptr(), coarse[1].data_ptr(), er.data_ptr(),
-        ei.data_ptr(), n1, n2, int(inverse), *prm, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ei.data_ptr(), *args, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream, launch)
     _build.check(lib, err, "circle_table launch")
     device_circle_table.launches += 1
+    device_circle_table.launch = CircleLaunch(*launch)
     return er, ei
 
 
-#: Generator launches made by ``device_circle_table`` (a plain count).
+#: Generator launches made by ``device_circle_table`` (a plain count), and
+#: the last launch's geometry.
 device_circle_table.launches = 0
+device_circle_table.launch = None

@@ -349,9 +349,18 @@ def chain_pattern(index: int, letter: str = "j") -> str:
     return rf"chain_kernelILi{index}E{letter}E"
 
 
-def stage_pattern(index: int, order: int, wide: bool = False) -> str:
-    """``stage_loop_kernel<index, order, V>``: V int32_t, or int64_t."""
-    return rf"stage_loop_kernelILi{index}ELi{order}E{'l' if wide else 'i'}E"
+def stage_pattern(index: int, order: int, wide: bool = False,
+                  threads: int | None = None, layout: int = 0) -> str:
+    """``stage_loop_kernel<index, order, V, threads, layout>``: V int32_t,
+    or int64_t; by default at the threads per CTA the pass takes at m = 256
+    on the H100's tuning row (128 on the int32 tile, 256 on the int64
+    tile), on the pass's layout of the tile (0; 1 the swizzled one)."""
+    if threads is None:
+        from ..ops.tuning import TUNINGS, pass_geometry
+
+        threads = pass_geometry(TUNINGS["sm_90"], 256, None, wide)["threads"]
+    return (rf"stage_loop_kernelILi{index}ELi{order}E{'l' if wide else 'i'}"
+            rf"Li{threads}ELi{layout}EE")
 
 
 def pass_pattern(wide: bool = False, threads: int | None = None) -> str:
@@ -418,17 +427,21 @@ def audit_probe_chain(body: str, sass: dict | None = None) -> Counts:
     return count_loop(sass[find_function(sass, chain_pattern(b.index))])
 
 
-def audit_stage(step: str, sass: dict | None = None) -> dict:
+def audit_stage(step: str, sass: dict | None = None,
+                threads: int | None = None, layout: int = 0) -> dict:
     """Instructions per butterfly (two samples) of
     ``stage_loop_kernel<step>`` by class, as {class: count}, from its
     butterfly loop; a register step's loop is its k loop; a group step's
-    loop runs tasks of R x 2^(R-1) butterflies."""
+    loop runs tasks of R x 2^(R-1) butterflies.  ``threads`` and
+    ``layout``: the instantiation (``stage_pattern``'s defaults: the
+    pass's geometry and layout at m = 256)."""
     from . import probe_stages
 
     sass = library_sass() if sass is None else sass
     s = probe_stages.STEPS[step]
     index = probe_stages.kernel_index(step, probe_stages.probe_config())
-    ins = sass[find_function(sass, stage_pattern(index, s.order, s.wide))]
+    ins = sass[find_function(sass, stage_pattern(
+        index, s.order, s.wide, threads, 0 if s.in_registers else layout))]
     if s.in_registers:
         return count_loop(ins, register_loop(ins)).scaled(
             SAMPLES_PER_TRIP / 2)

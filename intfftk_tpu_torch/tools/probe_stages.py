@@ -166,6 +166,19 @@ ARITH12_OPS = 12
 K_BASE = (1024, 2560, 4096)
 #: The most applications a comparison runs (see the module docstring).
 MAX_CHECK_K = 8
+#: Launch geometries: ``"pass"``, the factor pass's own resolution on the
+#: card (``tuning.pass_geometry`` of the device's row: TC 8 and 128 threads
+#: at n = 256 on an H100); ``"pr6"``, the probe's first tile (256 threads,
+#: TC = min(16, 65536 / (n x word bytes))), the yardstick of the readings
+#: before it.
+GEOMETRIES = ("pass", "pr6")
+#: Tile layouts, by their index in ``csrc/probe_stages.cuh``: ``"pass"``,
+#: rows padded to TC + 1 words as ``fused_pass.cuh`` lays its tile out;
+#: ``"swizzle"``, rows packed and each element moved within its 128-byte
+#: line (``tile_offset``), one wavefront per warp access of every step.
+LAYOUTS = ("pass", "swizzle")
+#: The steps ``tile_readings`` reads at every geometry and layout.
+TILE_STEPS = ("smem_roundtrip", "prod_p7", "group3_p7")
 
 
 def kernel_index(step: str, cfg: FFTConfig) -> int:
@@ -327,39 +340,225 @@ def stage_loop_reference(step: str, xr, xi, k: int, cfg: FFTConfig,
     return xr.to(dt).contiguous(), xi.to(dt).contiguous()
 
 
-@functools.cache
-def geometry(step: str, n: int, device_index: int) -> tuple[int, int]:
-    """(columns per CTA, CTAs one SM holds at once) of a step's kernel on
-    an n-row tile, from the library."""
+# --------------------------------------------------------------- the tile
+
+def _word(wide: bool) -> int:
+    return 8 if wide else 4
+
+
+def _check_layout(geometry: str, layout: str):
+    if geometry not in GEOMETRIES or layout not in LAYOUTS:
+        raise ValueError(f"geometry {geometry!r} / layout {layout!r}: one "
+                         f"of {GEOMETRIES} / {LAYOUTS}")
+
+
+def launch_geometry(step: str, n: int, geometry: str,
+                    tuning) -> tuple[int, int]:
+    """(TC, threads per CTA) of ``step`` on an n-row tile: under
+    ``"pass"`` the factor pass's own (``tuning.pass_geometry`` of
+    ``tuning``, the card's row), under ``"pr6"`` 256 threads and TC =
+    min(16, 65536 / (n x word bytes))."""
+    if geometry not in GEOMETRIES:
+        raise ValueError(f"geometry {geometry!r}: one of {GEOMETRIES}")
+    wide = STEPS[step].wide
+    if geometry == "pr6":
+        return min(16, 65536 // (n * _word(wide))), 256
+    from ..ops.tuning import pass_geometry
+
+    g = pass_geometry(tuning, n, None, wide)
+    return g["lane_tile"], g["threads"]
+
+
+def swizzle_ok(tc: int, wide: bool = False) -> bool:
+    """TC lies in the swizzled layout's range: a power of two from W / 8 to
+    W, W = 128 / word bytes (``swizzle_ok`` of ``csrc/probe_stages.cuh``)."""
+    w = 128 // _word(wide)
+    return tc >= 1 and tc & (tc - 1) == 0 and w // 8 <= tc <= w
+
+
+def swizzle_table(tc: int, wide: bool = False) -> int:
+    """S(0) .. S(7) of the swizzled layout as nibbles: S(l) XORs v0 = G - 1,
+    v1 = max(G / 4, 1) mod G and v2 = G / 2 over the set bits of l, G =
+    W / TC (``swizzle_table`` of ``csrc/probe_stages.cuh``)."""
+    g = 128 // _word(wide) // tc
+    v = (g - 1, max(g >> 2, 1) & (g - 1), g >> 1)
+    table = 0
+    for l in range(8):
+        s = 0
+        for b in range(3):
+            s ^= v[b] if l >> b & 1 else 0
+        table |= s << (4 * l)
+    return table
+
+
+def tile_offset(layout: str, r: int, c: int, tc: int,
+                wide: bool = False) -> int:
+    """The element of one plane of shared memory that holds (row r, column
+    c) of a [rows, TC] tile: ``"pass"`` r x (TC + 1) + c (``fused_pass.cuh``
+    and ``PaddedTile``); ``"swizzle"`` e ^ (S(L mod 8) << log2 TC) ^ (L mod
+    TC), e = r x TC + c, L = e / W its 128-byte line (``SwizzledTile``)."""
+    if layout == "pass":
+        return r * (tc + 1) + c
+    if layout != "swizzle" or not swizzle_ok(tc, wide):
+        raise ValueError(f"no {layout!r} layout of a tile of {tc} columns")
+    e = r * tc + c
+    line = e >> (4 if wide else 5)
+    s = (swizzle_table(tc, wide) >> ((line & 7) << 2)) & 15
+    return e ^ (s << (tc.bit_length() - 1)) ^ (line & (tc - 1))
+
+
+def library_tile(layout: str, rows: int, tc: int, wide: bool = False):
+    """``tile_offset`` of every element of a [rows, TC] tile as the built
+    library's host code computes it (``intfft_stage_probe_tile``): a list
+    indexed by r x TC + c."""
+    lib = _build.library()
+    out = (ctypes.c_int * (rows * tc))()
+    err = lib.intfft_stage_probe_tile(LAYOUTS.index(layout), rows, tc,
+                                      int(wide), out)
+    _build.check(lib, err, f"stage probe tile({layout}, {rows}, {tc})")
+    return list(out)
+
+
+def warp_accesses(step: str, rows: int, tc: int) -> list:
+    """Every warp access of shared memory one application of ``step`` makes
+    on a [rows, TC] tile, and the tile's load and store, as lists of the
+    (row, column) its active lanes reach (lane order), or, for the
+    twiddles ``twsmem_p7`` stages after the planes, ("w", index).  The
+    kernel's loops hand a warp 32 consecutive work items whatever the
+    threads per CTA, so the accesses do not depend on them."""
     s = STEPS[step]
-    tc, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    if s.in_registers:
+        return []
+    lt = tc.bit_length() - 1
+    tile = rows * tc
+
+    def warps(count):
+        return (range(w, min(w + 32, count)) for w in range(0, count, 32))
+
+    out = [[(u >> lt, u & (tc - 1)) for u in us] for us in warps(tile)]
+    index = s.index
+    if index in (PROD, PROD_MODE, SMEM, TW_SMEM):
+        h = 1 << s.order
+        for us in warps(tile // 2):
+            rows_i = [(((u >> lt) >> s.order) << (s.order + 1))
+                      | ((u >> lt) & (h - 1)) for u in us]
+            out.append([(r, u & (tc - 1)) for r, u in zip(rows_i, us)])
+            out.append([(r + h, u & (tc - 1)) for r, u in zip(rows_i, us)])
+            if index == TW_SMEM:
+                out.append([("w", (u >> lt) & (h - 1)) for u in us])
+    elif index == SHFL:
+        lrb = rows.bit_length() - 1 - 5
+        for unit in range(tile >> 5):
+            out.append([(((unit & ((1 << lrb) - 1)) << 5) | lane,
+                         unit >> lrb) for lane in range(32)])
+    elif index in GROUPS:
+        lo = s.order - s.stages + 1
+        for us in warps((rows >> s.stages) << lt):
+            for a in range(1 << s.stages):
+                out.append([(((((u >> lt) >> lo) << (lo + s.stages))
+                              | ((u >> lt) & ((1 << lo) - 1))) + (a << lo),
+                             u & (tc - 1)) for u in us])
+    return out
+
+
+def wavefronts(words: list, wide: bool = False) -> int:
+    """The shared-memory wavefronts of one warp access whose lanes reach
+    the 4-byte words ``words`` (an int64 element is two): each half-warp
+    of an 8-byte access, or the whole warp of a 4-byte one, takes as many
+    as the most distinct words one of the 32 banks holds."""
+    per = 2 if wide else 1
+    lanes = [words[i:i + per] for i in range(0, len(words), per)]
+    halves = (lanes[:16], lanes[16:]) if wide else (lanes,)
+    total = 0
+    for half in halves:
+        banks: dict = {}
+        for lane in half:
+            for w in lane:
+                banks.setdefault(w % 32, set()).add(w)
+        total += max((len(v) for v in banks.values()), default=0)
+    return total
+
+
+def least_wavefronts(lanes: int, wide: bool = False) -> int:
+    """The fewest wavefronts an access of ``lanes`` lanes can take: one,
+    or one per half-warp that has a lane on the int64 tile."""
+    return 1 + (wide and lanes > 16)
+
+
+def bank_excess(step: str, rows: int, tc: int, layout: str) -> tuple:
+    """(wavefronts above the least, over every warp access of ``step`` on
+    the [rows, TC] tile of ``layout``; the accesses; the most wavefronts of
+    one access): the CPU model of the kernels' shared-memory traffic."""
+    wide = STEPS[step].wide
+    per = _word(wide) // 4
+    plane = rows * (tc + 1 if layout == "pass" else tc)
+    excess, worst, accesses = 0, 0, warp_accesses(step, rows, tc)
+    for acc in accesses:
+        words = []
+        for r, c in acc:
+            if r == "w":          # the staged twiddles after two planes
+                words.append(2 * plane * per + c)
+            else:
+                e = tile_offset(layout, r, c, tc, wide)
+                words += [e * per + i for i in range(per)]
+        got = wavefronts(words, wide)
+        excess += got - least_wavefronts(len(acc), wide)
+        worst = max(worst, got)
+    return excess, len(accesses), worst
+
+
+@functools.cache
+def _geometry(step: str, n: int, device_index: int, geometry: str,
+              layout: str) -> tuple[int, int, int]:
+    s = STEPS[step]
+    from ..ops.tuning import device_tuning
+
+    tc, threads = launch_geometry(
+        step, n, geometry, device_tuning(torch.device("cuda", device_index)))
+    ctas = ctypes.c_int(0)
     lib = _build.library()
     # a fixed-mode step's two kernels share one geometry
     index = kernel_index(step, probe_config())
-    err = lib.intfft_stage_probe_geometry(index, s.order, int(s.wide), n,
-                                          device_index, ctypes.byref(tc),
-                                          ctypes.byref(ctas))
-    _build.check(lib, err, f"stage probe geometry({step})")
-    return tc.value, ctas.value
+    err = lib.intfft_stage_probe_geometry(
+        index, s.order, int(s.wide), n, tc, threads, LAYOUTS.index(layout),
+        device_index, ctypes.byref(ctas))
+    _build.check(lib, err, f"stage probe geometry({step}, {geometry}, "
+                           f"{layout})")
+    return tc, threads, ctas.value
+
+
+def tile_geometry(step: str, n: int, device, geometry: str = "pass",
+                  layout: str = "pass") -> tuple[int, int, int]:
+    """(TC, threads per CTA, CTAs one SM holds at once) of a step's kernel
+    on an n-row tile at ``geometry`` and ``layout`` on the CUDA ``device``
+    (``launch_geometry``; the occupancy from the library, which refuses a
+    geometry it holds no kernel for)."""
+    _check_layout(geometry, layout)
+    return _geometry(step, n, torch.device(device).index or 0, geometry,
+                     layout)
 
 
 def stage_loop(step: str, xr, xi, k: int, cfg: FFTConfig, tables=None,
-               epi=None, once: bool = False):
+               epi=None, once: bool = False, geometry: str = "pass",
+               layout: str = "pass"):
     """``step`` applied ``k`` times to the [n, B] tile pair ``xr``, ``xi``
     (contiguous int32; int64 for the int64-tile steps), with the numerics
     of ``cfg``.  A CUDA tensor launches ``stage_loop_kernel`` of
     ``csrc/probe_stages.cu`` (``once``: ``stage_once_kernel``, one
-    application) on the current stream, no synchronisation, and adds one to
-    ``stage_loop.launches``; B must be a multiple of the tile's columns
-    (``geometry``).  A CPU tensor runs ``stage_loop_reference``."""
+    application) at ``geometry`` on the tile of ``layout`` (``GEOMETRIES``,
+    ``LAYOUTS``), on the current stream, no synchronisation, and adds one
+    to ``stage_loop.launches``; B must be a multiple of the geometry's TC
+    (``tile_geometry``).  A CPU tensor runs ``stage_loop_reference``: the bits
+    do not depend on geometry or layout."""
     if once:
         k = 1
     _check_step(step, xr, xi, k, cfg)
+    _check_layout(geometry, layout)
     dev = xr.device
     if not use_kernel(dev):
         return stage_loop_reference(step, xr, xi, k, cfg, tables, epi)
     s = STEPS[step]
-    tc, _ = geometry(step, cfg.n, dev.index)
+    tc, threads, _ = tile_geometry(step, cfg.n, dev, geometry, layout)
     # the tables a step reads: [n] stage tables, or the [n, tc] epilogue
     tables = tables if s.index in READS_TABLES else None
     epi = epi if s.index == EPI else None
@@ -383,7 +582,8 @@ def stage_loop(step: str, xr, xi, k: int, cfg: FFTConfig, tables=None,
         ptr(tables, 0), ptr(tables, 1), ptr(epi, 0), ptr(epi, 1), cfg.n,
         xr.shape[1], kernel_index(step, cfg), s.order,
         int(s.wide), k, int(once), cfg.data_width, cfg.scale,
-        int(cfg.rounding == "round"), cfg.twiddle_shift, dev.index,
+        int(cfg.rounding == "round"), cfg.twiddle_shift, tc, threads,
+        LAYOUTS.index(layout), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, f"stage_loop({step}) launch")
     stage_loop.launches += 1
@@ -395,10 +595,12 @@ def stage_loop(step: str, xr, xi, k: int, cfg: FFTConfig, tables=None,
 stage_loop.launches = 0
 
 
-def stage_once(step: str, xr, xi, cfg: FFTConfig, tables=None, epi=None):
+def stage_once(step: str, xr, xi, cfg: FFTConfig, tables=None, epi=None,
+               geometry: str = "pass", layout: str = "pass"):
     """One application of ``step``: ``stage_once_kernel`` on a CUDA tensor,
     ``stage_loop_reference`` at k = 1 on a CPU tensor."""
-    return stage_loop(step, xr, xi, 1, cfg, tables, epi, once=True)
+    return stage_loop(step, xr, xi, 1, cfg, tables, epi, once=True,
+                      geometry=geometry, layout=layout)
 
 
 # ------------------------------------------------------------ measurement
@@ -419,35 +621,45 @@ class StageReading(NamedTuple):
         return 1e9 / self.per_s
 
 
-def stage_input(step: str, cfg: FFTConfig, device=None, seed: int = 0):
+def stage_input(step: str, cfg: FFTConfig, device=None, seed: int = 0,
+                geometry: str = "pass", layout: str = "pass",
+                cols: int | None = None):
     """The [n, B] tile pair a step is timed and checked on: B fills the
-    card (tile columns x the CTAs an SM holds x the SMs), values of
-    ``cfg.data_width`` - 1 bits that differ per element (from ``seed``)."""
+    card at ``geometry`` and ``layout`` (tile columns x the CTAs an SM
+    holds x the SMs), or is ``cols``; values of ``cfg.data_width`` - 1 bits
+    that differ per element (from ``seed``)."""
     device = probe_vpu._card(device)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tc, ctas = geometry(step, cfg.n, device.index)
+    if cols is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        tc, _, ctas = tile_geometry(step, cfg.n, device, geometry, layout)
+        cols = tc * ctas * sms
     gen = torch.Generator(device=device).manual_seed(seed)
     lim = 1 << (cfg.data_width - 2)
     dt = torch.int64 if STEPS[step].wide else torch.int32
-    return tuple(torch.randint(-lim, lim, (cfg.n, tc * ctas * sms), dtype=dt,
+    return tuple(torch.randint(-lim, lim, (cfg.n, cols), dtype=dt,
                                device=device, generator=gen)
                  for _ in range(2))
 
 
 def stage_rate(step: str, cfg: FFTConfig | None = None,
                target_ms: float = probe_vpu.TARGET_MS, reps: int = 7,
-               device=None) -> StageReading:
+               device=None, geometry: str = "pass", layout: str = "pass",
+               x=None) -> StageReading:
     """Time ``stage_loop(step, x, k)`` at three loop lengths on a tile that
-    fills the card and return the marginal rate: samples x (k_hi - k_lo) /
-    (t_hi - t_lo) (``probe_vpu.timed_lengths``)."""
+    fills the card (or on the pair ``x``) at ``geometry`` and ``layout`` and
+    return the marginal rate: samples x (k_hi - k_lo) / (t_hi - t_lo)
+    (``probe_vpu.timed_lengths``)."""
     device = probe_vpu._card(device)
     cfg = probe_config() if cfg is None else cfg
-    xr, xi = stage_input(step, cfg, device)
+    xr, xi = (stage_input(step, cfg, device, geometry=geometry,
+                          layout=layout) if x is None else x)
     tables = stage_tables(cfg, device)
-    epi = epilogue_table(cfg, geometry(step, cfg.n, device.index)[0], device)
+    epi = epilogue_table(
+        cfg, tile_geometry(step, cfg.n, device, geometry, layout)[0], device)
     ks, rounds = probe_vpu.timed_lengths(
-        lambda k: stage_loop(step, xr, xi, k, cfg, tables, epi), target_ms,
-        reps, K_BASE)
+        lambda k: stage_loop(step, xr, xi, k, cfg, tables, epi,
+                             geometry=geometry, layout=layout),
+        target_ms, reps, K_BASE)
     return StageReading(
         step, *probe_vpu.marginal_rates(xr.numel() * STEPS[step].stages, ks,
                                         rounds), ks,
@@ -481,34 +693,38 @@ def check_k(step: str, cfg: FFTConfig) -> int:
     return min(MAX_CHECK_K, room // s.stages)
 
 
-def bit_checks(device=None, n: int = 256, steps=None) -> dict:
+def bit_checks(device=None, n: int = 256, steps=None,
+               geometry: str = "pass", layout: str = "pass") -> dict:
     """Every step (of ``steps``; all of ``STEPS`` when left out) against its
     plain version and every variant against the production step it stands
-    for, on the card, at k = 1 (the once kernel) and ``check_k`` (the loop
-    kernel), with two full-scale columns, on ``check_config`` and on
-    ``probe_config``, the config the timed run launches.  Returns {step:
-    largest absolute difference}, all zero; raises RuntimeError on the
-    first mismatch."""
+    for, on the card at ``geometry`` and ``layout``, at k = 1 (the once
+    kernel) and ``check_k`` (the loop kernel), with two full-scale columns,
+    on ``check_config`` and on ``probe_config``, the config the timed run
+    launches.  Returns {step: largest absolute difference}, all zero;
+    raises RuntimeError on the first mismatch."""
     device = probe_vpu._card(device)
     steps = {step: STEPS[step] for step in (STEPS if steps is None else steps)}
     worst = dict.fromkeys(steps, 0)
+    at = dict(geometry=geometry, layout=layout)
     for cfg in (check_config(n), probe_config(n)):
         mode = "scaled/round" if cfg.scale else "unscaled"
         tables = stage_tables(cfg, device)
         for step, s in steps.items():
             xr, xi = stage_input(step, cfg, device,
-                                 seed=s.index * 16 + s.order)
+                                 seed=s.index * 16 + s.order, **at)
             xr[:, 0], xr[::3, 0], xi[:, 1] = (-(1 << 15), (1 << 15) - 1,
                                               -(1 << 15))
-            epi = epilogue_table(cfg, geometry(step, n, device.index)[0],
+            epi = epilogue_table(cfg, tile_geometry(step, n, device, **at)[0],
                                  device)
             for once, k in ((True, 1), (False, check_k(step, cfg))):
-                got = stage_loop(step, xr, xi, k, cfg, tables, epi, once=once)
+                got = stage_loop(step, xr, xi, k, cfg, tables, epi, once=once,
+                                 **at)
                 against = {"its plain version": stage_loop_reference(
                     step, xr, xi, k, cfg, tables, epi)}
                 if s.variant_of:
                     against[s.variant_of] = stage_loop(
-                        s.variant_of, xr, xi, k, cfg, tables, epi, once=once)
+                        s.variant_of, xr, xi, k, cfg, tables, epi, once=once,
+                        **at)
                 for name, want in against.items():
                     err = max(int((a.long() - b.long()).abs().max())
                               for a, b in zip(got, want))
@@ -516,30 +732,60 @@ def bit_checks(device=None, n: int = 256, steps=None) -> dict:
                     if err:
                         raise RuntimeError(
                             f"MISMATCH: step {step} ({mode}, "
-                            f"{'once' if once else 'loop'}, k = {k}) differs "
+                            f"{'once' if once else 'loop'}, k = {k}, "
+                            f"{geometry} geometry, {layout} layout) differs "
                             f"from {name} by up to {err}")
     return worst
 
 
 def measure_all(quick: bool = False, device=None, emit=None,
-                steps=None, check: bool = True, n: int = 256) -> dict:
+                steps=None, check: bool = True, n: int = 256,
+                geometry: str = "pass", layout: str = "pass") -> dict:
     """{step: ns per sample and stage} of ``steps`` (all of ``STEPS`` when
-    left out) on the tile of ``n`` rows, after ``bit_checks``
-    (``check=False``: the caller has run them); each reading held to
-    ``check_reading``.  ``emit(step, reading)`` is called as each
-    arrives."""
+    left out) on the tile of ``n`` rows at ``geometry`` and ``layout``,
+    after ``bit_checks`` (``check=False``: the caller has run them); each
+    reading held to ``check_reading``.  ``emit(step, reading)`` is called
+    as each arrives."""
     device = probe_vpu._card(device)
     if check:
-        bit_checks(device, n, steps)
+        bit_checks(device, n, steps, geometry, layout)
     peak = probe_vpu.lane_rate_peak(device)
     target = probe_vpu.TARGET_MS_QUICK if quick else probe_vpu.TARGET_MS
     out = {}
     for step in STEPS if steps is None else steps:
-        r = stage_rate(step, probe_config(n), target_ms=target, device=device)
+        r = stage_rate(step, probe_config(n), target_ms=target, device=device,
+                       geometry=geometry, layout=layout)
         check_reading(r, peak)
         out[step] = r.ns_per_sample_per_stage
         if emit is not None:
             emit(step, r)
+    return out
+
+
+def tile_readings(steps=TILE_STEPS, quick: bool = False, rounds: int = 2,
+                  device=None, n: int = 256) -> dict:
+    """{(geometry, layout): {step: ns per sample and stage}} of ``steps`` at
+    every geometry and layout, read in turns (each round walks the four
+    tiles, and a step keeps its least reading), each on one input that
+    fills the card at the ``"pr6"`` geometry (a whole number of tiles at
+    every TC), each reading held to ``check_reading``.  The caller has run
+    ``bit_checks`` at each."""
+    device = probe_vpu._card(device)
+    peak = probe_vpu.lane_rate_peak(device)
+    target = probe_vpu.TARGET_MS_QUICK if quick else probe_vpu.TARGET_MS
+    cfg = probe_config(n)
+    tiles = [(g, lay) for g in GEOMETRIES for lay in LAYOUTS]
+    x = {step: stage_input(step, cfg, device, geometry="pr6")
+         for step in steps}
+    out = {t: {} for t in tiles}
+    for _ in range(rounds):
+        for g, lay in tiles:
+            for step in steps:
+                r = stage_rate(step, cfg, target_ms=target, device=device,
+                               geometry=g, layout=lay, x=x[step])
+                check_reading(r, peak)
+                ns = r.ns_per_sample_per_stage
+                out[g, lay][step] = min(out[g, lay].get(step, ns), ns)
     return out
 
 
@@ -556,10 +802,25 @@ def main(argv=None) -> int:
               + ", ".join(f"{c} {v:g}" for c, v in per.items()),
               file=sys.stderr, flush=True)
 
+    def option(name, default):
+        return argv[argv.index(name) + 1] if name in argv else default
+
+    quick = "--quick" in argv
+    if "--tiles" in argv:
+        for g in GEOMETRIES:
+            for lay in LAYOUTS:
+                bit_checks(n=256, steps=TILE_STEPS, geometry=g, layout=lay)
+        out = tile_readings(quick=quick)
+        print(json.dumps({f"{g}/{lay}": {k: round(v, 6)
+                                          for k, v in r.items()}
+                          for (g, lay), r in out.items()}))
+        return 0
     tall = "--tall" in argv
-    out = measure_all(quick="--quick" in argv, emit=emit,
+    out = measure_all(quick=quick, emit=emit,
                       steps=TALL_STEPS if tall else None,
-                      n=TALL_ROWS if tall else 256)
+                      n=TALL_ROWS if tall else 256,
+                      geometry=option("--geometry", "pass"),
+                      layout=option("--layout", "pass"))
     print(json.dumps({k: round(v, 6) for k, v in out.items()}))
     return 0
 

@@ -27,7 +27,7 @@ from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, circle_table,
 from intfftk_tpu_torch.ops.intmath import (spectrum_product,
                                            spectrum_product_reference)
 from intfftk_tpu_torch.ops.single_pass import PallasFFTPlan, PallasWideFFTPlan
-from intfftk_tpu_torch.ops.tuning import whole_cluster
+from intfftk_tpu_torch.ops.tuning import device_tuning, whole_cluster
 from intfftk_tpu_torch.ops.transform import pack_tables, pack_tables_2d
 from intfftk_tpu_torch.ops.twiddle_synth import (EpiSynth, coarse_table,
                                                  device_circle_table,
@@ -249,24 +249,62 @@ def test_channelizer_stream_on_card(dev, layout, inverse):
 
 
 @pytest.mark.parametrize("n,n1,n2", [(1 << 12, 16, 256), (1 << 18, 512, 512),
-                                     (1 << 20, 1024, 1024)])
+                                     (1 << 19, 1024, 512),
+                                     (1 << 20, 1024, 1024),
+                                     (1 << 20, 1024, 1022),
+                                     (1 << 20, 1000, 1000),
+                                     (1 << 18, 70000, 3)])
 @pytest.mark.parametrize("gen", ["auto", "taylor_new"])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 def test_generator_vs_plain(dev, n, n1, n2, gen, inverse):
     """The generator kernel, one launch, == synth_circle_block == the host
-    circle table."""
+    circle table, square, non-square and ragged, into an ``out`` pair that
+    is not 16-byte aligned (the scalar stores) too; its launch the
+    rule's."""
+    from intfftk_tpu_torch.ops.twiddle_synth import circle_launch
     cfg = FFTConfig(n=n, twiddle_gen=gen)
     before = device_circle_table.launches
     er, ei = device_circle_table(cfg, n, n1, n2, inverse, dev)
     torch.cuda.synchronize()
     assert device_circle_table.launches == before + 1
     assert er.device.type == "cuda" and er.dtype == torch.int32
+    assert device_circle_table.launch == circle_launch(n1, n2)
     wr, wi = synth_circle_block(coarse_table(cfg, dev), n1, n2, 0, n, cfg,
                                 inverse)
     assert torch.equal(er, wr) and torch.equal(ei, wi)
     hr, hi = circle_table(cfg, n1, n2, inverse)
     np.testing.assert_array_equal(er.cpu().numpy(), hr)
     np.testing.assert_array_equal(ei.cpu().numpy(), hi)
+    buf = [torch.zeros(n1 * n2 + 1, dtype=torch.int32, device=dev)
+           for _ in range(2)]
+    out = [b[1:].view(n1, n2) for b in buf]
+    device_circle_table(cfg, n, n1, n2, inverse, dev, out=out)
+    assert torch.equal(out[0], er) and torch.equal(out[1], ei)
+    assert int(buf[0][0]) == int(buf[1][0]) == 0
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_generator_16m_and_captured(dev, inverse):
+    """The 16M table (4096 x 4096, "taylor_new" has no constant there) ==
+    the host circle table; and the call with ``coarse`` and ``out`` given,
+    captured into a CUDA graph, replays to the same table."""
+    from intfftk_tpu_torch.runtime import captured
+    n, n1 = 1 << 24, 4096
+    cfg = FFTConfig(n=n)
+    co = coarse_table(cfg, dev)
+    er, ei = device_circle_table(cfg, n, n1, n1, inverse, coarse=co)
+    hr, hi = circle_table(cfg, n1, n1, inverse)
+    np.testing.assert_array_equal(er.cpu().numpy(), hr)
+    np.testing.assert_array_equal(ei.cpu().numpy(), hi)
+    out = [torch.zeros_like(er) for _ in range(2)]
+    call = captured(lambda u, v: (device_circle_table(
+        cfg, n, n1, n1, inverse, coarse=co, out=out), (u, v))[1])
+    x = [torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2)]
+    call(*x)
+    out[0].zero_()
+    call(*x)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], er) and torch.equal(out[1], ei)
 
 
 @pytest.mark.parametrize("mode,rounding", MODES)
@@ -636,23 +674,33 @@ def test_pass_at_batch_65536_on_card(dev):
 
 
 def test_tall_tile_steps_on_card(dev):
-    """K10 on the tallest tile, [4096, 4] with rows padded to 5 words:
+    """K10 on the tallest tile, [4096, TC] at both geometries and layouts:
     ``TALL_STEPS`` equal to their plain versions in both configs."""
-    worst = ps.bit_checks(dev, ps.TALL_ROWS, ps.TALL_STEPS)
-    assert set(worst) == set(ps.TALL_STEPS) and max(worst.values()) == 0
+    for geometry in ps.GEOMETRIES:
+        for layout in ps.LAYOUTS:
+            worst = ps.bit_checks(dev, ps.TALL_ROWS, ps.TALL_STEPS, geometry,
+                                  layout)
+            assert set(worst) == set(ps.TALL_STEPS)
+            assert max(worst.values()) == 0
 
 
+@pytest.mark.parametrize("layout", ps.LAYOUTS)
+@pytest.mark.parametrize("geometry", ps.GEOMETRIES)
 @pytest.mark.parametrize("config", [ps.check_config, ps.probe_config],
                          ids=["unscaled", "scaled_round"])
 @pytest.mark.parametrize("step", list(ps.STEPS))
-def test_stage_step_on_card(dev, step, config):
+def test_stage_step_on_card(dev, step, config, geometry, layout):
     """K10: the once and the loop kernel of every step equal to its plain
     version, and a variant to its production step, with full-scale columns,
     on live unscaled data and on the scaled/round config the tool times (so
-    a fixed-mode step's kernel of either mode is compared); two CTAs."""
+    a fixed-mode step's kernel of either mode is compared); two CTAs, at
+    both geometries and on both layouts of the tile."""
     cfg = config()
     s = ps.STEPS[step]
-    tc, _ = ps.geometry(step, cfg.n, dev.index or 0)
+    at = dict(geometry=geometry, layout=layout)
+    tc, threads, _ = ps.tile_geometry(step, cfg.n, dev, **at)
+    assert (tc, threads) == ps.launch_geometry(
+        step, cfg.n, geometry, device_tuning(dev))
     dt = torch.int64 if s.wide else torch.int32
     xr, xi = (torch.as_tensor(v).to(dt).to(dev)
               for v in _stimulus((cfg.n, 2 * tc), 16, seed=s.order + 1))
@@ -660,19 +708,46 @@ def test_stage_step_on_card(dev, step, config):
     epi = ps.epilogue_table(cfg, tc, dev)
     for once, k in ((True, 1), (False, 1), (False, ps.check_k(step, cfg))):
         before = ps.stage_loop.launches
-        got = ps.stage_loop(step, xr, xi, k, cfg, tables, epi, once=once)
+        got = ps.stage_loop(step, xr, xi, k, cfg, tables, epi, once=once,
+                            **at)
         torch.cuda.synchronize()
         assert ps.stage_loop.launches == before + 1
         want = ps.stage_loop_reference(step, xr, xi, k, cfg, tables, epi)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         if s.variant_of:
             prod = ps.stage_loop(s.variant_of, xr, xi, k, cfg, tables, epi,
-                                 once=once)
+                                 once=once, **at)
             assert torch.equal(got[0], prod[0])
             assert torch.equal(got[1], prod[1])
     with pytest.raises(ValueError, match="multiple of"):
         ps.stage_loop(step, xr[:, :tc - 1].contiguous(),
-                      xi[:, :tc - 1].contiguous(), 1, cfg, tables, epi)
+                      xi[:, :tc - 1].contiguous(), 1, cfg, tables, epi, **at)
+
+
+def test_stage_probe_tile_and_refusals_on_card(dev):
+    """The library's map of the tile (``intfft_stage_probe_tile``) equals
+    the model's ``tile_offset`` on both layouts over the swizzle's range;
+    the library refuses a thread count it holds no kernel for (1024) and a
+    swizzled TC outside the range, never clamping."""
+    import ctypes
+    from intfftk_tpu_torch.ops import _build
+    for layout in ps.LAYOUTS:
+        for wide, tcs in ((False, (4, 8, 16, 32)), (True, (2, 4, 8, 16))):
+            for tc in tcs:
+                for rows in (8, 256, 4096):
+                    assert ps.library_tile(layout, rows, tc, wide) == [
+                        ps.tile_offset(layout, r, c, tc, wide)
+                        for r in range(rows) for c in range(tc)]
+    lib = _build.library()
+    ctas = ctypes.c_int(0)
+    s = ps.STEPS["prod_p7"]
+    assert lib.intfft_stage_probe_geometry(
+        s.index, s.order, 0, 256, 8, 128, 1, dev.index or 0,
+        ctypes.byref(ctas)) == 0 and ctas.value > 0
+    for tc, threads, layout in ((8, 1024, 0), (2, 128, 1), (64, 128, 1)):
+        assert lib.intfft_stage_probe_geometry(
+            s.index, s.order, 0, 256, tc, threads, layout, dev.index or 0,
+            ctypes.byref(ctas)) != 0, (tc, threads, layout)
 
 
 def test_stage_probe_and_audit_on_card(dev):

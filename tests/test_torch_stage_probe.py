@@ -443,8 +443,202 @@ def test_measurements_need_the_card():
     cfg = ps.probe_config()
     for fn in (ps.measure_all, ps.bit_checks,
                lambda device=None: ps.stage_rate("prod_p7", device=device),
-               lambda device=None: ps.stage_input("prod_p7", cfg, device)):
+               lambda device=None: ps.stage_input("prod_p7", cfg, device),
+               lambda device=None: ps.tile_readings(device=device),
+               lambda device=None: ps.stage_input(
+                   "prod_p7", cfg, device, geometry="pr6", layout="swizzle")):
         with pytest.raises(RuntimeError):
             fn(device="cpu")
         with pytest.raises(RuntimeError, match='device="cpu"'):
             fn()
+
+
+# ------------------------------------------------ the tile's bank mapping
+
+from intfftk_tpu_torch.ops.tuning import TUNINGS
+
+H100 = TUNINGS["sm_90"]
+#: The steps that keep a tile in shared memory.
+TILE_STEPS_ALL = [s for s, v in ps.STEPS.items() if not v.in_registers]
+
+
+def _tiles(step, n):
+    """The TC of each geometry of ``step`` at n rows on the H100's row."""
+    return {g: ps.launch_geometry(step, n, g, H100)[0] for g in ps.GEOMETRIES}
+
+
+def test_launch_geometries():
+    """"pass": the factor pass's own resolution on the H100 (TC 8 and 128
+    threads at m = 256 on the int32 tile, 16 and 256 on the int64 tile; the
+    tallest tile 4 and 2 columns at 512 threads); "pr6": the probe's first
+    tile, 256 threads and TC = min(16, 64 KiB / row bytes)."""
+    from intfftk_tpu_torch.ops.tuning import pass_geometry
+    want = {("prod_p7", 256, "pass"): (8, 128),
+            ("group64_3_p7", 256, "pass"): (16, 256),
+            ("prod_p7", 4096, "pass"): (4, 512),
+            ("group64_3_p7", 4096, "pass"): (2, 512),
+            ("prod_p7", 256, "pr6"): (16, 256),
+            ("group64_3_p7", 256, "pr6"): (16, 256),
+            ("prod_p7", 4096, "pr6"): (4, 256),
+            ("group64_3_p7", 4096, "pr6"): (2, 256)}
+    for (step, n, g), geo in want.items():
+        assert ps.launch_geometry(step, n, g, H100) == geo, (step, n, g)
+        assert ps.swizzle_ok(geo[0], ps.STEPS[step].wide)
+    for n in (8, 64, 1024):
+        for wide in (False, True):
+            g = pass_geometry(H100, n, None, wide)
+            step = "group64_3_p2" if wide else "group3_p2"
+            assert ps.launch_geometry(step, n, "pass", H100) == (
+                g["lane_tile"], g["threads"])
+    with pytest.raises(ValueError, match="geometry"):
+        ps.launch_geometry("prod_p7", 256, "pr7", H100)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+def test_swizzle_rule(wide):
+    """The rule's range (TC from W / 8 to W, W = 128 / word bytes), its
+    table (v0 = G - 1, v1 = max(G / 4, 1) mod G, v2 = G / 2 XORed over the
+    bits of the line's low three bits) and that it permutes each 128-byte
+    line of every tile in range."""
+    w = 128 // (8 if wide else 4)
+    assert [tc for tc in range(1, 65) if ps.swizzle_ok(tc, wide)] == [
+        w // 8, w // 4, w // 2, w]
+    for tc in (w // 8, w // 4, w // 2, w):
+        g = w // tc
+        v = (g - 1, max(g // 4, 1) % g if g > 1 else 0, g // 2)
+        table = ps.swizzle_table(tc, wide)
+        for line in range(8):
+            s = 0
+            for b in range(3):
+                if line >> b & 1:
+                    s ^= v[b]
+            assert (table >> (4 * line)) & 15 == s < g
+        for rows in (8, 256):
+            off = [ps.tile_offset("swizzle", r, c, tc, wide)
+                   for r in range(rows) for c in range(tc)]
+            assert sorted(off) == list(range(rows * tc))
+            assert all(e // w == i // w for i, e in enumerate(off))
+    with pytest.raises(ValueError, match="layout"):
+        ps.tile_offset("swizzle", 0, 0, w // 16, wide)
+
+
+@pytest.mark.parametrize("geometry", ps.GEOMETRIES)
+@pytest.mark.parametrize("step", TILE_STEPS_ALL)
+def test_swizzled_tile_takes_one_wavefront_per_access(step, geometry):
+    """Every warp access of every step (the tile's load and store, each
+    round-trip or group access, the shuffle step's column, the staged
+    twiddles) on the swizzled tile of the tool's shape takes the least
+    wavefronts: one, or one per half-warp of the int64 tile."""
+    tc = _tiles(step, 256)[geometry]
+    excess, accesses, worst = ps.bank_excess(step, 256, tc, "swizzle")
+    assert accesses > 0 and excess == 0
+    assert worst == (2 if ps.STEPS[step].wide else 1)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("rows", [8, 16, 32, 64])
+def test_swizzled_tile_over_the_rule_range(rows, wide):
+    """At every TC of the rule's range on small tiles, where a warp spans
+    the most rows, every step's accesses take the least wavefronts."""
+    w = 128 // (8 if wide else 4)
+    for tc in (w // 8, w // 4, w // 2, w):
+        for step in TILE_STEPS_ALL:
+            s = ps.STEPS[step]
+            if (s.wide != wide or s.order >= rows.bit_length() - 1
+                    or (s.index == ps.SHFL and rows < 32)):
+                continue
+            assert ps.bank_excess(step, rows, tc, "swizzle")[0] == 0, (
+                step, rows, tc)
+
+
+@pytest.mark.parametrize("step", list(ps.TALL_STEPS) + ["group64_3_p7",
+                                                          "group64_3_p2"])
+def test_swizzled_tall_tile(step):
+    """The tallest tile, 4096 rows at the pass's TC (4 on the int32 tile,
+    2 on the int64 tile): one wavefront per access (per half-warp)."""
+    tc = _tiles(step, ps.TALL_ROWS)["pass"]
+    assert ps.bank_excess(step, ps.TALL_ROWS, tc, "swizzle")[0] == 0
+
+
+@pytest.mark.parametrize("step", ["smem_roundtrip", "prod_p7", "group3_p7",
+                                  "epilogue_cmult", "twsmem_p7"])
+def test_pass_layout_takes_two_wavefronts(step):
+    """The pass's own tile at its geometry (TC 8, rows 9 words apart) and
+    the probe's first one (TC 16, 17 words): a warp spans 4 or 2 rows, and
+    every access of these steps to the tile takes two wavefronts (the
+    staged twiddles of twsmem_p7 take one)."""
+    for tc in (8, 16):
+        excess, accesses, worst = ps.bank_excess(step, 256, tc, "pass")
+        tile = accesses - (256 * tc // 64 if step == "twsmem_p7" else 0)
+        assert excess == tile and worst == 2, (step, tc)
+
+
+def test_pass_layout_is_the_pass_addresses():
+    """``layout="pass"`` places (r, c) where ``fused_pass.cuh`` does: a
+    group's rows base + (a << lo) at base * ld + c + a * (ld << lo) with
+    ld = TC + 1 (run_group, group_load_tile), a turned load's row r at
+    r * ld + c; and a task's rows as ``warp_accesses`` lists them."""
+    tc, ld = 8, 9
+    for lo, r_ in ((5, 3), (2, 3), (0, 2)):
+        accesses = ps.warp_accesses(f"group{r_}_p{lo + r_ - 1}", 256, tc)
+        tasks = (256 >> r_) * tc
+        for u in range(tasks):
+            c, t = u & (tc - 1), u >> 3
+            k0 = t & ((1 << lo) - 1)
+            base = ((t >> lo) << (lo + r_)) | k0
+            for a in range(1 << r_):
+                row = base + (a << lo)
+                assert ps.tile_offset("pass", row, c, tc) == (
+                    base * ld + c + a * (ld << lo))
+                # the group's accesses follow the tile's load
+                acc = accesses[256 * tc // 32 + (u // 32) * (1 << r_) + a]
+                assert acc[u % 32] == (row, c)
+    assert all(ps.tile_offset("pass", r, c, tc) == r * ld + c
+               for r in range(256) for c in range(tc))
+
+
+def test_warp_accesses_and_wavefronts():
+    """The model's counts: a 4-byte access of 32 distinct banks is one
+    wavefront, 32 words on one bank 32; an 8-byte access two (a half-warp
+    each); the accesses of a step are its load and store and its own."""
+    assert ps.wavefronts(list(range(32))) == 1
+    assert ps.wavefronts([32 * i for i in range(32)]) == 32
+    assert ps.wavefronts([5] * 32) == 1                       # a broadcast
+    assert ps.wavefronts(list(range(64)), wide=True) == 2
+    assert ps.least_wavefronts(32, True) == 2
+    assert ps.least_wavefronts(16, True) == ps.least_wavefronts(32) == 1
+    tile = 256 * 8 // 32
+    assert len(ps.warp_accesses("smem_roundtrip", 256, 8)) == 2 * tile
+    assert len(ps.warp_accesses("group3_p7", 256, 8)) == tile + tile
+    assert len(ps.warp_accesses("twsmem_p7", 256, 8)) == tile + tile // 2 * 3
+    assert ps.warp_accesses("arith12", 256, 8) == []
+    shfl = ps.warp_accesses("shfl_p2", 256, 8)[tile:]
+    assert len(shfl) == tile and shfl[0] == [(r, 0) for r in range(32)]
+
+
+@pytest.mark.parametrize("layout", ps.LAYOUTS)
+@pytest.mark.parametrize("geometry", ps.GEOMETRIES)
+@pytest.mark.parametrize("step", list(ps.TILE_STEPS))
+def test_geometry_and_layout_take_the_plain_version(step, geometry, layout):
+    """On the CPU ``stage_loop`` at every geometry and layout is the plain
+    version, whose bits depend on neither; the wrapper refuses an unknown
+    geometry or layout."""
+    cfg = _cfg("unscaled")
+    s = ps.STEPS[step]
+    xr, xi = _tile(s.order, 16, "adversarial", seed=s.order)
+    k = ps.check_k(step, P(cfg))
+    got = _port(step, cfg, xr, xi, k, geometry=geometry, layout=layout)
+    want = [t.numpy() for t in ps.stage_loop_reference(
+        step, torch.from_numpy(xr), torch.from_numpy(xi), k, P(cfg),
+        ps.stage_tables(P(cfg), "cpu"))]
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    if s.stages == 3:
+        jax_want = _jax_group(_group_cfg("unscaled"), xr, xi, s.order, 3, k)
+        assert all(np.array_equal(g, w) for g, w in zip(got, jax_want))
+    once = _port(step, cfg, xr, xi, 1, once=True, geometry=geometry,
+                 layout=layout)
+    assert all(np.array_equal(g, w) for g, w in zip(once, _port(
+        step, cfg, xr, xi, 1)))
+    for bad in (dict(geometry="pr7"), dict(layout="padded")):
+        with pytest.raises(ValueError, match="geometry"):
+            _port(step, cfg, xr, xi, 1, **bad)

@@ -231,3 +231,92 @@ def test_tables_from_jax_synth_modes(mode, monkeypatch):
     xr, xi = (torch.as_tensor(v) for v in _stim256k())
     for a, b in zip(plan(xr, xi), loaded(xr, xi)):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------- the generator's launch
+
+from intfftk_tpu.golden.twiddle import taylor_mathpi as jax_taylor_mathpi
+from intfftk_tpu.config import TAYLOR_COARSE_BITS, TAYLOR_STAGE
+from intfftk_tpu_torch.ops import twiddle_synth as ts
+
+@pytest.mark.parametrize("n1,n2,want", [
+    (4096, 4096, (256, 4, 4096)),        # 16M: 1024 quads a row
+    (1024, 1024, (256, 1, 1024)),        # 1M
+    (1024, 512, (128, 1, 1024)),         # 512K: half a CTA of quads a row
+    (512, 512, (128, 1, 512)),           # 256K
+    (64, 40, (32, 1, 64)),               # ragged: 10 quads, one warp
+    (1024, 1000, (256, 1, 1024)),        # ragged: 250 quads
+    (30, 1022, (256, 1, 30)),            # 256 quads, the last of 2 columns
+    (8, 5000, (256, 5, 8)),              # 1250 quads over 5 CTAs
+    (1 << 17, 8, (32, 1, 65535)),        # more rows than a grid holds
+])
+def test_circle_launch_rule(n1, n2, want):
+    """The generator's launch: threads per CTA the least power of two from
+    32 to 256 over a row's quads of 4 columns, CTAs along the columns to
+    cover a row, and along the rows one per row up to the grid's 65 535
+    (a CTA then walks rows that far apart)."""
+    got = ts.circle_launch(n1, n2)
+    assert got == want and isinstance(got, ts.CircleLaunch)
+    threads, gx, gy = got
+    assert (gx - 1) * threads * ts.GEN_COLS < n2 <= gx * threads * ts.GEN_COLS
+    assert threads in (32, 64, 128, 256) and gy <= ts.MAX_GRID_Y
+
+
+def _uncached_synth_params(gen, n):
+    """The constants as the JAX generator forms them inline
+    (``intfftk_tpu/ops/twiddle_synth.py:synth_circle_block``)."""
+    log_n = n.bit_length() - 1
+    p = log_n - 1
+    ser = "new" if gen == "taylor_new" else "old"
+    return (log_n, jax_taylor_mathpi(p - TAYLOR_STAGE, ser),
+            23 if ser == "old" else 21, p - 1 - TAYLOR_COARSE_BITS)
+
+
+@pytest.mark.parametrize("gen", ["auto", "taylor_new"])
+def test_cached_synth_params(gen):
+    """``synth_params`` (computed once per series and size) equals the
+    constants formed anew, for every n from 256K to 16M; where the series
+    has no constant the cached call raises as the uncached one does."""
+    for log_n in range(18, 25):
+        n = 1 << log_n
+        cfg = P(_cfg(n, gen))
+        try:
+            want = _uncached_synth_params(gen, n)
+        except (KeyError, ValueError, IndexError) as e:
+            with pytest.raises(type(e)):
+                ts.synth_params(cfg, n)
+            continue
+        assert tuple(ts.synth_params(cfg, n)) == want
+        assert ts.synth_params(cfg, n) is ts.synth_params(cfg, n)
+    with pytest.raises(ValueError):
+        ts.synth_params(P(_cfg(1 << 20, gen)), 3 << 20)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n,n1,n2", [(1 << 18, 512, 512),
+                                     (1 << 19, 1024, 512)])
+def test_plain_generator_equals_jax_device_table(n, n1, n2, inverse):
+    """The CPU route of ``device_circle_table`` (its plain version) equals
+    the JAX generator ``device_circle_table`` (its own jit) at 256K square
+    and 512K as 1024 x 512, both directions; written into ``out`` too."""
+    cfg = _cfg(n)
+    er, ei = device_circle_table(P(cfg), n, n1, n2, inverse, device="cpu")
+    jr, ji = js.device_circle_table(cfg, n, n1, n2, inverse=inverse)
+    np.testing.assert_array_equal(er.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(ei.numpy(), np.asarray(ji))
+    out = [torch.zeros((n1, n2), dtype=torch.int32) for _ in range(2)]
+    got = device_circle_table(P(cfg), n, n1, n2, inverse, device="cpu",
+                              out=out)
+    assert got is out and torch.equal(out[0], er) and torch.equal(out[1], ei)
+
+
+def test_device_circle_table_refusals():
+    cfg = P(_cfg(1 << 18))
+    for bad in ([torch.zeros((512, 511), dtype=torch.int32)] * 2,
+                [torch.zeros((512, 512), dtype=torch.int64)] * 2,
+                [torch.zeros((512, 1024), dtype=torch.int32)[:, ::2]] * 2):
+        with pytest.raises(ValueError, match="out"):
+            device_circle_table(cfg, 1 << 18, 512, 512, False, device="cpu",
+                                out=bad)
+    with pytest.raises(ValueError):          # 1024 x 512 reaches 256K
+        device_circle_table(cfg, 1 << 18, 1024, 512, False, device="cpu")
