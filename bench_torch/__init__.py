@@ -5,6 +5,7 @@ Counterpart of ``bench.py``, which times the JAX package.  It lives outside
 counts and the rates of its bounds (``count``) are the benchmark's own
 code, which a change to the program cannot move.  ``cells`` builds each
 cell on a device from a seed, ``verify`` holds every bit-check family to
-the golden model, ``__main__`` runs and prints them.  It imports torch,
+the golden model, ``sharded`` runs config 5 and the channel weak scaling
+over several ranks, ``__main__`` runs and prints them.  It imports torch,
 numpy and ``intfftk_tpu_torch``, never JAX or the JAX package.
 """

@@ -4,10 +4,21 @@
                                           checks below 512K
     python -m bench_torch --all           every cell, then the reported
                                           lines (the streamed channelizer,
-                                          2M and 4M)
+                                          2M and 4M; config 5 where the
+                                          world or the visible cards are
+                                          more than one)
     python -m bench_torch --cell NAME     one cell
     python -m bench_torch --verify        every bit-check family
-    python -m bench_torch --weak          batch retention on one card
+    python -m bench_torch --config5       config 5, FourStepPlan over every
+                                          rank (a world of one, or
+                                          torchrun's, one card a rank)
+    python -m bench_torch --weak          batch retention on one card; the
+                                          channel weak scaling under
+                                          torchrun with more than one rank
+    python -m bench_torch --config5|--weak --cpu-mesh D
+                                          either over D gloo CPU processes
+                                          (virtual: harness validation, no
+                                          rate claimed)
     python -m bench_torch --trace         a profiled run of the cells
                                           (separate from the timed run)
     python -m bench_torch --seed S        seeds every stimulus (default:
@@ -16,23 +27,26 @@
                                           CPU, plain versions: bits and
                                           counts, no time
 
-One JSON line per cell on stdout (progress on stderr).  Every line but the
-smoke's carries the card's name and power limit, torch's CUDA and nvcc's
-version.  A cell reads its ``msamples_per_sec`` from 40 individually timed
-readings, each one replay of one CUDA graph of the cell's chained calls
-(the channelizer: eager calls, with CUDA events): every sample of every
+One JSON line per cell on stdout (progress on stderr; over several ranks
+rank 0 prints).  Every line but the smoke's and the CPU mesh's carries the
+card's name and power limit, torch's CUDA and nvcc's version.  A cell
+reads its ``msamples_per_sec`` from 40 individually timed readings, each
+one replay of one CUDA graph of the cell's chained calls (the
+channelizer: eager calls, with CUDA events): every sample of every
 reading over the device time of the whole window, with the rates at the
 median and the p75 reading and their count beside it.  Then its output
 on its input, as a CUDA graph of one call replays it and as an eager call
 gives it, is held to the golden model.  Exits non-zero when any cell or
-family is not correct.  Without ``--smoke`` it needs a card:
-with no CUDA it raises RuntimeError.
+family is not correct, or config 5's bits are not golden's.  Without
+``--smoke`` or ``--cpu-mesh`` it needs a card: with no CUDA it raises
+RuntimeError.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -41,7 +55,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import cells, timing, verify
+from . import cells, sharded, timing, verify
 
 ROOT = Path(__file__).resolve().parent.parent
 HEADLINE = "fft64k_int16_b64"
@@ -238,16 +252,9 @@ def weak(dev, env, seed=None, count: int = timing.READINGS) -> dict:
         run = cells.headline(dev, 0 if seed is None else seed, batch=b)
         rates[b] = timing.readings(run.fn, *run.x, calls=max(50, 3200 // b),
                                    count=count).rate(run.samples)
-    eff = {str(b): r / rates[8] for b, r in rates.items()}
-    out = {"metric": "batch_retention", "value": min(eff.values()),
-           "mode": "batch_retention", "points": eff,
-           "msamples_per_sec": {str(b): r for b, r in rates.items()},
-           "note": "one card: throughput retention across batch sizes, "
-                   "not scaling across cards", **env}
-    if torch.cuda.device_count() > 1:
-        out["not_run"] = ("bench_config5 and the channel weak scaling over "
-                          "several cards are not ported yet")
-    return out
+    return {**sharded.weak_line("batch_retention",
+                                {b: r / rates[8] for b, r in rates.items()}),
+            "msamples_per_sec": {str(b): r for b, r in rates.items()}, **env}
 
 
 def trace(run, calls: int = 10) -> dict:
@@ -327,29 +334,66 @@ def parse(argv):
     what.add_argument("--cell", choices=list(cells.CELLS), help="one cell")
     what.add_argument("--verify", action="store_true",
                       help="every bit-check family")
+    what.add_argument("--config5", action="store_true",
+                      help="config 5 over every rank")
     what.add_argument("--weak", action="store_true",
-                      help="batch retention on one card")
+                      help="batch retention on one card; the channel weak "
+                           "scaling over several ranks")
     what.add_argument("--smoke", action="store_true",
                       help="tiny, on the CPU: bits and counts only")
     p.add_argument("--trace", action="store_true",
                    help="a profiled run of the selected cells, untimed")
     p.add_argument("--seed", type=int, default=None,
                    help="seed of every stimulus")
-    return p.parse_args(argv)
+    p.add_argument("--cpu-mesh", type=int, metavar="D",
+                   help="--config5 or --weak over D gloo CPU processes")
+    args = p.parse_args(argv)
+    if args.cpu_mesh is not None and not (args.config5 or args.weak):
+        p.error("--cpu-mesh D takes --config5 or --weak")
+    return args
+
+
+def distributed(what: str, env: dict | None) -> dict | None:
+    """Config 5 ("config5") or the channel weak scaling ("weak") over the
+    joined process group (``sharded.process_group``): rank 0's line with
+    ``env``, None on the other ranks."""
+    with sharded.process_group():
+        line = sharded.LINES[what]()
+    return None if line is None else {**line, **env}
 
 
 def main(argv=None) -> int:
     args = parse(sys.argv[1:] if argv is None else argv)
+    emit = lambda line: print(json.dumps(line), flush=True)
     if args.smoke:
         return smoke(args.seed)
+    if args.cpu_mesh is not None:
+        line = sharded.cpu_mesh(args.cpu_mesh,
+                                "config5" if args.config5 else "weak")
+        emit(line)
+        return 0 if line.get("bits_ok", True) else 1
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the benchmark times the card; "
                            "python -m bench_torch --smoke checks bits and "
                            "counts on the CPU")
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world > 1 and not (args.config5 or args.weak or args.all):
+        raise SystemExit("over several ranks bench_torch runs --config5, "
+                         "--weak or --all")
+    if world > 1:
+        # one card a rank: set before anything builds on the current device
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    rank0 = int(os.environ.get("RANK", 0)) == 0
     dev = torch.device("cuda", torch.cuda.current_device())
     env = environment()
-    _log(f"bench_torch on {env['card']}, CUDA {env['cuda']}, {env['nvcc']}")
-    emit = lambda line: print(json.dumps(line), flush=True)
+    if rank0:
+        _log(f"bench_torch on {env['card']}, CUDA {env['cuda']}, "
+             f"{env['nvcc']}")
+    if args.config5 or args.weak and world > 1:
+        line = distributed("config5" if args.config5 else "weak", env)
+        if line is not None:
+            emit(line)
+        return 0 if line is None or line.get("bits_ok", True) else 1
     if args.verify:
         ver = verify.verify(dev, large=True, seed=args.seed,
                             log=verify.log_stderr)
@@ -363,6 +407,9 @@ def main(argv=None) -> int:
         return 0
     names = (list(cells.CELLS) if args.all or args.trace and not args.cell
              else [args.cell or HEADLINE])
+    if not rank0:
+        # the cells are rank 0's; the other ranks join config 5 alone
+        names = []
     if args.trace:
         for name in names:
             emit({"cell": name, **trace(cells.build(name, dev, args.seed)),
@@ -382,10 +429,15 @@ def main(argv=None) -> int:
         ok &= line["correct"]
         emit(line)
         torch.cuda.empty_cache()
-    if args.all:
+    if args.all and rank0:
         for line in [*streamed(dev, env, args.seed),
                      *reported(dev, env, args.seed)]:
             ok &= line["correct"]
+            emit(line)
+    if args.all and max(world, torch.cuda.device_count()) > 1:
+        line = distributed("config5", env)
+        if line is not None:
+            ok &= line["bits_ok"]
             emit(line)
     return 0 if ok else 1
 

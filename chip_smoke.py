@@ -87,9 +87,11 @@ Phases; any failure exits non-zero and prints no result line:
     to four_step_int; (d) PallasWideFFTPlan (K5) on an int64 [4096, 1024]
     tile, fwd/inv x natural/bitrev: 1 launch per call, equal to the plain
     version, 64 columns bit-equal to fft_int;
-11. the ceiling probes (csrc/probe.cu, K7-K9): every chain body on int32,
-    the int16 add chain and its packed form, and the copy, each equal to
-    its plain version (torch.equal) at the shapes the probe tool uses;
+11. the ceiling probes (csrc/probe.cu, K7-K9): every chain body on int32
+    (the pipe probe "pair" among them), every int16 chain (K9's packed add,
+    two int16 a register, and the other forms read beside it), and the
+    copy, each equal to its plain version (torch.equal) at the shapes the
+    probe tool uses;
     then the tool's own run (tools.probe_vpu.measure_all, one reading of
     each chain) with its two guards, both fatal: time linear in the chain
     length within 5 %, and no chain above SMs x 128 lanes x the maximum SM
@@ -143,7 +145,9 @@ Phases; any failure exits non-zero and prints no result line:
     (tools.probe_stages.tile_readings);
 16. the compiled-code audit (tools/audit_sass.py, K11): the instruction
     count of every chain body (a count other than the known one is
-    printed, not fatal: a toolkit may differ), the card's instructions/s
+    printed, not fatal: a toolkit may differ), each int16 chain's loop
+    opcodes (K9's: packed adds and the loop's own, no load or store, is
+    fatal), the card's instructions/s
     from phase 11's reading of the two mixed chains and their count, and
     the headline kernel's count, static and summed over its groups, narrow
     and int64; the library's split of every factor size into groups equal
@@ -214,6 +218,9 @@ Phases; any failure exits non-zero and prints no result line:
     no per-mode readings, its output (one call as a CUDA graph replays it,
     and eagerly) bit-equal to golden and at least one launch per call;
     then every bench_torch verify family below 512K, bit-equal to golden;
+    then config 5 as python -m bench_torch --config5 runs it (a world of
+    one over a FileStore, bits against four_step_int, 40 eager readings),
+    its line printed, bits_ok and devices == 1 checked;
 19. the tuning row the card resolved (ops/tuning.device_tuning: the
     measured "sm_90" row on an H100), what its fuse="auto" takes at the
     headline, and the launch geometry each path's plans took from it; the
@@ -1378,6 +1385,7 @@ def main() -> int:
          f"K8 copy o = x + 1 over {xc.numel() * 4} bytes", "K8")
     torch.cuda.synchronize()
     probe_chain.launches = probe_chain.launches_int16 = 0
+    probe_chain.launches_add16 = 0
     probe_copy.launches = 0
     chain_launches = {}
 
@@ -1391,10 +1399,11 @@ def main() -> int:
         raise SmokeFailure(f"probe guard: {e}") from e
     torch.cuda.synchronize()
     probe_launches = (probe_chain.launches - probe_chain.launches_int16,
-                      probe_copy.launches, probe_chain.launches_int16)
+                      probe_copy.launches, probe_chain.launches_add16)
     check(all(c > 0 for c in probe_launches),
           f"the probe tool launched chain_kernel {probe_launches[0]} times "
-          f"on int32 and {probe_launches[2]} on int16, copy_kernel "
+          f"on int32 and {probe_launches[2]} as K9's int16 add (of "
+          f"{probe_chain.launches_int16} on int16), copy_kernel "
           f"{probe_launches[1]} times; every chain linear in K "
           f"within {probe_vpu.LINEAR_TOL:.0%} at the first reading and below "
           f"the instruction peak "
@@ -1699,6 +1708,20 @@ def main() -> int:
             note = f" (an earlier toolkit compiled {known[body]})"
         print(f"  chain {body}: {per['issued']:g} instructions per iteration "
               f"and chain for {probe_vpu.BODIES[body].ops} source ops{note}")
+    for body in probe_vpu.INT16_BODIES:
+        n_chains = audit_sass.chains_per_thread(body, int16=True)
+        per = audit_sass.summarize(audit_sass.audit_probe_chain(
+            body, sass, int16=True).scaled(n_chains))
+        loop_ops = audit_sass.loop_opcodes(audit_sass.chain_function(
+            body, sass, int16=True))
+        print(f"  int16 chain {body}: {per['issued']:g} instructions per "
+              f"register and iteration for "
+              f"{probe_vpu.per_register(body, torch.int16)} int16 adds; the "
+              f"loop of {n_chains} chains: {loop_ops}")
+    k9_loop = audit_sass.audit_probe_chain("add", sass, int16=True)
+    check(k9_loop.total("memory") == 0 and "VIADD" in k9_loop.get("alu", {}),
+          "K9's loop: packed adds (VIADD.16x2) and the loop's own counter, "
+          "no load or store (nothing is reloaded between iterations)")
     for body in ("mixed7", "stagemix10"):
         same((probe_chain(body, x32, 64),), (chain_reference(body, x32, 64),),
              f"K11's counted chain {body} x 64", "K11")
@@ -2221,14 +2244,24 @@ def main() -> int:
             fixed(lambda u, v, b=body: chain_reference(b, u, K_ROW)),
             xs, None, 20, 2)
         cost_probe[name] = counted(KernelCost(
-            xs.numel() * probe_vpu.BODIES[body].ops * K_ROW,
+            xs.numel() * probe_vpu.body_of(body, xs.dtype).ops * K_ROW,
             2 * xs.numel() * xs.element_size()), xs.numel(),
             K_ROW * audit_sass.issued(audit_sass.audit_probe_chain(
-                body, sass).scaled(audit_sass.CHAINS_PER_THREAD))
-            if xs is x32 else None)
+                body, sass, int16=xs is x16).scaled(
+                    audit_sass.chains_per_thread(body, int16=xs is x16)))
+            / probe_vpu.per_register(body, xs.dtype))
         report(f"{name} chain {body} x {K_ROW} on {xs.dtype} "
                f"[{xs.numel()}]", xs.numel(), *probe_ms[name],
                cost=cost_probe[name])
+    # K9's other forms, reported beside its row: every int16 chain in turns
+    k16 = {form: [] for form in probe_vpu.INT16_BODIES}
+    for form in [*k16, *reversed(k16)]:
+        k16[form].append(_event_ms(fixed(lambda u, v, f=form: probe_chain(
+            f, u, K_ROW)), x16, None, calls=20))
+    print(f"  K9's forms, add x {K_ROW} on int16 [{x16.numel()}] in turns "
+          f"on {card} (ms): " + "; ".join(
+              f"{f} {sum(t) / 2:.4f} ({t[0]:.4f}, {t[1]:.4f})"
+              for f, t in k16.items()))
     probe_ms["K8"] = _turns(fixed(lambda u, v: probe_copy(u, out=oc)),
                             fixed(lambda u, v: copy_reference(u)), xc, None,
                             20, 5)
@@ -2594,6 +2627,14 @@ def main() -> int:
     check(not bad, f"bench_torch verify, families below 512K: "
           f"{len(families) - len(bad)} of {len(families)} bit-equal to "
           f"golden" + (f"; not: {bad}" if bad else ""))
+    # config 5 as python -m bench_torch --config5 runs it: a world of one
+    c5_line = bench.distributed("config5", env)
+    print("bench_torch --config5: " + json.dumps(c5_line))
+    check(c5_line["bits_ok"] and c5_line["devices"] == 1
+          and c5_line["msamples_per_sec"] > 0,
+          f"bench_torch config-5 line at D = 1: bits equal to four_step_int, "
+          f"{c5_line['msamples_per_sec']:.1f} Msamples/s over "
+          f"{c5_line['timed_ms']['count']} eager readings on {env['card']}")
     check("jax" not in sys.modules and not any(
         m == "intfftk_tpu" or m.startswith("intfftk_tpu.")
         for m in sys.modules),
@@ -2740,16 +2781,18 @@ def main() -> int:
             f"overlap-save convolution, T = {payloads} payloads (4 launches)",
             k1, conv_launches[payloads], "conv", *conv_ms[payloads][:2],
             cost_conv[payloads])
-    row(f"chain_kernel: K7 dependent op chain, all ten int32 bodies "
-        f"(launches: the probe tool's run; timed: stagemix10 x {K_ROW})",
+    row(f"chain_kernel: K7 dependent op chain, the TPU tool's ten int32 "
+        f"bodies and the pipe probe (launches: the probe tool's run; timed: "
+        f"stagemix10 x {K_ROW})",
         "tools/probe_vpu.py:49", probe_launches[0], "K7",
         *probe_ms["K7"][:2], cost_probe["K7"], source=psrc)
     row("copy_kernel: K8 o = x + 1 over 2^28 bytes each way",
         "tools/probe_vpu.py:135", probe_launches[1], "K8",
         *probe_ms["K8"][:2], cost_probe["K8"], source=psrc,
         library_ms=add_ms)
-    row(f"chain_kernel: K9 int16 add chain, plain and packed (launches: the "
-        f"probe tool's run; timed: add x {K_ROW})", "tools/probe_vpu.py:226",
+    row(f"packed_chain_kernel: K9 int16 add chain, two int16 a register, "
+        f"its packed adds on both pipes (launches: the probe tool's run; "
+        f"timed: add x {K_ROW})", "tools/probe_vpu.py:226",
         probe_launches[2], "K9", *probe_ms["K9"][:2], cost_probe["K9"],
         source=psrc)
     row(f"stage_loop_kernel / stage_once_kernel: K10 per-stage probe, "

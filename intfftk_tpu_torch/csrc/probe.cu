@@ -9,10 +9,25 @@
 //     _stage_mix10 (:88), select and roll -> chain_kernel<BODY, uint32_t>;
 //   * probe_hbm (:135, pallas_call at :144): o = x + 1 over 2^28 bytes each
 //     way -> copy_kernel;
-//   * the int16 add chain mk16 (:219-236, pallas_call at :226): c = c + c on
-//     int16 storage -> chain_kernel<kAdd, uint16_t>, and as a second body
-//     two int16 values packed in one 32-bit register (kAddPacked).
-//
+//   * the int16 add chain mk16 (:219-236, pallas_call at :226), "int16 add
+//     chain at int16 dtype (packing throughput probe)": c = c + c on int16
+//     data, which the TPU keeps two to a 32-bit word, so every add there is
+//     a packed add -> packed_chain_kernel<kAddPackedSpread> (K9): two int16
+//     lanes in one 32-bit register.  Two readings stand beside it:
+//     packed_chain_kernel<kAddPacked>, every chain one __vadd2 (the native
+//     VIADD.16x2) per iteration, and chain_kernel<kAdd, uint16_t>, one int16
+//     per register, wrapped to 16 bits at every iteration.
+// Not a TPU kernel: kPairVadd2Imad, a pipe probe.  Its even chains run the
+// packed add, its odd chains a multiply (IMAD, the FMA pipe): where the
+// packed add issues on the other pipe the two co-issue and the pair reads
+// near twice the packed chain's instruction rate; where it shares the FMA
+// pipe, near the same rate.  On an H100 it reads the same rate: VIADD.16x2
+// issues on the FMA pipe, 64 lanes a clock of the SM's 128.  So K9 spreads
+// its chains over both pipes: three of four run VIADD.16x2, the fourth the
+// same exact packed add on the ALU pipe in two instructions (a funnel
+// shift and a mask); sixteen chains a thread spread the loop's own
+// counter, compare and branch over 32 adds.
+
 // What they compute.  chain_kernel: every thread loads kIlp independent
 // values from device memory (element (blockIdx * kIlp + j) * kThreads +
 // threadIdx), applies body to each K times, K a run-time argument, and
@@ -57,8 +72,13 @@ namespace {
 constexpr int kThreads = 256;
 // independent chains per thread
 constexpr int kIlp = 8;
+// independent chains per thread of the packed int16 chains, and the blocks
+// of kThreads * kIlpPacked registers each of their CTAs runs in turn
+constexpr int kIlpPacked = 16;
+constexpr int kRoundsPacked = 2;
 
-// the chain bodies, in the order of BODIES in the wrapper's module
+// the chain bodies: the indices of BODIES and INT16_CHAINS in the wrapper's
+// module
 enum Body : int {
   kAdd = 0,
   kAdd16x = 1,
@@ -71,16 +91,24 @@ enum Body : int {
   kSelect = 8,
   kRoll = 9,
   kAddPacked = 10,
-  kBodies = 11
+  kPairVadd2Imad = 11,
+  kAddPackedSpread = 12,
+  kBodies = 13
 };
+
+// the int16 chains: two int16 lanes a register
+constexpr bool packed_body(int which) {
+  return which == kAddPacked || which == kAddPackedSpread;
+}
 
 // arithmetic shift right of the two's-complement value in u
 __device__ __forceinline__ uint32_t sra(uint32_t u, int s) {
   return static_cast<uint32_t>(static_cast<int32_t>(u) >> s);
 }
 
+// one iteration of chain j (a compile-time constant after unrolling)
 template <int BODY>
-__device__ __forceinline__ uint32_t body(uint32_t c) {
+__device__ __forceinline__ uint32_t body(uint32_t c, int j) {
   if constexpr (BODY == kAdd) {
     return c + c;
   } else if constexpr (BODY == kAdd16x) {
@@ -115,9 +143,18 @@ __device__ __forceinline__ uint32_t body(uint32_t c) {
     // 2 ops: the value of the lane before this one, plus one
     const int lane = threadIdx.x & 31;
     return __shfl_sync(0xFFFFFFFFu, c, (lane + 31) & 31) + 1u;
-  } else {
-    // kAddPacked: two int16 lanes of one register, each wrapping
+  } else if constexpr (BODY == kAddPacked) {
+    // two int16 lanes of one register, each wrapping
     return __vadd2(c, c);
+  } else if constexpr (BODY == kAddPackedSpread) {
+    // the same add on both pipes: VIADD.16x2 (the FMA pipe) on three
+    // chains of four; on the fourth a rotate left by one (the funnel shift,
+    // which only the ALU pipe does) with each lane's carry-in bit cleared
+    return (j % 4 == 3) ? (__funnelshift_l(c, c, 1) & 0xFFFEFFFEu)
+                        : __vadd2(c, c);
+  } else {
+    // kPairVadd2Imad: the packed add on even chains, a multiply on odd ones
+    return (j & 1) ? c * c : __vadd2(c, c);
   }
 }
 
@@ -135,12 +172,48 @@ chain_kernel(const T* __restrict__ x, T* __restrict__ y, int k) {
   for (int i = 0; i < k; ++i) {
 #pragma unroll
     for (int j = 0; j < kIlp; ++j) {
-      c[j] = body<BODY>(c[j]);
+      c[j] = body<BODY>(c[j], j);
       if constexpr (sizeof(T) == 2) c[j] = static_cast<T>(c[j]);
     }
   }
 #pragma unroll
   for (int j = 0; j < kIlp; ++j) y[base + j * kThreads] = static_cast<T>(c[j]);
+}
+
+// The packed int16 chains (K9): two int16 lanes a register, kIlpPacked
+// chains a thread (the loop's counter, compare and branch over 32 adds),
+// and each CTA walks kRoundsPacked blocks of registers, the next block's
+// loads in flight while the current block's chain runs: only the first
+// block's loads and the last one's stores are not hidden behind the adds.
+// Block b holds registers (b * kIlpPacked + j) * kThreads + threadIdx.
+template <int BODY>
+__global__ void __launch_bounds__(kThreads)
+packed_chain_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
+                    int k, long long blocks) {
+  uint32_t c[kIlpPacked], next[kIlpPacked] = {};
+  long long b = blockIdx.x;
+#pragma unroll
+  for (int j = 0; j < kIlpPacked; ++j)
+    c[j] = x[(b * kIlpPacked + j) * kThreads + threadIdx.x];
+#pragma unroll 1
+  for (; b < blocks; b += gridDim.x) {
+    const long long nb = b + gridDim.x;
+    if (nb < blocks) {
+#pragma unroll
+      for (int j = 0; j < kIlpPacked; ++j)
+        next[j] = x[(nb * kIlpPacked + j) * kThreads + threadIdx.x];
+    }
+#pragma unroll 1
+    for (int i = 0; i < k; ++i) {
+#pragma unroll
+      for (int j = 0; j < kIlpPacked; ++j) c[j] = body<BODY>(c[j], j);
+    }
+#pragma unroll
+    for (int j = 0; j < kIlpPacked; ++j) {
+      y[(b * kIlpPacked + j) * kThreads + threadIdx.x] = c[j];
+      c[j] = next[j];
+    }
+  }
 }
 
 // One 16-byte load and one 16-byte store per thread, on a grid that covers
@@ -163,6 +236,17 @@ copy_kernel(const int4* __restrict__ x, int4* __restrict__ y, size_t n4) {
   }
 }
 
+template <int BODY>
+cudaError_t launch_packed(const void* x, void* y, long long regs, int k,
+                          cudaStream_t stream) {
+  const long long blocks = regs / (kThreads * kIlpPacked);
+  const long long grid = (blocks + kRoundsPacked - 1) / kRoundsPacked;
+  packed_chain_kernel<BODY><<<static_cast<unsigned>(grid), kThreads, 0,
+                              stream>>>(static_cast<const uint32_t*>(x),
+                                        static_cast<uint32_t*>(y), k, blocks);
+  return cudaGetLastError();
+}
+
 template <int BODY, typename T>
 cudaError_t launch_chain(const void* x, void* y, long long regs, int k,
                          cudaStream_t stream) {
@@ -172,13 +256,14 @@ cudaError_t launch_chain(const void* x, void* y, long long regs, int k,
   return cudaGetLastError();
 }
 
+// the int32 bodies: every one but the packed int16 chains
 template <int BODY = 0>
 cudaError_t dispatch_chain(int which, const void* x, void* y, long long regs,
                            int k, cudaStream_t stream) {
-  if constexpr (BODY > kRoll) {
+  if constexpr (BODY >= kBodies) {
     return cudaErrorInvalidValue;
   } else {
-    if (which == BODY)
+    if (which == BODY && !packed_body(BODY))
       return launch_chain<BODY, uint32_t>(x, y, regs, k, stream);
     return dispatch_chain<BODY + 1>(which, x, y, regs, k, stream);
   }
@@ -187,15 +272,18 @@ cudaError_t dispatch_chain(int which, const void* x, void* y, long long regs,
 }  // namespace
 
 // One launch of chain_kernel: y = body^k(x) over n elements of elem_size
-// bytes (4: int32, every body but kAddPacked; 2: int16, kAdd or
-// kAddPacked).  n must fill whole CTAs: a multiple of kThreads * kIlp
-// registers (a register holds one element, or two under kAddPacked).
+// bytes (4: int32, every body but the packed ones; 2: int16, a packed
+// chain, two int16 a register, or kAdd, one int16 per register).  n must
+// fill whole blocks: a multiple of kThreads * kIlp registers, of
+// kThreads * kIlpPacked in the packed chains.
 extern "C" int intfft_probe_chain(const void* x, void* y, long long n,
                                   int elem_size, int which, int k, int device,
                                   void* stream) {
-  const bool packed = which == kAddPacked;
+  const bool packed = which >= 0 && which < kBodies && packed_body(which);
   const long long regs = packed ? n / 2 : n;
-  if (n <= 0 || k < 0 || regs % (kThreads * kIlp) != 0 ||
+  const long long block = kThreads * (packed ? kIlpPacked : kIlp);
+  if (n <= 0 || k < 0 || regs % block != 0 ||
+      regs / block > 0x7FFFFFFFLL ||
       (packed && n % 2 != 0) || (elem_size != 4 && elem_size != 2) ||
       (elem_size == 2 && which != kAdd && !packed) ||
       (elem_size == 4 && packed) || which < 0 || which >= kBodies)
@@ -203,8 +291,10 @@ extern "C" int intfft_probe_chain(const void* x, void* y, long long n,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (packed)
-    err = launch_chain<kAddPacked, uint32_t>(x, y, regs, k, s);
+  if (which == kAddPacked)
+    err = launch_packed<kAddPacked>(x, y, regs, k, s);
+  else if (which == kAddPackedSpread)
+    err = launch_packed<kAddPackedSpread>(x, y, regs, k, s);
   else if (elem_size == 2)
     err = launch_chain<kAdd, uint16_t>(x, y, regs, k, s);
   else
@@ -230,9 +320,12 @@ extern "C" int intfft_probe_copy(const void* x, void* y, long long n_words,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers (elements, or pairs under kAddPacked) one CTA of chain_kernel
-// holds: kThreads * kIlp.
+// Registers (elements) one CTA of chain_kernel holds: kThreads * kIlp.
 extern "C" int intfft_probe_cta_elems() { return kThreads * kIlp; }
+
+// Registers (pairs of int16) of one block of packed_chain_kernel:
+// kThreads * kIlpPacked.
+extern "C" int intfft_probe_packed_block() { return kThreads * kIlpPacked; }
 
 // The card's device-memory peak in bytes per second, from its attributes:
 // memory clock (kHz) x 2 transfers per clock x bus width (bits) / 8; on an

@@ -207,6 +207,8 @@ def library(threads: int | None = None):
     lib.intfft_probe_copy.restype = i32
     lib.intfft_probe_cta_elems.argtypes = []
     lib.intfft_probe_cta_elems.restype = i32
+    lib.intfft_probe_packed_block.argtypes = []
+    lib.intfft_probe_packed_block.restype = i32
     lib.intfft_probe_mem_peak.argtypes = [i32]
     lib.intfft_probe_mem_peak.restype = i64
     lib.intfft_spectrum_product.argtypes = ([ptr] * 6 + [i64, i64]

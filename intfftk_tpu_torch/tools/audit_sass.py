@@ -27,8 +27,10 @@ the counter:
   SM's issue: ``fma_pipe`` (every IMAD form, the copies and adds the
   compiler writes as IMAD among them) and ``alu_pipe`` (the other ``alu``
   and ``move`` instructions: adds, logic, shifts, compares, selects);
-* ``audit_probe_chain(body)``: instructions per iteration and chain of
-  ``chain_kernel<body>``: the ceiling's denominator;
+* ``audit_probe_chain(body, int16=)``: instructions per iteration and
+  chain of ``chain_kernel<body>``: the ceiling's denominator, and the issue
+  limit of the int16 chains (K9); ``loop_opcodes``: a loop's opcodes with
+  their modifiers (the packed add's ``VIADD.16x2``);
 * ``audit_stage(step)``: instructions per butterfly of
   ``stage_loop_kernel<step>`` (``csrc/probe_stages.cu``): the numerator by
   step.  A round-trip step (``prod_p*``) stores four words per butterfly; a
@@ -345,7 +347,10 @@ def find_function(sass: dict, pattern: str) -> str:
 
 
 def chain_pattern(index: int, letter: str = "j") -> str:
-    """``chain_kernel<index, T>``: T = "j" (uint32_t) or "t" (uint16_t)."""
+    """``chain_kernel<index, T>``: T = "j" (uint32_t) or "t" (uint16_t);
+    "p": ``packed_chain_kernel<index>``."""
+    if letter == "p":
+        return rf"packed_chain_kernelILi{index}EE"
     return rf"chain_kernelILi{index}E{letter}E"
 
 
@@ -380,12 +385,14 @@ def pass_pattern(wide: bool = False, threads: int | None = None) -> str:
 
 def chain_loop_sizes(sass: dict) -> dict:
     """{(body index, storage letter): instructions in the chain loop} of
-    every compiled chain kernel: the whole span, the loop's own included."""
+    every compiled chain kernel (``chain_pattern``'s letters): the whole
+    span, the loop's own included."""
     out = {}
     for name, ins in sass.items():
-        m = re.search(r"chain_kernelILi(\d+)E(\w)E", name)
+        m = re.search(r"(packed_)?chain_kernelILi(\d+)E(\w)E", name)
         if m and loops(ins):
-            out[int(m.group(1)), m.group(2)] = count_loop(ins).total()
+            key = int(m.group(2)), "p" if m.group(1) else m.group(3)
+            out[key] = count_loop(ins, chain_loop(ins)).total()
     return out
 
 
@@ -410,21 +417,67 @@ def group_split(log_rows: int, wide: bool = False) -> list[tuple[int, int]]:
     return out
 
 
-#: Independent chains per thread of ``chain_kernel`` (``csrc/probe.cu``).
+#: Independent chains per thread of ``chain_kernel`` (``csrc/probe.cu``),
+#: and of ``packed_chain_kernel`` (``kIlpPacked``).
 CHAINS_PER_THREAD = 8
+PACKED_CHAINS_PER_THREAD = 16
 #: Samples per thread and trip of a register step (``csrc/probe_stages.cu``).
 SAMPLES_PER_TRIP = 8
 
 
-def audit_probe_chain(body: str, sass: dict | None = None) -> Counts:
+def audit_probe_chain(body: str, sass: dict | None = None,
+                      int16: bool = False) -> Counts:
     """Instructions of one trip of ``chain_kernel<body>``'s loop by class:
-    ``CHAINS_PER_THREAD`` chains' worth (divide by it for instructions per
-    iteration and chain)."""
+    ``chains_per_thread`` chains' worth (divide by it for instructions per
+    iteration and chain, that is per register).  ``int16``: the chain an
+    int16 tensor takes (``probe_vpu.INT16_CHAINS``)."""
+    ins = chain_function(body, sass, int16)
+    return count_loop(ins, chain_loop(ins))
+
+
+def chains_per_thread(body: str, int16: bool = False) -> int:
+    """Independent chains a thread of the chain's kernel runs."""
+    return (PACKED_CHAINS_PER_THREAD if int16 and body != "add_unpacked"
+            else CHAINS_PER_THREAD)
+
+
+def chain_loop(instrs: list[Instr]) -> tuple[int, int]:
+    """The K loop of a chain kernel: the last loop that holds no other
+    (``packed_chain_kernel`` runs it inside its loop over blocks)."""
+    found = loops(instrs)
+    return [s for s in found if not any(
+        o != s and s[0] <= o[0] and o[1] <= s[1] for o in found)][-1]
+
+
+def chain_function(body: str, sass: dict | None = None,
+                   int16: bool = False) -> list[Instr]:
+    """The SASS of the chain kernel ``probe_chain(body, x)`` launches on an
+    int32 tensor, or on an int16 one: the packed chains are
+    ``packed_chain_kernel``, "add_unpacked" holds one int16 in a
+    uint16_t."""
+    import torch
+
     from . import probe_vpu
 
     sass = library_sass() if sass is None else sass
-    b = probe_vpu.BODIES[body]
-    return count_loop(sass[find_function(sass, chain_pattern(b.index))])
+    dtype = torch.int16 if int16 else torch.int32
+    if probe_vpu.per_register(body, dtype) == 2:
+        letter = "p"
+    else:
+        letter = "t" if int16 else "j"
+    index = probe_vpu.body_of(body, dtype).index
+    return sass[find_function(sass, chain_pattern(index, letter))]
+
+
+def loop_opcodes(instrs: list[Instr]) -> dict[str, int]:
+    """{opcode with its modifiers: count} over a chain kernel's K loop
+    (``chain_loop``), the loop's own branch, compare and counter
+    included."""
+    span = chain_loop(instrs)
+    out = {}
+    for i in _span(instrs, span):
+        out[i.opcode] = out.get(i.opcode, 0) + 1
+    return out
 
 
 def audit_stage(step: str, sass: dict | None = None,
@@ -602,6 +655,8 @@ FIXTURE_STEPS = ("prod_p0", "prod_p1", "prod_p7", "epilogue_cmult",
 
 
 def main(argv=None) -> int:
+    import torch
+
     from . import probe_stages, probe_vpu
 
     argv = sys.argv[1:] if argv is None else argv
@@ -618,6 +673,13 @@ def main(argv=None) -> int:
             body: dict(summarize(audit_probe_chain(body, sass).scaled(
                 CHAINS_PER_THREAD)), source_ops=probe_vpu.BODIES[body].ops)
             for body in probe_vpu.INT32_BODIES}
+        for body in probe_vpu.INT16_BODIES:
+            ins = chain_function(body, sass, int16=True)
+            out["probes"][f"int16 {body}"] = dict(
+                summarize(count_loop(ins, chain_loop(ins)).scaled(
+                    chains_per_thread(body, int16=True))),
+                loop_opcodes=loop_opcodes(ins),
+                source_ops=probe_vpu.per_register(body, torch.int16))
     if "--dump" in argv:
         where = Path(argv[argv.index("--dump") + 1])
         where.mkdir(parents=True, exist_ok=True)

@@ -6,12 +6,24 @@ Pallas kernels are the hand-written CUDA kernels of ``csrc/probe.cu``:
 
 * ``_chain_kernel`` (:49) -> ``probe_chain(body, x, k)``: ``k`` iterations
   of a dependent op chain ``body(c)`` on every element of an int32 tensor,
-  for the ten bodies of ``BODIES`` (add, add16x, mul, mul16x, shift,
+  for the ten bodies of the TPU tool (add, add16x, mul, mul16x, shift,
   bitwise, mixed7, stagemix10, select, roll);
-* the int16 add chain ``mk16`` (:219-236) -> ``probe_chain("add", x, k)``
-  on an int16 tensor, and ``"add_packed"``: the same chain with two int16
-  values in one 32-bit register;
+* the int16 add chain ``mk16`` (:219-236), the TPU's "packing throughput
+  probe" (the TPU keeps int16 two to a 32-bit word) ->
+  ``probe_chain("add", x, k)`` on an int16 tensor (K9): two int16 values
+  in one 32-bit register, sixteen chains a thread, three of four on the
+  packed add ``VIADD.16x2`` (the FMA pipe), the fourth on the same exact
+  add in two ALU-pipe instructions; two readings stand beside it:
+  ``"add_vadd2"``, every chain ``VIADD.16x2``, and ``"add_unpacked"``, one
+  int16 per register;
 * ``probe_hbm`` (:135) -> ``probe_copy(x)``: ``o = x + 1``.
+
+One int32 body is the port's own, a pipe probe: ``"pair"`` runs the packed
+add on the even chains of a thread and a multiply (the FMA pipe) on the odd
+ones, one instruction per element and iteration.  Where the packed add
+issues on the other pipe, the pair's instructions/s read near twice the
+packed chain's; where it shares the FMA pipe, near the same (as on an
+H100: K9's spread over both pipes follows from it).
 
 Beside each kernel stands its plain PyTorch version (``chain_reference``,
 ``copy_reference``): a CPU tensor takes it, a CUDA tensor launches the
@@ -46,7 +58,9 @@ Usage, on a machine with the card:
     python -m intfftk_tpu_torch.tools.probe_vpu [--quick] [--bend N]
 
 prints one JSON dict of measured ceilings (ops/s by op class, device-memory
-bytes/s) with the keys of the TPU tool, and ``hbm_peak_bytes_per_s``;
+bytes/s) with the keys of the TPU tool (``add16_ops_per_s``: K9's packed
+int16 add), and ``add16_vadd2_ops_per_s``, ``add16_unpacked_ops_per_s``,
+``pair_vadd2_imad_instr_per_s`` and ``hbm_peak_bytes_per_s``;
 ``add_unroll16_ops_per_s`` is null (``FOLDED_KEYS``).  With ``--bend N`` it
 prints instead how far N readings of each chain bent (``bend``).
 """
@@ -62,6 +76,7 @@ import torch
 
 from ..device import resolve, use_kernel
 from ..ops import _build
+from .audit_sass import CHAINS_PER_THREAD
 
 
 class Body(NamedTuple):
@@ -87,24 +102,40 @@ BODIES = {
     "stagemix10": Body(7, 10, 6, "stagemix10_ops_per_s"),
     "select": Body(8, 3, 2, "select_ops_per_s"),
     "roll": Body(9, 2, 1, "roll_ops_per_s"),
-    # int16 storage only: two elements per register
-    "add_packed": Body(10, 1, 1, "add16_packed_ops_per_s"),
+    # the pipe probe: one instruction per element and iteration
+    "pair": Body(11, 1, 1, "pair_vadd2_imad_instr_per_s"),
 }
-#: The bodies of the int32 chain (K7), in the order ``main`` measures them.
-INT32_BODIES = tuple(b for b in BODIES if b != "add_packed")
-#: The bodies an int16 tensor takes (K9).
-INT16_BODIES = ("add", "add_packed")
-#: CTAs per SM of a timed chain launch: every SM holds them all at once.
+#: The bodies an int32 tensor takes (K7, and the pipe probe).
+INT32_BODIES = tuple(BODIES)
+#: The chains an int16 tensor takes: "add" (K9, the TPU tool's
+#: add16_ops_per_s), two int16 values per 32-bit register, its packed adds
+#: spread over both pipes; "add_vadd2", every chain the native packed add;
+#: "add_unpacked", one per register, wrapped to 16 bits at every iteration.
+INT16_CHAINS = {
+    "add": Body(12, 1, 1, "add16_ops_per_s"),
+    "add_vadd2": Body(10, 1, 1, "add16_vadd2_ops_per_s"),
+    "add_unpacked": Body(0, 1, 1, "add16_unpacked_ops_per_s"),
+}
+#: the int16 chains by their names in ``CHAIN_ORDER``
+INT16_NAMES = {"add16": "add", "add16_vadd2": "add_vadd2",
+               "add16_unpacked": "add_unpacked"}
+INT16_BODIES = tuple(INT16_CHAINS)
+#: Threads per CTA of the chain kernel (``kThreads`` of ``csrc/probe.cu``).
+CHAIN_THREADS = 256
+#: The size of a timed chain's input: this many CTAs of ``chain_kernel``
+#: per SM, every SM holding them all at once (the packed chains run the
+#: same registers as half as many CTAs of two blocks each).
 CTAS_PER_SM = 8
 #: Chain lengths of a timed reading (lo, mid, hi) before they are scaled
 #: to the time the longest launch shall take (ms), full and ``--quick``.
 K_BASE = (4096, 10240, 16384)
 TARGET_MS, TARGET_MS_QUICK = 80.0, 40.0
 #: The chains in the order ``main`` measures them (the TPU tool's order of
-#: keys): K7's ten, with K9's two before ``roll``.
+#: keys): K7's ten, with K9 ("add16": the packed "add" on int16) and its two
+#: readings before ``roll``, then the pipe probe.
 CHAIN_ORDER = ("add", "add16x", "mul", "mul16x", "shift", "bitwise",
-               "mixed7", "stagemix10", "select", "add16", "add_packed",
-               "roll")
+               "mixed7", "stagemix10", "select", "add16", "add16_vadd2",
+               "add16_unpacked", "roll", "pair")
 #: Keys published as None: ptxas compiles the sixteen doublings of add16x
 #: to one shift, so its reading is no rate of adds.
 FOLDED_KEYS = ("add_unroll16_ops_per_s",)
@@ -112,9 +143,29 @@ FOLDED_KEYS = ("add_unroll16_ops_per_s",)
 LINEAR_TOL = 0.05
 
 
+def body_of(body: str, dtype: torch.dtype) -> Body:
+    """The chain ``body`` runs on a tensor of ``dtype``: int16 takes
+    ``INT16_CHAINS``, int32 ``BODIES``."""
+    return (INT16_CHAINS if dtype == torch.int16 else BODIES)[body]
+
+
+def per_register(body: str, dtype: torch.dtype) -> int:
+    """Elements one 32-bit register of the chain holds: two for the packed
+    int16 add, else one."""
+    return 2 if dtype == torch.int16 and body != "add_unpacked" else 1
+
+
+def chain_of(name: str) -> tuple[str, torch.dtype]:
+    """(body, dtype) of a name of ``CHAIN_ORDER``."""
+    if name in INT16_NAMES:
+        return INT16_NAMES[name], torch.int16
+    return name, torch.int32
+
+
 def _check_chain(body: str, x: torch.Tensor, k: int):
-    if body not in BODIES:
-        raise ValueError(f"bad body {body!r}, one of {tuple(BODIES)}")
+    if body not in BODIES and body not in INT16_CHAINS:
+        raise ValueError(f"bad body {body!r}, one of "
+                         f"{INT32_BODIES + INT16_BODIES[1:]}")
     want = INT16_BODIES if x.dtype == torch.int16 else INT32_BODIES
     if x.dtype not in (torch.int32, torch.int16) or body not in want:
         raise TypeError(f"body {body!r} does not take {x.dtype}: int32 "
@@ -131,11 +182,16 @@ def chain_reference(body: str, x: torch.Tensor, k: int) -> torch.Tensor:
     applied ``k`` times to every element of an int32 (or, for the add
     chains, int16) tensor, with two's-complement wrap-around.  ``roll`` is
     the rotate by one place within each run of 32 consecutive elements,
-    plus one."""
+    plus one.  ``pair``: element i belongs to chain (i // CHAIN_THREADS) %
+    CHAINS_PER_THREAD of its thread; an even chain doubles the two int16
+    halves of the element, each wrapping, an odd one squares it."""
     _check_chain(body, x, k)
     c = x.clone()
+    if body == "pair":
+        chain = torch.arange(c.numel(), device=c.device) // CHAIN_THREADS
+        odd = (chain % CHAINS_PER_THREAD % 2 == 1).reshape(c.shape)
     for _ in range(k):
-        if body in ("add", "add_packed"):
+        if body in ("add", "add_vadd2", "add_unpacked"):
             c = c + c
         elif body == "add16x":
             for _ in range(16):
@@ -160,23 +216,29 @@ def chain_reference(body: str, x: torch.Tensor, k: int) -> torch.Tensor:
             c = f + d
         elif body == "select":
             c = torch.where(c > 0, c + 1, c - 1)
-        else:                                           # roll
+        elif body == "roll":
             c = torch.roll(c.reshape(-1, 32), 1, dims=1).reshape(x.shape) + 1
+        else:                                           # pair
+            h = c.reshape(-1).view(torch.int16)
+            c = torch.where(odd, c * c, (h + h).view(torch.int32).reshape(
+                c.shape))
     return c
 
 
 def probe_chain(body: str, x: torch.Tensor, k: int) -> torch.Tensor:
     """``body`` applied ``k`` times to every element of ``x`` (contiguous
-    int32; int16 for "add" and "add_packed").  A CUDA tensor launches
-    ``chain_kernel`` of ``csrc/probe.cu`` on the current stream (no
-    synchronisation) and adds one to ``probe_chain.launches`` (an int16
-    tensor also to ``probe_chain.launches_int16``); its element
-    count must fill whole CTAs (a multiple of ``cta_elems()``, twice that
-    for "add_packed").  A CPU tensor runs ``chain_reference``."""
+    int32; int16 for "add", "add_vadd2" and "add_unpacked").  A CUDA
+    tensor launches ``chain_kernel`` of ``csrc/probe.cu`` (the packed int16
+    chains ``packed_chain_kernel``) on the current stream (no
+    synchronisation) and adds one to ``probe_chain.launches`` (an
+    int16 tensor also to ``probe_chain.launches_int16``, and the int16
+    "add", K9, to ``probe_chain.launches_add16``); its element count must
+    fill whole blocks of the kernel (a multiple of ``block_elems``).  A
+    CPU tensor runs ``chain_reference``."""
     _check_chain(body, x, k)
     if not use_kernel(x.device):
         return chain_reference(body, x, k)
-    per_cta = cta_elems() * (2 if body == "add_packed" else 1)
+    per_cta = block_elems(body, x.dtype)
     if not x.is_contiguous() or x.numel() == 0 or x.numel() % per_cta:
         raise ValueError(f"the chain kernel takes a contiguous tensor of a "
                          f"multiple of {per_cta} elements, got "
@@ -185,23 +247,35 @@ def probe_chain(body: str, x: torch.Tensor, k: int) -> torch.Tensor:
     lib = _build.library()
     err = lib.intfft_probe_chain(
         x.data_ptr(), y.data_ptr(), x.numel(), x.element_size(),
-        BODIES[body].index, k, x.device.index,
+        body_of(body, x.dtype).index, k, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, f"probe_chain({body}) launch")
     probe_chain.launches += 1
     probe_chain.launches_int16 += x.dtype == torch.int16
+    probe_chain.launches_add16 += x.dtype == torch.int16 and body == "add"
     return y
 
 
 #: Kernel launches made by ``probe_chain`` (plain counts; reset them to 0):
-#: all of them, and those of the int16 chain among them.
+#: all of them, those of the int16 chains among them, and those of the
+#: int16 "add" chain (K9) among those.
 probe_chain.launches = 0
 probe_chain.launches_int16 = 0
+probe_chain.launches_add16 = 0
 
 
 def cta_elems() -> int:
-    """Registers one CTA of the chain kernel holds (one element each)."""
+    """Registers one CTA of ``chain_kernel`` holds (one element each)."""
     return _build.library().intfft_probe_cta_elems()
+
+
+def block_elems(body: str, dtype: torch.dtype) -> int:
+    """Elements of one block of the kernel the chain runs: a CTA of
+    ``chain_kernel``, or in the packed int16 chains a block of
+    ``packed_chain_kernel`` (two int16 a register)."""
+    if per_register(body, dtype) == 2:
+        return 2 * _build.library().intfft_probe_packed_block()
+    return cta_elems()
 
 
 def copy_reference(x: torch.Tensor) -> torch.Tensor:
@@ -345,7 +419,7 @@ def chain_ops_per_s(body: str, dtype=torch.int32, target_ms=TARGET_MS,
         x = chain_input(dtype, device)
     ks, rounds = timed_lengths(lambda k: probe_chain(body, x, k), target_ms,
                                reps)
-    work = x.numel() * BODIES[body].ops
+    work = x.numel() * body_of(body, x.dtype).ops
     return ChainReading(body, x.dtype, *marginal_rates(work, ks, rounds), ks,
                         tuple(_median(col) for col in zip(*rounds)))
 
@@ -379,14 +453,13 @@ def memory_peak(device=None) -> float:
 def check_reading(r: ChainReading, peak: float):
     """The two guards of a chain reading; raises GuardError when one
     fails.  ``peak``: ``lane_rate_peak``."""
-    b = BODIES[r.body]
+    b = body_of(r.body, r.dtype)
     if abs(r.ops_per_s_lo - r.ops_per_s_hi) > LINEAR_TOL * r.ops_per_s:
         raise GuardError(
             f"chain {r.body}: time is not linear in the chain length (ms "
             f"{r.ms} at {r.ks}; {r.ops_per_s_lo:.4g} and "
             f"{r.ops_per_s_hi:.4g} ops/s over the two half-ranges)")
-    per_reg = 2 if r.body == "add_packed" else 1
-    limit = peak * b.ops / b.min_instr * per_reg
+    limit = peak * b.ops / b.min_instr * per_register(r.body, r.dtype)
     if not 0 < r.ops_per_s <= limit:
         raise GuardError(
             f"chain {r.body}: {r.ops_per_s:.4g} ops/s is above "
@@ -422,9 +495,9 @@ def probe_hbm(nbytes: int = 1 << 28, device=None, reps: int = 5) -> float:
 def measure_all(quick: bool = False, device=None, emit=None,
                 bodies=None) -> dict:
     """Every ceiling of ``main``, as {key: value}: the chains of ``bodies``
-    (all of them when left out; the int16 chains go by "add16" and
-    "add_packed"), each held to ``check_reading``, then the copy rate
-    ``hbm_bytes_per_s`` and the card's ``hbm_peak_bytes_per_s``
+    (names of ``CHAIN_ORDER``, all of them when left out), each held to
+    ``check_reading``, then the copy rate ``hbm_bytes_per_s`` and the
+    card's ``hbm_peak_bytes_per_s``
     (``memory_peak``).  A key of ``FOLDED_KEYS`` is timed and guarded like
     the others and published as None.  ``emit(key, value)`` is called as
     each arrives."""
@@ -438,15 +511,12 @@ def measure_all(quick: bool = False, device=None, emit=None,
         if emit is not None:
             emit(key, out[key])
 
-    x32 = chain_input(torch.int32, device)
-    x16 = chain_input(torch.int16, device)
+    xs = {t: chain_input(t, device) for t in (torch.int32, torch.int16)}
     for name in CHAIN_ORDER if bodies is None else bodies:
-        body, x = ("add", x16) if name == "add16" else (
-            name, x16 if name == "add_packed" else x32)
-        r = chain_ops_per_s(body, target_ms=target, x=x)
+        body, dtype = chain_of(name)
+        r = chain_ops_per_s(body, target_ms=target, x=xs[dtype])
         check_reading(r, peak)
-        put("add16_ops_per_s" if name == "add16" else BODIES[body].key,
-            r.ops_per_s)
+        put(body_of(body, dtype).key, r.ops_per_s)
     put("hbm_bytes_per_s", probe_hbm(1 << 26 if quick else 1 << 28, device))
     put("hbm_peak_bytes_per_s", memory_peak(device))
     return out
@@ -488,12 +558,10 @@ def bend(readings: int, quick: bool = False, device=None) -> int:
     the rate itself.  Prints one line per chain; no guard is applied."""
     device = _card(device)
     target = TARGET_MS_QUICK if quick else TARGET_MS
-    x32 = chain_input(torch.int32, device)
-    x16 = chain_input(torch.int16, device)
+    xs = {t: chain_input(t, device) for t in (torch.int32, torch.int16)}
     for name in CHAIN_ORDER:
-        body, x = ("add", x16) if name == "add16" else (
-            name, x16 if name == "add_packed" else x32)
-        rs = [chain_ops_per_s(body, target_ms=target, x=x)
+        body, dtype = chain_of(name)
+        rs = [chain_ops_per_s(body, target_ms=target, x=xs[dtype])
               for _ in range(readings)]
         worst = max(abs(r.ops_per_s_lo - r.ops_per_s_hi) / r.ops_per_s
                     for r in rs)

@@ -5,6 +5,7 @@ text captured from the built kernel library on an NVIDIA H100's toolkit
 tests read, encoding columns cut), and the instruction-counted bound of
 ``utils.roofline`` from it.  The counts below were read off that dump."""
 
+import re
 from pathlib import Path
 
 import pytest
@@ -59,6 +60,44 @@ def test_parser_on_a_hand_written_loop():
                                 "alu_pipe": 0.0}
     with pytest.raises(ValueError, match="no loop"):
         au.count_loop(ins[6:])
+
+
+PACKED = """\
+		Function : _ZN12_GLOBAL__N_119packed_chain_kernelILi12EEEvPKjPjix
+        /*0000*/                   LDG.E R2, desc[UR4][R6.64] ;
+        /*0010*/                   LDG.E R3, desc[UR4][R8.64] ;
+        /*0020*/                   VIADD.16x2 R2, R2, R2 ;
+        /*0030*/                   SHF.L.W.U32.HI R3, R3, 0x1, R3 ;
+        /*0040*/                   LOP3.LUT R3, R3, 0xfffefffe, RZ, 0xc0, !PT ;
+        /*0050*/                   UIADD3 UR5, UR5, 0x1, URZ ;
+        /*0060*/                   ISETP.LE.AND P0, PT, R4, UR5, PT ;
+        /*0070*/              @!P0 BRA 0x20 ;
+        /*0080*/                   STG.E desc[UR4][R6.64], R2 ;
+        /*0090*/                   IADD3 R0, R0, 0x108, RZ ;
+        /*00a0*/                   ISETP.GE.AND P1, PT, R0, R5, PT ;
+        /*00b0*/              @!P1 BRA 0x0 ;
+        /*00c0*/                   EXIT ;
+"""
+
+
+def test_packed_chain_kernel_loop():
+    """The packed chains' kernel runs its K loop inside its loop over
+    blocks: the chain's loop is the inner one, found by name, counted and
+    listed with its opcodes' modifiers."""
+    sass = au.parse_sass(PACKED)
+    name = au.find_function(sass, au.chain_pattern(12, "p"))
+    ins = sass[name]
+    assert au.loops(ins) == [(0x20, 0x70), (0x0, 0xb0)]
+    assert au.chain_loop(ins) == (0x20, 0x70)
+    assert au.loop_opcodes(ins) == {
+        "VIADD.16x2": 1, "SHF.L.W.U32.HI": 1, "LOP3.LUT": 1, "UIADD3": 1,
+        "ISETP.LE.AND": 1, "BRA": 1}
+    assert au.chain_loop_sizes(sass) == {(12, "p"): 6}
+    assert not any(re.search(au.chain_pattern(12, "j"), n) for n in sass)
+    assert (au.chains_per_thread("add", int16=True),
+            au.chains_per_thread("add_vadd2", int16=True),
+            au.chains_per_thread("add_unpacked", int16=True),
+            au.chains_per_thread("add")) == (16, 16, 8, 8)
 
 
 def test_a_way_back_from_a_block_after_the_body_is_no_loop():

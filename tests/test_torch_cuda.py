@@ -520,19 +520,49 @@ def test_probe_chain_int32_on_card(dev, body, k):
     assert torch.equal(y, pv.chain_reference(body, x, k))
 
 
-@pytest.mark.parametrize("k", [0, 1, 5, 64])
+@pytest.mark.parametrize("k", [0, 1, 5, 7, 15, 16, 17, 64, 256])
 @pytest.mark.parametrize("body", pv.INT16_BODIES)
 def test_probe_chain_int16_on_card(dev, body, k):
-    """K9: the int16 add chain, one element and two per register."""
+    """K9: the packed int16 add chain (two values a register) and the
+    unpacked reading, the wrap-around corners among the inputs."""
     n = 4 * pv.cta_elems()
     x = torch.randint(-(1 << 15), 1 << 15, (n,), dtype=torch.int16,
                       device=dev, generator=torch.Generator(
                           device=dev).manual_seed(k))
-    before = pv.probe_chain.launches_int16
+    x[:4] = torch.tensor([-32768, 32767, -1, 0], dtype=torch.int16)
+    before = (pv.probe_chain.launches_int16, pv.probe_chain.launches_add16)
     y = pv.probe_chain(body, x, k)
     torch.cuda.synchronize()
-    assert pv.probe_chain.launches_int16 == before + 1
+    assert (pv.probe_chain.launches_int16, pv.probe_chain.launches_add16) \
+        == (before[0] + 1, before[1] + (body == "add"))
     assert torch.equal(y, pv.chain_reference(body, x, k))
+
+
+def test_packed_chain_reading_on_card(dev):
+    """One quick reading of K9's packed chain passes both guards."""
+    r = pv.chain_ops_per_s("add", target_ms=pv.TARGET_MS_QUICK,
+                           x=pv.chain_input(torch.int16, dev))
+    pv.check_reading(r, pv.lane_rate_peak(dev))
+    assert r.dtype == torch.int16 and r.ops_per_s > 0
+
+
+def test_packed_chain_sass_on_card(dev):
+    """K9's loop as compiled: three chains of four on VIADD.16x2, the
+    fourth on the funnel shift and the mask, the loop's own counter,
+    compare and branch, and no load or store; the all-VIADD.16x2 reading's
+    loop one VIADD.16x2 per chain."""
+    sass = audit_sass.library_sass()
+    k9 = audit_sass.loop_opcodes(audit_sass.chain_function(
+        "add", sass, int16=True))
+    chains = audit_sass.chains_per_thread("add", int16=True)
+    assert k9.get("VIADD.16x2") == 3 * chains // 4
+    assert sum(n for op, n in k9.items() if op.startswith("SHF")) == (
+        chains // 4)
+    assert audit_sass.audit_probe_chain(
+        "add", sass, int16=True).total("memory") == 0
+    vadd2 = audit_sass.loop_opcodes(audit_sass.chain_function(
+        "add_vadd2", sass, int16=True))
+    assert vadd2.get("VIADD.16x2") == chains
 
 
 def test_probe_copy_and_refusals_on_card(dev):
@@ -550,7 +580,7 @@ def test_probe_copy_and_refusals_on_card(dev):
     with pytest.raises(ValueError, match="multiple of"):
         pv.probe_chain("add", x[:100].clone(), 1)
     with pytest.raises(ValueError, match="multiple of"):
-        pv.probe_chain("add_packed", torch.zeros(
+        pv.probe_chain("add", torch.zeros(
             pv.cta_elems(), dtype=torch.int16, device=dev), 1)
 
 

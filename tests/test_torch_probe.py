@@ -1,14 +1,15 @@
 """The ceiling probes and the roofline model of the port on the CPU: the
 plain version of every chain body (intfftk_tpu_torch.tools.probe_vpu)
 against a numpy loop with wrap-around and, for the two bodies that set the
-integer ceiling, against the TPU tool's own functions on jnp arrays; the
-cost model
+integer ceiling and for the int16 add chain (K9), against the TPU tool's
+own bodies on jnp arrays; the cost model
 (intfftk_tpu_torch.utils.roofline) against the JAX package's for the same
 arguments and ceilings; the device resolver."""
 
 import importlib.util
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,8 +37,10 @@ def _tpu_tool():
 
 def _np_body(body, c):
     """One iteration of ``body`` on a numpy int32/int16 array, wrapping:
-    the source of tools/probe_vpu.py, op for op."""
-    if body in ("add", "add_packed"):
+    the source of tools/probe_vpu.py, op for op (``pair``: the port's pipe
+    probe, element i on chain (i // 256) % 8 of its thread, the even chains
+    doubling the element's two int16 halves, the odd ones squaring it)."""
+    if body in ("add", "add_vadd2", "add_unpacked"):
         return c + c
     if body == "add16x":
         for _ in range(16):
@@ -64,6 +67,10 @@ def _np_body(body, c):
         return f + d
     if body == "select":
         return np.where(c > 0, c + 1, c - 1).astype(c.dtype)
+    if body == "pair":
+        odd = np.arange(c.size) // 256 % 8 % 2 == 1
+        h = c.view(np.int16)
+        return np.where(odd, c * c, (h + h).view(np.int32))
     return np.roll(c.reshape(-1, 32), 1, axis=1).reshape(c.shape) + c.dtype.type(1)
 
 
@@ -109,17 +116,56 @@ def test_chain_reference_equals_tpu_tool_body(body, fn, k):
     assert np.array_equal(got.numpy(), np.asarray(c))
 
 
-@pytest.mark.parametrize("k", [0, 1, 5, 64])
+K16 = [0, 1, 5, 7, 15, 16, 17, 64, 256]
+
+
+@pytest.mark.parametrize("k", K16)
 @pytest.mark.parametrize("body", pv.INT16_BODIES)
 def test_chain_reference_int16(body, k):
+    """K9's packed chain and the two readings beside it compute the same
+    function: k doublings of every int16 value, wrapping (from k = 16 on,
+    every value is 0)."""
     x = _input(np.int16, seed=k)
     want = x.copy()
     with np.errstate(over="ignore"):
         for _ in range(k):
             want = _np_body(body, want)
+    before = pv.probe_chain.launches_int16
     got = pv.probe_chain(body, torch.from_numpy(x), k)
     assert got.dtype == torch.int16
     np.testing.assert_array_equal(got.numpy(), want)
+    assert pv.probe_chain.launches_int16 == before
+
+
+@pytest.mark.parametrize("k", K16)
+def test_packed_chain_equals_mk16_body(k):
+    """K9's packed chain against ``mk16``'s body (tools/probe_vpu.py:219-236)
+    on the same seeded int16 input as a jnp array on the CPU: ``c + c`` in a
+    ``fori_loop``, without the ``pallas_call``."""
+    x = _input(np.int16, seed=20 + k)
+    c = jax.lax.fori_loop(0, k, lambda i, c: c + c, jnp.asarray(x))
+    assert c.dtype == jnp.int16
+    got = pv.probe_chain("add", torch.from_numpy(x), k)
+    assert np.array_equal(got.numpy(), np.asarray(c))
+
+
+def test_int16_chains_table():
+    """An int16 tensor's "add" is K9's packed chain, two values a register,
+    under the TPU tool's key; the all-VIADD.16x2 chain and the unpacked
+    chain are readings of their own."""
+    assert pv.INT16_BODIES == ("add", "add_vadd2", "add_unpacked")
+    assert [pv.body_of(b, torch.int16).key for b in pv.INT16_BODIES] == [
+        "add16_ops_per_s", "add16_vadd2_ops_per_s",
+        "add16_unpacked_ops_per_s"]
+    assert pv.body_of("add", torch.int32).key == "add_ops_per_s"
+    assert [pv.per_register(b, torch.int16) for b in pv.INT16_BODIES] == [
+        2, 2, 1]
+    assert pv.per_register("add", torch.int32) == 1
+    assert [pv.chain_of(n) for n in pv.CHAIN_ORDER] == [
+        (n, torch.int32) if n in pv.BODIES else (
+            pv.INT16_NAMES[n], torch.int16) for n in pv.CHAIN_ORDER]
+    assert [pv.chain_of(n) for n in ("add16", "add16x")] == [
+        ("add", torch.int16), ("add16x", torch.int32)]
 
 
 def test_copy_reference_and_wrapper_checks():
@@ -134,7 +180,9 @@ def test_copy_reference_and_wrapper_checks():
     with pytest.raises(TypeError, match="int32"):
         pv.probe_chain("mul", x.short(), 1)
     with pytest.raises(TypeError, match="int16"):
-        pv.probe_chain("add_packed", x, 1)
+        pv.probe_chain("add_unpacked", x, 1)
+    with pytest.raises(TypeError, match="int32"):
+        pv.probe_chain("pair", x.short(), 1)
     with pytest.raises(ValueError, match="< 0"):
         pv.probe_chain("add", x, -1)
     with pytest.raises(ValueError, match="32"):
@@ -145,15 +193,21 @@ def test_bodies_table():
     """The source-level op counts and keys of tools/probe_vpu.py."""
     ops = {b: pv.BODIES[b].ops for b in pv.INT32_BODIES}
     assert ops == dict(add=1, add16x=16, mul=1, mul16x=16, shift=2,
-                       bitwise=2, mixed7=7, stagemix10=10, select=3, roll=2)
+                       bitwise=2, mixed7=7, stagemix10=10, select=3, roll=2,
+                       pair=1)
     keys = [pv.BODIES[b].key for b in pv.INT32_BODIES]
     assert keys == ["add_ops_per_s", "add_unroll16_ops_per_s",
                     "mul_ops_per_s", "mul_unroll16_ops_per_s",
                     "shift_ops_per_s", "bitwise_ops_per_s",
                     "mixed7_ops_per_s", "stagemix10_ops_per_s",
-                    "select_ops_per_s", "roll_ops_per_s"]
-    assert sorted(b.index for b in pv.BODIES.values()) == list(range(11))
-    assert all(1 <= b.min_instr <= b.ops for b in pv.BODIES.values())
+                    "select_ops_per_s", "roll_ops_per_s",
+                    "pair_vadd2_imad_instr_per_s"]
+    # csrc/probe.cu's kernel indices: the int32 bodies 0-9 and 11, the
+    # packed chains 10 and 12 (K9); the unpacked int16 chain is body 0 on
+    # uint16_t
+    chains = [*pv.BODIES.values(), *pv.INT16_CHAINS.values()]
+    assert sorted(b.index for b in chains) == [0, *range(13)]
+    assert all(1 <= b.min_instr <= b.ops for b in chains)
 
 
 def test_check_reading_guards():
@@ -168,6 +222,13 @@ def test_check_reading_guards():
                              pv.K_BASE, (1.0, 1.1, 1.2))
     with pytest.raises(pv.GuardError, match="folded chain"):
         pv.check_reading(folded, peak)
+    # the packed int16 add counts two ops per lane-instruction: 40 T ops/s
+    # is within its limit and above the unpacked chain's
+    packed = pv.ChainReading("add", torch.int16, 4e13, 4e13, 4e13,
+                             pv.K_BASE, (1.0, 2.0, 3.0))
+    pv.check_reading(packed, peak)
+    with pytest.raises(pv.GuardError, match="folded chain"):
+        pv.check_reading(packed._replace(body="add_unpacked"), peak)
 
 
 def test_ceilings_from_a_measured_dict():
@@ -180,8 +241,7 @@ def test_ceilings_from_a_measured_dict():
     d["stagemix10_ops_per_s"] = 6e13
     assert pv.ceilings_from(d) == (6e13, 3.35e12)
     assert pv.BODIES["add16x"].key in pv.FOLDED_KEYS
-    assert set(pv.CHAIN_ORDER) == set(pv.INT32_BODIES) | {"add16",
-                                                          "add_packed"}
+    assert set(pv.CHAIN_ORDER) == set(pv.INT32_BODIES) | set(pv.INT16_NAMES)
 
 
 def test_measurements_need_the_card():
