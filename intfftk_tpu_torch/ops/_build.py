@@ -24,6 +24,7 @@ import functools
 import os
 from pathlib import Path
 
+from ..runtime import trace
 from .tuning import (TUNINGS, WHOLE_SHAPES, WIDE_WHOLE_SHAPES,
                      thread_counts)
 
@@ -165,13 +166,18 @@ def library(threads: int | None = None):
     ``intfft_prepared_size``, ``intfft_prepare_pass``,
     ``intfft_fused_chain``, ``intfft_pass_attributes``,
     ``intfft_circle_table``, ``intfft_group_split``,
-    ``intfft_error_string``)."""
+    ``intfft_error_string``).  While a recording is open the build and
+    the load are a ``library.load`` span, its note "built" where nvcc ran,
+    else "cached"."""
     import ctypes
 
     if threads in PASS_THREADS:
         return library()
-    so, _ = build(threads)
-    lib = ctypes.CDLL(str(so))
+    with trace.span("library.load") as span:
+        so, log = build(threads)
+        lib = ctypes.CDLL(str(so))
+        if span is not None:
+            span.note = "built" if log else "cached"
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.intfft_fused_pass.argtypes = ([ptr] * 12 + [i32] * 21
                                      + [ptr, ctypes.POINTER(i32)])

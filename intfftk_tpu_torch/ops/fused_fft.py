@@ -64,6 +64,7 @@ from ..golden.float_model import bitrev_indices
 from ..golden.twiddle import circle_twiddles_int
 
 from ..device import resolve, stream_handle, use_kernel
+from ..runtime import trace
 from . import _build
 from .intmath import cmult_exact
 from .transform import (check_width, fft_stages, fft_stages_2d, pack_tables,
@@ -704,7 +705,8 @@ class PreparedPlan(nn.Module):
         use."""
         obj = self._prepared.get(key)
         if obj is None:
-            obj = self._prepared[key] = make()
+            with trace.span("plan.prepare"):
+                obj = self._prepared[key] = make()
         return obj
 
     def _track(self, call):
@@ -823,6 +825,7 @@ class LargeFFTPlan(PreparedPlan):
     (its ``lane_tile`` and ``threads``; ``retune``).
     """
 
+    @trace.spanned("plan.build")
     def __init__(self, cfg: FFTConfig, n1: int | None = None,
                  n2: int | None = None, inverse: bool = False, *,
                  order: str = "natural", schedule: str = "fourstep",

@@ -26,6 +26,7 @@ from ..device import use_kernel
 from ..golden.convolve import ConvSpec, taps_spectrum_int
 from ..ops.fused_fft import LargeFFTPlan, PreparedPlan
 from ..ops.intmath import PreparedProduct, spectrum_product
+from ..runtime import trace
 from .four_step import local_plan
 from .mesh import FFT_AXIS, plan_device, single_axis_size
 
@@ -88,6 +89,7 @@ class OverlapSaveConv(PreparedPlan):
     samples long; the device is the mesh's unless named.
     """
 
+    @trace.spanned("plan.build")
     def __init__(self, spec: ConvSpec, h_re, h_im,
                  mesh: DeviceMesh | None = None, axis: str = FFT_AXIS,
                  kernel: str = "auto",

@@ -18,15 +18,21 @@ on the card.  The plans offer it as ``plan.capture()``.
 
 from __future__ import annotations
 
+import time
+
 import torch
+
+from . import trace
 
 
 def _counters():
-    """The launch counters of the kernels a captured call can reach."""
+    """The port's launch counters: the functions whose ``launches``
+    attribute counts their kernel's launches."""
     from ..ops.fused_fft import fused_pass, fused_whole
     from ..ops.intmath import spectrum_product
+    from ..ops.twiddle_synth import device_circle_table
 
-    return (fused_pass, fused_whole, spectrum_product)
+    return (fused_pass, fused_whole, spectrum_product, device_circle_table)
 
 
 class _Graph:
@@ -110,6 +116,8 @@ class CapturedCall:
         return None if g is None else g.inputs
 
     def __call__(self, *args):
+        if trace.on:
+            return self._call_traced(args)
         key = self._key(args)
         g = self._graphs.get(key)
         if g is None:
@@ -124,6 +132,46 @@ class CapturedCall:
             counter.launches += n
         return g.outputs
 
+    def _call_traced(self, args):
+        """``__call__`` while a recording is open: the same steps, read on
+        the clock, then recorded as a ``graph.call`` span with
+        ``graph.key``, ``graph.copy_in`` (where a copy is made) and
+        ``graph.launch`` inside it; the recording's own work falls after
+        the call's end.  The first call with a key is set-up: its
+        ``graph.capture`` is a span of its own, and no ``graph.call`` is
+        recorded."""
+        start = time.time_ns()
+        key = self._key(args)
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(key[0], args)
+            with torch.cuda.device(key[0]):
+                g.graph.replay()
+            for counter, n in g.launches:
+                counter.launches += n
+            return g.outputs
+        keyed = time.time_ns()
+        stale = [(s, a) for s, a in zip(g.inputs, args)
+                 if a.data_ptr() != s.data_ptr() or a.stride() != s.stride()]
+        for s, a in stale:
+            s.copy_(a)
+        copied = time.time_ns() if stale else None
+        with torch.cuda.device(key[0]):
+            launched = time.time_ns()
+            g.graph.replay()
+            done = time.time_ns()
+        for counter, n in g.launches:
+            counter.launches += n
+        end = time.time_ns()
+        rec = trace.active
+        i = rec.add("graph.call", start, end, call=True)
+        rec.add("graph.key", start, keyed, i)
+        if copied is not None:
+            rec.add("graph.copy_in", keyed, copied, i)
+        rec.add("graph.launch", launched, done, i)
+        return g.outputs
+
+    @trace.spanned("graph.capture")
     def _capture(self, dev, args) -> _Graph:
         counters = _counters()
         with torch.cuda.device(dev):

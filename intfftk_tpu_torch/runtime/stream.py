@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from . import trace
 
 
 class _Slot:
@@ -89,6 +90,18 @@ class StreamExecutor:
         self.stats = {"repack_s": 0.0, "dispatch_s": 0.0, "wait_s": 0.0,
                       "dispatches": 0, "samples_in": 0}
 
+    def _cost(self, key: str, name: str, t0):
+        """Add the time since ``t0`` to ``stats[key]``.  While a recording
+        is open ``t0`` is of the spans' clock and the stretch is the span
+        ``name`` too, one clock read serving both; otherwise it is of
+        ``time.perf_counter()``."""
+        if trace.on:
+            t1 = time.time_ns()
+            self.stats[key] += (t1 - t0) / 1e9
+            trace.active.add(name, t0, t1)
+        else:
+            self.stats[key] += time.perf_counter() - t0
+
     # ------------------------------------------------------------ internals
 
     def _ensure_buf(self, dtype):
@@ -119,7 +132,7 @@ class StreamExecutor:
         self._wr += c
 
     def _dispatch(self, tile_re, tile_im, valid: int):
-        t0 = time.perf_counter()
+        t0 = time.time_ns() if trace.on else time.perf_counter()
         # the in-flight tiles hold the other depth - 1 slots: this one has
         # been drained, so its event has fired
         slot = self._slots[self._next_slot]
@@ -138,7 +151,7 @@ class StreamExecutor:
             slot.out_im.copy_(yi, non_blocking=True)
             if slot.event is not None:
                 slot.event.record(slot.stream)
-        self.stats["dispatch_s"] += time.perf_counter() - t0
+        self._cost("dispatch_s", "stream.dispatch", t0)
         self.stats["dispatches"] += 1
         self._inflight.append((slot, valid))
 
@@ -146,12 +159,12 @@ class StreamExecutor:
         while self._inflight and (force
                                   or len(self._inflight) >= self.depth):
             slot, valid = self._inflight.popleft()
-            t0 = time.perf_counter()
+            t0 = time.time_ns() if trace.on else time.perf_counter()
             if slot.event is not None:
                 slot.event.synchronize()
             yr = slot.out_re.numpy()[:, :valid].copy()
             yi = slot.out_im.numpy()[:, :valid].copy()
-            self.stats["wait_s"] += time.perf_counter() - t0
+            self._cost("wait_s", "stream.wait", t0)
             yield yr, yi
 
     def _try_pack(self) -> Iterator[tuple]:
@@ -167,7 +180,7 @@ class StreamExecutor:
 
     def feed(self, x_re, x_im) -> Iterator[tuple]:
         """Push a chunk [n, c]; yields any completed (re, im) blocks."""
-        t0 = time.perf_counter()
+        t0 = time.time_ns() if trace.on else time.perf_counter()
         xr = np.asarray(x_re)
         xi = np.asarray(x_im)
         if xr.ndim == 1:
@@ -176,7 +189,7 @@ class StreamExecutor:
             raise ValueError(f"chunk rows {xr.shape[0]} != n={self.n}")
         self._ensure_buf(xr.dtype)
         self._append(xr, xi)
-        self.stats["repack_s"] += time.perf_counter() - t0
+        self._cost("repack_s", "stream.repack", t0)
         self.stats["samples_in"] += self.n * xr.shape[1]
         yield from self._try_pack()
 
@@ -184,13 +197,13 @@ class StreamExecutor:
         """Pad the tail tile with zero transforms and drain everything."""
         pending = self._wr - self._rd
         if pending:
-            t0 = time.perf_counter()
+            t0 = time.time_ns() if trace.on else time.perf_counter()
             bt = self.lane_tile
             re = np.zeros((self.n, bt), self._buf_re.dtype)
             im = np.zeros((self.n, bt), self._buf_im.dtype)
             re[:, :pending] = self._buf_re[:, self._rd:self._wr]
             im[:, :pending] = self._buf_im[:, self._rd:self._wr]
             self._rd = self._wr = 0
-            self.stats["repack_s"] += time.perf_counter() - t0
+            self._cost("repack_s", "stream.repack", t0)
             self._dispatch(re, im, pending)
         yield from self._drain_ready(force=True)

@@ -1,0 +1,187 @@
+"""Spans of the port's host code, recorded in memory on the profiler's
+clock.
+
+A span is one stretch of the host's time inside the port: its name, its
+start and end in ns of ``time.time_ns()``, the index of the span that
+encloses it (-1 at a root) and the call it belongs to: the sequence
+number of its ``graph.call`` in the recording, -1 outside any call (the
+set-up).  ``time.time_ns()`` is the clock that ``torch.profiler`` stamps
+its host ranges with, and CUPTI's device timestamps are converted to it,
+so a span lines up with the kernels of a profiled window as it is.
+
+Recording is off unless a ``recording()`` is open; then ``on`` is True
+and ``active`` is the ``Recording``.  A boundary that runs on every call
+(``CapturedCall.__call__``) checks ``on`` once and runs its untraced body
+when it is False; set-up boundaries wrap their function with
+``spanned(name)``, which costs the same check.  With recording off no
+span is kept and no clock is read.  One thread records: spans opened on
+another thread while a recording is open would nest under the wrong
+parent.
+
+The spans, by name:
+
+* ``graph.call``: ``CapturedCall.__call__`` (a call of a captured graph);
+  its children ``graph.key`` (the key and the lookup), ``graph.copy_in``
+  (the copies into the static inputs, only where one is made) and
+  ``graph.launch`` (the replay alone, the CUDA graph launch);
+* ``graph.capture``: a ``CapturedCall``'s warm-up and capture, once per
+  key;
+* ``plan.build``: ``LargeFFTPlan`` and ``OverlapSaveConv``'s constructors
+  (tables, twiddles, tuning);
+* ``plan.prepare``: a prepared object made at a plan's first call with a
+  key (``PreparedChain``, ``PreparedProduct``);
+* ``library.load``: the kernel library's first load for a thread count,
+  its ``note`` "built" or "cached";
+* ``stream.repack``, ``stream.dispatch``, ``stream.wait``:
+  ``StreamExecutor``'s three costs (``stats``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import time
+
+#: True while a recording is open.
+on = False
+#: The open ``Recording``, or None.
+active = None
+
+
+class Span:
+    """One span; ``end_ns`` is 0 while it is open."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "call", "note")
+
+    def __init__(self, name, start_ns, end_ns, parent, call, note=""):
+        self.name, self.start_ns, self.end_ns = name, start_ns, end_ns
+        self.parent, self.call, self.note = parent, call, note
+
+    def __repr__(self):
+        return (f"Span({self.name!r}, {self.start_ns}, {self.end_ns}, "
+                f"parent={self.parent}, call={self.call}"
+                f"{f', note={self.note!r}' if self.note else ''})")
+
+
+def _launches() -> dict:
+    """The port's launch counters (``graph._counters``) as they read now,
+    by kernel function."""
+    from .graph import _counters
+
+    return {f.__name__: f.launches for f in _counters()}
+
+
+class Recording:
+    """The spans of one recording, in the order they were opened, and the
+    launch counters' readings at its start and end."""
+
+    def __init__(self):
+        self.spans = []
+        self._stack = []
+        self._calls = 0
+        self._before = _launches()
+        self._after = None
+
+    def add(self, name: str, start_ns: int, end_ns: int,
+            parent: int | None = None, call: bool = False) -> int:
+        """Record a span read on the caller's own clock reads, under
+        ``parent`` (by default the innermost open span); with ``call`` it
+        starts a new call.  Returns its index."""
+        if parent is None:
+            parent = self._stack[-1] if self._stack else -1
+        if call:
+            seq, self._calls = self._calls, self._calls + 1
+        else:
+            seq = self.spans[parent].call if parent >= 0 else -1
+        self.spans.append(Span(name, start_ns, end_ns, parent, seq))
+        return len(self.spans) - 1
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        """A span around the block, under the innermost open one; yields
+        the ``Span`` (to set its ``note``)."""
+        i = self.add(name, time.time_ns(), 0)
+        self._stack.append(i)
+        try:
+            yield self.spans[i]
+        finally:
+            self._stack.pop()
+            self.spans[i].end_ns = time.time_ns()
+
+    def _stop(self) -> None:
+        self._after = _launches()
+
+    @property
+    def launches(self) -> dict:
+        """The launch counters' increments over the recording (so far, while
+        it is open), by kernel function; counters that did not move are
+        left out."""
+        after = self._after or _launches()
+        return {k: after[k] - self._before[k] for k in after
+                if after[k] != self._before[k]}
+
+    def summary(self) -> dict:
+        """By span name: ``count``, ``total_ms`` and ``self_ms`` (the
+        duration less the part of it that its children cover), over the
+        closed spans."""
+        children = {}
+        for s in self.spans:
+            if s.parent >= 0 and s.end_ns:
+                children.setdefault(s.parent, []).append(s)
+        out = {}
+        for i, s in enumerate(self.spans):
+            if not s.end_ns:
+                continue
+            covered, reach = 0, s.start_ns
+            for c in sorted(children.get(i, ()), key=lambda c: c.start_ns):
+                a, b = max(c.start_ns, reach), min(c.end_ns, s.end_ns)
+                if b > a:
+                    covered += b - a
+                    reach = b
+            row = out.setdefault(s.name, {"count": 0, "total_ms": 0.0,
+                                          "self_ms": 0.0})
+            row["count"] += 1
+            row["total_ms"] += (s.end_ns - s.start_ns) / 1e6
+            row["self_ms"] += (s.end_ns - s.start_ns - covered) / 1e6
+        return out
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans until the block ends: ``on`` is True and ``active`` the
+    yielded ``Recording`` meanwhile.  Recordings do not nest."""
+    global on, active
+    if on:
+        raise RuntimeError("a recording is open already")
+    rec = Recording()
+    on, active = True, rec
+    try:
+        yield rec
+    finally:
+        on, active = False, None
+        rec._stop()
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """A span ``name`` around the block while a recording is open (yields
+    the ``Span``), nothing otherwise (yields None)."""
+    if not on:
+        yield None
+        return
+    with active.span(name) as s:
+        yield s
+
+
+def spanned(name: str):
+    """Decorate a set-up function: each call is a span ``name`` while a
+    recording is open, and costs one check of ``on`` otherwise."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if not on:
+                return fn(*args, **kwargs)
+            with active.span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap

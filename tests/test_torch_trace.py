@@ -1,0 +1,365 @@
+"""The port's spans (``intfftk_tpu_torch.runtime.trace``): nesting, parent
+and call ids and self time; nothing recorded and no clock read with
+recording off; the clock against the profiler's; the set-up spans of a
+plan built on the CPU; the stream's spans beside its ``stats``; the
+replay's spans on the CPU with a stand-in graph.  The ``graph.*`` spans of
+real captured calls are marked ``cuda`` and skip without a card."""
+
+import contextlib
+import ctypes
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from intfftk_tpu_torch.config import FFTConfig
+from intfftk_tpu_torch.golden import make_conv_spec
+from intfftk_tpu_torch.ops import _build
+from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, PreparedPlan,
+                                              fused_pass)
+from intfftk_tpu_torch.ops.intmath import spectrum_product
+from intfftk_tpu_torch.ops.single_pass import PallasFFTPlan
+from intfftk_tpu_torch.parallel import OverlapSaveConv
+from intfftk_tpu_torch.runtime import CapturedCall, StreamExecutor, trace
+from intfftk_tpu_torch.runtime import graph as graph_mod
+
+CFG = FFTConfig(n=4096, mode="scaled", rounding="round")
+
+
+def _names(rec):
+    return [s.name for s in rec.spans]
+
+
+def test_nesting_parents_calls_and_self_time():
+    with trace.recording() as rec:
+        with rec.span("outer"):
+            rec.add("graph.call", 100, 200, call=True)
+            with rec.span("inner"):
+                pass
+        c = rec.add("graph.call", 300, 400, parent=-1, call=True)
+        rec.add("graph.launch", 350, 390, c)
+        rec.add("setup", 500, 600, parent=-1)
+    s = rec.spans
+    assert _names(rec) == ["outer", "graph.call", "inner", "graph.call",
+                           "graph.launch", "setup"]
+    assert [x.parent for x in s] == [-1, 0, 0, -1, 3, -1]
+    assert [x.call for x in s] == [-1, 0, -1, 1, 1, -1]
+    summary = rec.summary()
+    assert summary["graph.call"]["count"] == 2
+    assert summary["graph.call"]["total_ms"] == pytest.approx(200e-6)
+    # the second call's launch covers 40 of its 100 ns
+    assert summary["graph.call"]["self_ms"] == pytest.approx(160e-6)
+    assert summary["graph.launch"] == {"count": 1, "total_ms": 40e-6,
+                                       "self_ms": 40e-6}
+
+
+def test_self_time_counts_overlapping_children_once():
+    with trace.recording() as rec:
+        p = rec.add("p", 0, 1000)
+        rec.add("a", 100, 500, p)
+        rec.add("b", 300, 700, p)           # overlaps a by 200
+        rec.add("c", 900, 1500, p)          # runs past its parent's end
+    # covered: 100-700 and 900-1000
+    assert rec.summary()["p"]["self_ms"] == pytest.approx(300e-6)
+
+
+def test_a_span_closes_when_its_block_raises():
+    with trace.recording() as rec:
+        with pytest.raises(KeyError):
+            with rec.span("outer"):
+                with rec.span("inner"):
+                    raise KeyError("x")
+        rec.add("after", 1, 2)
+    assert [s.parent for s in rec.spans] == [-1, 0, -1]
+    assert all(s.end_ns >= s.start_ns > 0 for s in rec.spans[:2])
+
+
+def test_recordings_do_not_nest_and_switch_back_off():
+    assert not trace.on and trace.active is None
+    with pytest.raises(ValueError):
+        with trace.recording() as rec:
+            assert trace.on and trace.active is rec
+            with pytest.raises(RuntimeError, match="open already"):
+                with trace.recording():
+                    pass
+            raise ValueError("inside")
+    assert not trace.on and trace.active is None
+
+
+def test_launch_counters_are_read_not_copied(monkeypatch):
+    monkeypatch.setattr(fused_pass, "launches", 7)
+    monkeypatch.setattr(spectrum_product, "launches", 1)
+    with trace.recording() as rec:
+        fused_pass.launches += 4
+        assert rec.launches == {"fused_pass": 4}
+        spectrum_product.launches += 1
+    fused_pass.launches += 100                 # after the recording's end
+    assert rec.launches == {"fused_pass": 4, "spectrum_product": 1}
+
+
+def test_off_records_nothing_and_reads_no_clock(monkeypatch):
+    """With recording off, a plan's build, prepare and call, a
+    convolution's build and the stream run without one read of the spans'
+    clock."""
+    def no_clock():
+        raise AssertionError("the clock was read with recording off")
+
+    monkeypatch.setattr(trace.time, "time_ns", no_clock)
+    plan = LargeFFTPlan(CFG, device="cpu")
+    x = torch.zeros((2,) + plan.block_in_shape, dtype=plan.in_dtype)
+    plan.apply_blocks(x, x)
+    plan._prepare(("key",), lambda: object())
+    spec = make_conv_spec(n=8192, taps_len=1025)
+    OverlapSaveConv(spec, np.ones(1025), np.zeros(1025), device="cpu")
+    n = 64
+    ex = StreamExecutor(PallasFFTPlan(FFTConfig(n=n), layout="nb",
+                                      device="cpu"), n=n, lane_tile=8,
+                        device="cpu")
+    list(ex.feed(np.zeros((n, 20), np.int32), np.zeros((n, 20), np.int32)))
+    list(ex.flush())
+    assert ex.stats["dispatches"] == 3
+    assert not trace.on and trace.active is None
+
+
+def test_clock_is_the_profilers():
+    """A span read inside a ``record_function`` range lies within that
+    range as the profiler stamped it, to 5 us."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with trace.recording() as rec, profile(
+            activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(50):
+            with record_function(f"range{i}"):
+                with rec.span(f"span{i}"):
+                    pass
+    ranges = {e.name(): e for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("range")}
+    assert len(ranges) == 50
+    for i, s in enumerate(rec.spans):
+        r = ranges[f"range{i}"]
+        assert r.start_ns() - 5000 <= s.start_ns <= s.end_ns \
+            <= r.end_ns() + 5000
+
+
+def test_plan_build_on_the_cpu():
+    """A plan built on the CPU is one root ``plan.build``; no library is
+    loaded and nothing is prepared there."""
+    with trace.recording() as rec:
+        LargeFFTPlan(CFG, device="cpu")
+    assert _names(rec) == ["plan.build"]
+    (s,) = rec.spans
+    assert s.parent == -1 and s.call == -1 and s.end_ns > s.start_ns
+
+
+def test_convolution_build_nests_its_plans():
+    spec = make_conv_spec(n=8192, taps_len=1025)
+    with trace.recording() as rec:
+        OverlapSaveConv(spec, np.ones(1025), np.zeros(1025), device="cpu")
+    assert _names(rec) == ["plan.build"] * 3
+    assert [s.parent for s in rec.spans] == [-1, 0, 0]
+    outer = rec.spans[0]
+    assert all(outer.start_ns <= s.start_ns <= s.end_ns <= outer.end_ns
+               for s in rec.spans[1:])
+
+
+def test_prepare_is_a_span_at_its_first_use_only():
+    plan = PreparedPlan()
+    made = []
+    with trace.recording() as rec:
+        for _ in range(3):
+            plan._prepare(("k",), lambda: made.append(1) or len(made))
+        plan._prepare(("other",), lambda: made.append(1) or len(made))
+    assert made == [1, 1]
+    assert _names(rec) == ["plan.prepare"] * 2
+
+
+@pytest.mark.parametrize("log, note", [("nvcc link: 1.0 s\n", "built"),
+                                       ("", "cached")])
+def test_library_load_says_what_happened(monkeypatch, log, note):
+    """The first load for a thread count is one ``library.load`` span, noted
+    "built" where nvcc ran and "cached" where the library was there; a
+    second call is cached by ``functools`` and records nothing."""
+    class Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "build", lambda threads=None: (
+        Path("libintfft_pass_t1024.so"), log))
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: Lib())
+    _build.library.cache_clear()
+    try:
+        with trace.recording() as rec:
+            _build.library(1024)
+            _build.library(1024)
+    finally:
+        _build.library.cache_clear()
+    assert _names(rec) == ["library.load"]
+    assert rec.spans[0].note == note
+
+
+def test_stream_spans_are_its_stats():
+    """The stream's three costs are spans while recording; each ``stats``
+    timer is the sum of its spans' durations (one clock read serves
+    both); the counts are what they are untraced."""
+    n, lane = 64, 8
+    ex = StreamExecutor(PallasFFTPlan(FFTConfig(n=n), layout="nb",
+                                      device="cpu"), n=n, lane_tile=lane,
+                        device="cpu")
+    rng = np.random.default_rng(3)
+    x = rng.integers(-100, 100, (n, 21)).astype(np.int32)
+    with trace.recording() as rec:
+        got = list(ex.feed(x[:, :13], x[:, :13]))
+        got += list(ex.feed(x[:, 13:], x[:, 13:]))
+        got += list(ex.flush())
+    assert sum(g[0].shape[1] for g in got) == 21
+    assert ex.stats["dispatches"] == 3 and ex.stats["samples_in"] == n * 21
+    by = {}
+    for s in rec.spans:
+        assert s.parent == -1 and s.call == -1
+        by.setdefault(s.name, []).append((s.end_ns - s.start_ns) / 1e9)
+    assert {k: len(v) for k, v in by.items()} == {
+        "stream.repack": 3, "stream.dispatch": 3, "stream.wait": 3}
+    for key, name in (("repack_s", "stream.repack"),
+                      ("dispatch_s", "stream.dispatch"),
+                      ("wait_s", "stream.wait")):
+        assert ex.stats[key] == pytest.approx(sum(by[name]), abs=1e-12)
+
+
+class _Replay:
+    """A stand-in CUDA graph: its replay takes a known time."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+        time.sleep(0.0002)
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """A ``CapturedCall`` whose graph for two int32 [4] arguments on the CPU
+    is already captured: a stand-in replay, static inputs, one
+    ``fused_pass`` launch a replay."""
+    monkeypatch.setattr(CapturedCall, "_key", staticmethod(
+        lambda args: (args[0].device, *((a.shape, a.dtype) for a in args))))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(fused_pass, "launches", 0)
+    call = CapturedCall(lambda a, b: (a, b))
+    static = (torch.zeros(4, dtype=torch.int32),
+              torch.zeros(4, dtype=torch.int32))
+    g = graph_mod._Graph(_Replay(), static, static, ((fused_pass, 2),))
+    call._graphs[CapturedCall._key(static)] = g
+    return call, static, g
+
+
+def test_replay_spans_with_a_stand_in_graph(stand_in):
+    """Each call is a root ``graph.call`` with its own call id, holding
+    ``graph.key``, ``graph.copy_in`` only where an input was copied, and
+    ``graph.launch``; the replay and the counters run as untraced."""
+    call, static, g = stand_in
+    fresh = (torch.arange(4, dtype=torch.int32),) * 2
+    with trace.recording() as rec:
+        call(*fresh)                         # copied into the static inputs
+        call(*static)                        # no copy
+        call(*static)
+    assert g.graph.replays == 3 and torch.equal(static[0], fresh[0])
+    assert rec.launches == {"fused_pass": 6}
+    calls = [i for i, s in enumerate(rec.spans) if s.name == "graph.call"]
+    assert [rec.spans[i].call for i in calls] == [0, 1, 2]
+    for i in calls:
+        assert rec.spans[i].parent == -1
+    kids = [[s.name for s in rec.spans if s.parent == i] for i in calls]
+    assert kids == [["graph.key", "graph.copy_in", "graph.launch"],
+                    ["graph.key", "graph.launch"],
+                    ["graph.key", "graph.launch"]]
+    for s in rec.spans:
+        if s.parent >= 0:
+            p = rec.spans[s.parent]
+            assert s.call == p.call
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    launch = rec.summary()["graph.launch"]
+    assert launch["count"] == 3 and launch["total_ms"] >= 0.6
+    # untraced, the same call records nothing and replays alike
+    call(*static)
+    assert g.graph.replays == 4 and len(rec.spans) == 4 + 3 + 3
+
+
+def test_replay_spans_nest_in_an_open_span(stand_in):
+    """A call made inside an open span (the stream's dispatch) nests there
+    and keeps a call id of its own."""
+    call, static, _ = stand_in
+    with trace.recording() as rec:
+        with rec.span("stream.dispatch"):
+            call(*static)
+    assert _names(rec) == ["stream.dispatch", "graph.call", "graph.key",
+                           "graph.launch"]
+    assert [s.parent for s in rec.spans] == [-1, 0, 1, 1]
+    assert [s.call for s in rec.spans] == [-1, 0, 0, 0]
+
+
+# ---------------------------------------------------------------- the card
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _frames(plan, dev, batch, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return tuple(torch.randint(-2**15, 2**15, (batch,) + plan.block_in_shape,
+                               generator=g, device=dev, dtype=plan.in_dtype)
+                 for _ in range(2))
+
+
+@pytest.mark.cuda
+def test_graph_spans_on_the_card(dev):
+    """A plan built, captured and called on the card: the build, the
+    capture (with its prepared chain inside) and each later call's spans,
+    the launch counters' deltas, and the same bits as untraced."""
+    with trace.recording() as rec:
+        plan = LargeFFTPlan(CFG, device=dev)
+        call = plan.capture()
+        x = _frames(plan, dev, 4, 1)
+        first = [t.clone() for t in call(*x)]
+        y = _frames(plan, dev, 4, 2)
+        second = [t.clone() for t in call(*y)]
+        call(*call.static_inputs(*y))
+        torch.cuda.synchronize(dev)
+    roots = [s.name for s in rec.spans if s.parent == -1]
+    assert roots == ["plan.build", "graph.capture", "graph.call",
+                     "graph.call"]
+    cap = rec.spans.index(next(s for s in rec.spans
+                               if s.name == "graph.capture"))
+    assert "plan.prepare" in [s.name for s in rec.spans if s.parent == cap]
+    calls = [i for i, s in enumerate(rec.spans) if s.name == "graph.call"]
+    assert [rec.spans[i].call for i in calls] == [0, 1]
+    kids = [[s.name for s in rec.spans if s.parent == i] for i in calls]
+    assert kids == [["graph.key", "graph.copy_in", "graph.launch"],
+                    ["graph.key", "graph.launch"]]
+    # the capture ran nothing; the warm-up and three replays did
+    assert rec.launches.get("fused_pass") == 2 * 4
+    for want, got in ((first, plan.apply_blocks(*x)),
+                      (second, plan.apply_blocks(*y))):
+        assert all(torch.equal(a, b) for a, b in zip(want, got))
+
+
+@pytest.mark.cuda
+def test_library_load_on_the_card(dev):
+    """The library's load, made anew, is one span inside the plan's build
+    (the device twiddle generator loads it)."""
+    _build.library.cache_clear()
+    with trace.recording() as rec:
+        LargeFFTPlan(CFG, device=dev)
+    loads = [s for s in rec.spans if s.name == "library.load"]
+    assert len(loads) == 1 and loads[0].note in ("built", "cached")
+    assert rec.spans[loads[0].parent].name == "plan.build"
