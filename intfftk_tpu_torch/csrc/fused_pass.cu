@@ -106,14 +106,21 @@
 // 5 % in the per-stage probe and would double the kernels to build.
 //
 // Numerics: the arithmetic of intfft_arith.cuh (modular sums wrapped to the
-// stage's width, exact product-sums floor-shifted and wrapped), applied
+// stage's width, product-sums floor-shifted and wrapped), applied
 // stage by stage inside a group exactly as one stage at a time applied it:
 // the bits are the same by construction, and every form is held equal to
 // its plain version on the card.  The tile type is a template parameter.
 // An int64 tile holds twice the bytes: TC halves from m = 512 on (TC = 2 at
 // m = 4096, 192 KiB, under the budget of one CTA per SM), and it takes
 // neither the in-kernel synthesis nor the 2-D stage tables (the JAX package
-// has no wide form of either).
+// has no wide form of either).  Its complex products are exact in __int128,
+// emulated in 32-bit instructions, unless every product of the pass keeps
+// bits that fit in 64 (the widest wrap w plus the shift s at most 64,
+// product_fits below): then the pass takes the kernel that forms them
+// modulo 2^64 (kMod), whose bits are the same.  Which form a pass takes is
+// the host's choice (ops/fused_fft.product_form), made from the widths the
+// plan knows and checked here; it is a template parameter, not a run-time
+// branch, and no user sets it.
 //
 // The batch is the grid's y dimension, which holds at most 65 535 items: a
 // larger batch goes out as several launches of that many items each, on
@@ -221,7 +228,8 @@ CircleLaunch circle_launch(int n1, int n2) {
 #endif
 
 // The pass's launch, grant and query functions of kT threads per CTA, by
-// pair of block types and direction (fused_pass_inst.cu instantiates them).
+// pair of block types, direction and product form (fused_pass_inst.cu
+// instantiates them; the modular form on the int64 tile only).
 using Grant = cudaError_t (*)(bool, size_t, int);
 using Query = cudaError_t (*)(bool, size_t, int, int*);
 struct PassFns {
@@ -229,32 +237,60 @@ struct PassFns {
   Grant grant;
   Query query;
 };
-#define INTFFT_FNS(BLOCKS, DIR)                                               \
-  {intfft::launch_pass_##BLOCKS##_##DIR<kT>,                                  \
-   intfft::grant_pass_##BLOCKS##_##DIR<kT>,                                   \
-   intfft::query_pass_##BLOCKS##_##DIR<kT>}
+#define INTFFT_FNS(BLOCKS, DIR, MOD)                                          \
+  {intfft::launch_pass_##BLOCKS##_##DIR<kT, MOD>,                             \
+   intfft::grant_pass_##BLOCKS##_##DIR<kT, MOD>,                              \
+   intfft::query_pass_##BLOCKS##_##DIR<kT, MOD>}
+#define INTFFT_FORMS(BLOCKS, DIR)                                             \
+  { INTFFT_FNS(BLOCKS, DIR, false), INTFFT_FNS(BLOCKS, DIR, true) }
+#define INTFFT_EXACT(BLOCKS, DIR)                                             \
+  { INTFFT_FNS(BLOCKS, DIR, false), {nullptr, nullptr, nullptr} }
 template <int kT>
-const PassFns kFns[4][2] = {{INTFFT_FNS(i16, fwd), INTFFT_FNS(i16, inv)},
-                            {INTFFT_FNS(i32, fwd), INTFFT_FNS(i32, inv)},
-                            {INTFFT_FNS(i32_i64, fwd),
-                             INTFFT_FNS(i32_i64, inv)},
-                            {INTFFT_FNS(i64, fwd), INTFFT_FNS(i64, inv)}};
+const PassFns kFns[4][2][2] = {
+    {INTFFT_EXACT(i16, fwd), INTFFT_EXACT(i16, inv)},
+    {INTFFT_EXACT(i32, fwd), INTFFT_EXACT(i32, inv)},
+    {INTFFT_FORMS(i32_i64, fwd), INTFFT_FORMS(i32_i64, inv)},
+    {INTFFT_FORMS(i64, fwd), INTFFT_FORMS(i64, inv)}};
+#undef INTFFT_EXACT
+#undef INTFFT_FORMS
 #undef INTFFT_FNS
 
-// The functions of block form `blocks` (block_form) and direction at the
-// kT among the library's thread counts (INTFFT_THREAD_MASK) that equals
-// `threads`; null where none does.  Only the counts the mask names are
-// instantiated.
+// The functions of block form `blocks` (block_form), direction and product
+// form (mod: modulo 2^64) at the kT among the library's thread counts
+// (INTFFT_THREAD_MASK) that equals `threads`; null where none does, or
+// where the form has no such kernel (mod on the int32 tile).  Only the
+// counts the mask names are instantiated.
 template <int kT = 128>
-const PassFns* pass_fns(int threads, int blocks, int inverse) {
+const PassFns* pass_fns(int threads, int blocks, int inverse, int mod) {
   if constexpr (kT > 1024) {
     return nullptr;
   } else {
     if constexpr ((INTFFT_THREAD_MASK & (kT / 128)) != 0) {
-      if (threads == kT) return &kFns<kT>[blocks][inverse != 0];
+      if (threads == kT) {
+        const PassFns* f = &kFns<kT>[blocks][inverse != 0][mod != 0];
+        return f->launch != nullptr ? f : nullptr;
+      }
     }
-    return pass_fns<kT * 2>(threads, blocks, inverse);
+    return pass_fns<kT * 2>(threads, blocks, inverse, mod);
   }
+}
+
+// Whether every complex product of a pass keeps bits that fit in 64, so
+// that the modular form gives the exact form's bits: the widest wrap w of
+// a product plus the shift.  Stage j enters at data_width + j * gain bits
+// (gain = 1 - scale) and multiplies where its order q is at least 2 (q = j
+// inverse, log_rows - 1 - j forward), wrapped to its input width inverse
+// (DIT) and to its output width forward (DIF): at most data_width +
+// (log_rows - 1) * gain, and data_width + (log_rows - 2) * gain; the
+// epilogue wraps to the factor's output width, data_width + log_rows *
+// gain, wider than any stage.  ops/fused_fft.product_form is the same rule.
+bool product_fits(int log_rows, int data_width, int scale, int tw_shift,
+                  int bypass, int inverse, bool epilogue) {
+  const int gain = 1 - scale;
+  int w = 0;
+  if (!bypass) w = data_width + (log_rows - (inverse ? 1 : 2)) * gain;
+  if (epilogue) w = data_width + log_rows * gain;
+  return w + tw_shift <= 64;
 }
 
 // The row of the launch and query tables of a pair of element sizes:
@@ -306,8 +342,10 @@ PassPtrs pass_ptrs(void* const* v) {
 // and no synthesis.  tc: columns per CTA, a power of two; threads: threads
 // per CTA, one of the counts this library was compiled for (the tuning
 // row's, ops/tuning.py, or a sweep's variant, ops/_build.py); the tile of
-// tc columns must fit the card's shared memory per CTA.  What does not is
-// refused with cudaErrorInvalidValue, never clamped.
+// tc columns must fit the card's shared memory per CTA.  product: the form
+// of the complex products, 0 exact (every pass can take it), 1 modulo 2^64
+// (the int64 tile's, where product_fits holds).  What does not is refused
+// with cudaErrorInvalidValue, never clamped.
 
 extern "C" int intfft_prepared_size() {
   return static_cast<int>(sizeof(PreparedPass));
@@ -318,13 +356,15 @@ extern "C" int intfft_prepared_size() {
 // pointers, and `tables`, which of the table pointers every launch will
 // give (1 w, 2 t2, 4 e, 8 c).  report[0..3]: TC, threads per CTA, the
 // dynamic shared memory of a CTA in bytes and the CTAs along the columns.
-// Returns a cudaError_t; `desc` is usable only when it is 0.
+// product 1 asks for the modular form, refused where the tile is int32 or
+// product_fits does not hold.  Returns a cudaError_t; `desc` is usable
+// only when it is 0.
 extern "C" int intfft_prepare_pass(
     int batch, int rows, int cols, int in_size, int out_size, int data_width,
     int scale, int round, int tw_shift, int bypass, int inverse, int natural,
     int transpose_in, int transpose_out, int synth_log_n, int mathpi,
-    int xshift, int sh_cnt, int tc, int threads, int tables, int device,
-    void* desc, int* report) {
+    int xshift, int sh_cnt, int tc, int threads, int product, int tables,
+    int device, void* desc, int* report) {
   auto* d = static_cast<PreparedPass*>(desc);
   d->magic = 0;
   const int log_rows = log2_exact(rows);
@@ -341,10 +381,13 @@ extern "C" int intfft_prepare_pass(
       (tables & (kTableW | kTableT2)) == 0 ||
       ((tables & kTableE) != 0 && synth) || (wide && (two_d || synth)) ||
       (synth && !synth_ok(syn, rows, cols)) || device < 0 ||
-      device >= kMaxDevices) {
+      device >= kMaxDevices || product < 0 || product > 1 ||
+      (product && !product_fits(log_rows, data_width, scale, tw_shift,
+                                bypass, inverse,
+                                (tables & kTableE) != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const PassFns* fns = pass_fns(threads, blocks, inverse);
+  const PassFns* fns = pass_fns(threads, blocks, inverse, product);
   if (fns == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -423,7 +466,7 @@ extern "C" int intfft_fused_pass(
     int data_width, int scale, int round, int tw_shift, int bypass,
     int inverse, int natural, int transpose_in, int transpose_out,
     int synth_log_n, int mathpi, int xshift, int sh_cnt, int tc, int threads,
-    int device, void* stream, int* out) {
+    int product, int device, void* stream, int* out) {
   out[0] = 0;
   void* const ptrs[12] = {
       const_cast<void*>(x_re),  const_cast<void*>(x_im),
@@ -436,7 +479,7 @@ extern "C" int intfft_fused_pass(
   const int err = intfft_prepare_pass(
       batch, rows, cols, in_size, out_size, data_width, scale, round,
       tw_shift, bypass, inverse, natural, transpose_in, transpose_out,
-      synth_log_n, mathpi, xshift, sh_cnt, tc, threads,
+      synth_log_n, mathpi, xshift, sh_cnt, tc, threads, product,
       table_mask(pass_ptrs(ptrs)), device, &d, out + 1);
   if (err != 0) return err;
   return intfft_fused_chain(&d, 1, ptrs, device, stream, out);
@@ -448,18 +491,19 @@ extern "C" int intfft_fused_pass(
 // (spills), out[2] the most threads per CTA it launches with, out[3] the
 // CTAs an SM holds, out[4] the CTA's dynamic shared memory in bytes.  Forms
 // as intfft_fused_pass (in_size, out_size, inverse, two_d: the 2-D stage
-// tables).  cudaErrorInvalidValue where this library holds no such kernel
-// or the tile exceeds the card's shared memory per CTA.
+// tables, product: 1 the modular product).  cudaErrorInvalidValue where
+// this library holds no such kernel or the tile exceeds the card's shared
+// memory per CTA.
 extern "C" int intfft_pass_attributes(int in_size, int out_size, int inverse,
                                       int two_d, int rows, int tc,
-                                      int threads, int synth, int device,
-                                      int* out) {
+                                      int threads, int synth, int product,
+                                      int device, int* out) {
   const int blocks = block_form(in_size, out_size);
   if (blocks < 0 || rows < 1 || tc < 1 || log2_exact(tc) < 0 || device < 0 ||
-      device >= kMaxDevices) {
+      device >= kMaxDevices || product < 0 || product > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const PassFns* fns = pass_fns(threads, blocks, inverse);
+  const PassFns* fns = pass_fns(threads, blocks, inverse, product);
   if (fns == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);

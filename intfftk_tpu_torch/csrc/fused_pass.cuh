@@ -3,15 +3,16 @@
 // the generator kernel.  What it replaces, computes and is bounded by stands
 // at the head of fused_pass.cu, which holds the C interface.
 //
-// The kernel is instantiated for four pairs of block types, two directions
-// and (on the int32 tile) the 1-D and 2-D stage tables: twelve kernels, each
-// with a body for every shape of stage group.  One source with all twelve
-// compiles for 40 s on the card's machine; so fused_pass_inst.cu, which
-// includes this header and defines one launch_pass_* function, is compiled
-// once for each pair of block types and direction, and the build runs the
-// eight compilations side by side.  What crosses from one object to another
-// has external linkage (namespace intfft); everything else is internal to
-// each.
+// The kernel is instantiated for four pairs of block types, two directions,
+// (on the int32 tile) the 1-D and 2-D stage tables and (on the int64 tile)
+// the two forms of the complex product (exact in __int128, or modulo 2^64:
+// kMod, ProductOf): sixteen kernels, each with a body for every shape of
+// stage group.  One source with all of them compiles for 40 s on the card's
+// machine; so fused_pass_inst.cu, which includes this header and defines
+// one launch_pass_* function, is compiled once for each pair of block
+// types and direction, and the build runs the eight compilations side by
+// side.  What crosses from one object to another has external linkage
+// (namespace intfft); everything else is internal to each.
 
 #pragma once
 
@@ -45,6 +46,8 @@ struct PassPtrs {
 // fused_pass_inst.cu, for one thread count.  The launch takes `smem` bytes
 // of dynamic shared memory per CTA, which the grant below has allowed on
 // the current device, and adds the kernel launches it made to *launches.
+// kMod: the kernel that forms its complex product-sums modulo 2^64 (the
+// int64 tile's only; ProductOf).
 #define INTFFT_LAUNCH_PASS(NAME)                                              \
   cudaError_t NAME(const PassPtrs& a, const PassParams& p,                    \
                    const SynthParams& syn, size_t smem, cudaStream_t stream,  \
@@ -62,11 +65,11 @@ struct PassPtrs {
 #define INTFFT_QUERY_PASS(NAME)                                               \
   cudaError_t NAME(bool two_d, size_t smem, int device, int* out)
 #define INTFFT_PASS_FUNCTIONS(BLOCKS, DIR)                                    \
-  template <int kT>                                                           \
+  template <int kT, bool kMod>                                                \
   INTFFT_LAUNCH_PASS(launch_pass_##BLOCKS##_##DIR);                           \
-  template <int kT>                                                           \
+  template <int kT, bool kMod>                                                \
   INTFFT_GRANT_PASS(grant_pass_##BLOCKS##_##DIR);                             \
-  template <int kT>                                                           \
+  template <int kT, bool kMod>                                                \
   INTFFT_QUERY_PASS(query_pass_##BLOCKS##_##DIR)
 INTFFT_PASS_FUNCTIONS(i16, fwd);
 INTFFT_PASS_FUNCTIONS(i16, inv);
@@ -104,7 +107,12 @@ inline size_t pass_smem(int rows, int tc, int word, bool synth) {
 // on the int64 tile (two), the caps of 256 threads per CTA, kept at every
 // thread count as far as the SM's 65 536 registers allow: at 512 threads
 // the inverse and the int64 tile may take 128 (one CTA), at 1024 every form
-// 64, and there the inverse and the int64 tile spill.
+// 64, and there the inverse and the int64 tile spill.  Both forms of the
+// int64 tile's products (kMod) take the same cap: a pass takes the modular
+// form where every product keeps bits that fit in 64 (config 4's inverse,
+// config 2's forward, the 24-bit path's widening pass), the exact one
+// elsewhere (config 2's inverse); at 128 registers the exact inverse spills
+// 16 bytes, the modular one none at 256 and 512 threads (8 at 128).
 // Where shared memory lets an SM hold fewer CTAs (from m = 1024 up), the
 // tile budget of the tuning row decides, at run time.
 template <typename V, bool kInverse, int kT>
@@ -168,9 +176,10 @@ struct PassCtx {
 // memory (to_y: out[b, k, col], the forward's natural order an index on k)
 // or to the tile.  The last group multiplies its registers by the
 // inter-factor twiddle of the stored row first.  A thread whose column lies
-// past p.cols loads zeros and stores nothing to device memory.
+// past p.cols loads zeros and stores nothing to device memory.  P: the type
+// of every complex product's sums, the stages' and the epilogue's (cmult).
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
-          int kT, int R, int kLo>
+          int kT, int R, int kLo, typename P>
 __device__ __forceinline__ void run_group(const PassCtx<Tin, Tout, V>& k,
                                           const PassParams& p,
                                           const SynthParams& syn, int lo_rt,
@@ -201,9 +210,9 @@ __device__ __forceinline__ void run_group(const PassCtx<Tin, Tout, V>& k,
     } else {
       group_load_tile<V, R>(k.s_re, k.s_im, base * ld + c, ld << lo, xr, xi);
     }
-    stage_group<V, kInverse, kTwoD, R, kLo>(xr, xi, lo, k0, in_w0, p, col,
-                                            k.w_re, k.w_im, k.t2_re,
-                                            k.t2_im);
+    stage_group<V, kInverse, kTwoD, R, kLo, P>(xr, xi, lo, k0, in_w0, p,
+                                               col, k.w_re, k.w_im, k.t2_re,
+                                               k.t2_im);
     if (last && k.epilogue && live) {
 #pragma unroll
       for (int a = 0; a < N; ++a) {
@@ -220,7 +229,7 @@ __device__ __forceinline__ void run_group(const PassCtx<Tin, Tout, V>& k,
           wr = __ldg(k.e_re + g);
           wi = __ldg(k.e_im + g);
         }
-        cmult(xr[a], xi[a], wr, wi, p.tw_shift, k.ow, xr[a], xi[a]);
+        cmult<V, P>(xr[a], xi[a], wr, wi, p.tw_shift, k.ow, xr[a], xi[a]);
       }
     }
     if (to_y) {
@@ -242,12 +251,15 @@ __device__ __forceinline__ void run_group(const PassCtx<Tin, Tout, V>& k,
 }
 
 // Tin / Tout: the element types of x and y; V: the tile's (int32, or
-// int64 for the wide forms); kT: threads per CTA.  The registers a thread
+// int64 for the wide forms); kT: threads per CTA; kMod: the complex
+// products modulo the tile's word (ProductOf: the int64 tile's form where
+// every product of the pass keeps bits that fit in 64; the host chooses
+// it per pass and intfft_prepare_pass checks it).  The registers a thread
 // may take are min_ctas's.  A thread with no task in a loop (more threads
 // than tasks, or the tail CTA's dead columns) still reaches every barrier:
 // no __syncthreads lies inside a loop over tasks.
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
-          int kT>
+          int kT, bool kMod>
 __global__ void __launch_bounds__(kT, (min_ctas<V, kInverse, kT>()))
 fused_pass_kernel(const Tin* __restrict__ x_re, const Tin* __restrict__ x_im,
                   const int32_t* __restrict__ w_re,
@@ -328,8 +340,8 @@ fused_pass_kernel(const Tin* __restrict__ x_re, const Tin* __restrict__ x_im,
     const bool from_x = i == 0 && !p.transpose_in;
     const bool to_y = last && !p.transpose_out;
 #define RUN_GROUP(GR, GLO)                                                    \
-  run_group<Tin, Tout, V, kInverse, kTwoD, kT, GR, GLO>(                     \
-      k, p, syn, lo, in_w0, from_x, to_y, last)
+  run_group<Tin, Tout, V, kInverse, kTwoD, kT, GR, GLO,                      \
+            ProductOf<V, kMod>>(k, p, syn, lo, in_w0, from_x, to_y, last)
     if (r == R) {
       if (lo >= 2) {
         RUN_GROUP(R, 2);
@@ -376,12 +388,12 @@ int log2_exact(int v) {
 // than any before it, not on every launch.  One cache per instantiation:
 // each thread count is a kernel of its own.
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
-          int kT>
+          int kT, bool kMod>
 cudaError_t grant_smem(int device, size_t smem) {
   static size_t granted[kMaxDevices] = {};
   if (smem <= granted[device]) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT>,
+      fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT, kMod>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err == cudaSuccess) granted[device] = smem;
   return err;
@@ -394,11 +406,12 @@ cudaError_t grant_smem(int device, size_t smem) {
 // clamps.  Sixteen int16 columns are one 32-byte sector per row; a narrower
 // tile reads shorter row segments and lets an SM hold more CTAs at large m.
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
-          int kT>
+          int kT, bool kMod>
 cudaError_t launch(const PassPtrs& a, const PassParams& p,
                    const SynthParams& syn, size_t smem, cudaStream_t stream,
                    int* launches) {
-  const auto kernel = fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT>;
+  const auto kernel =
+      fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT, kMod>;
   const auto i32 = [](const void* v) {
     return static_cast<const int32_t*>(v);
   };
@@ -424,11 +437,12 @@ cudaError_t launch(const PassPtrs& a, const PassParams& p,
 }
 
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
-          int kT>
+          int kT, bool kMod>
 cudaError_t query(size_t smem, int device, int* out) {
-  const auto kernel = fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT>;
+  const auto kernel =
+      fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT, kMod>;
   cudaError_t err =
-      grant_smem<Tin, Tout, V, kInverse, kTwoD, kT>(device, smem);
+      grant_smem<Tin, Tout, V, kInverse, kTwoD, kT, kMod>(device, smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
@@ -443,40 +457,45 @@ cudaError_t query(size_t smem, int device, int* out) {
 // The 2-D stage tables are a template parameter, as the direction is, so
 // the standard stages carry no branch of the other forms.  The int64 tile
 // has no 2-D form (the caller checks).
-template <typename Tin, typename Tout, typename V, bool kInverse, int kT>
+template <typename Tin, typename Tout, typename V, bool kInverse, int kT,
+          bool kMod>
 cudaError_t launch_tables(const PassPtrs& a, const PassParams& p,
                           const SynthParams& syn, size_t smem,
                           cudaStream_t stream, int* launches) {
   if constexpr (sizeof(V) == 4) {
     if (a.t2_re != nullptr) {
-      return launch<Tin, Tout, V, kInverse, true, kT>(a, p, syn, smem,
-                                                      stream, launches);
+      return launch<Tin, Tout, V, kInverse, true, kT, kMod>(
+          a, p, syn, smem, stream, launches);
     }
   }
-  return launch<Tin, Tout, V, kInverse, false, kT>(a, p, syn, smem, stream,
-                                                   launches);
+  return launch<Tin, Tout, V, kInverse, false, kT, kMod>(a, p, syn, smem,
+                                                         stream, launches);
 }
 
-template <typename Tin, typename Tout, typename V, bool kInverse, int kT>
+template <typename Tin, typename Tout, typename V, bool kInverse, int kT,
+          bool kMod>
 cudaError_t grant_tables(bool two_d, size_t smem, int device) {
   if constexpr (sizeof(V) == 4) {
     if (two_d) {
-      return grant_smem<Tin, Tout, V, kInverse, true, kT>(device, smem);
+      return grant_smem<Tin, Tout, V, kInverse, true, kT, kMod>(device,
+                                                                smem);
     }
   }
   if (two_d) return cudaErrorInvalidValue;
-  return grant_smem<Tin, Tout, V, kInverse, false, kT>(device, smem);
+  return grant_smem<Tin, Tout, V, kInverse, false, kT, kMod>(device, smem);
 }
 
-template <typename Tin, typename Tout, typename V, bool kInverse, int kT>
+template <typename Tin, typename Tout, typename V, bool kInverse, int kT,
+          bool kMod>
 cudaError_t query_tables(bool two_d, size_t smem, int device, int* out) {
   if constexpr (sizeof(V) == 4) {
     if (two_d) {
-      return query<Tin, Tout, V, kInverse, true, kT>(smem, device, out);
+      return query<Tin, Tout, V, kInverse, true, kT, kMod>(smem, device,
+                                                           out);
     }
   }
   if (two_d) return cudaErrorInvalidValue;
-  return query<Tin, Tout, V, kInverse, false, kT>(smem, device, out);
+  return query<Tin, Tout, V, kInverse, false, kT, kMod>(smem, device, out);
 }
 
 }  // namespace

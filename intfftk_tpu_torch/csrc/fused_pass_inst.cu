@@ -6,9 +6,11 @@
 //   -DINTFFT_BLOCKS=i16 | i32 | i32_i64 | i64   -DINTFFT_DIR=fwd | inv
 //   -DINTFFT_THREADS=128 | 256 | 512 | 1024
 // and each compilation instantiates the three function templates
-// launch_pass_<blocks>_<dir><threads>, grant_pass_<blocks>_<dir><threads>
-// and query_pass_<blocks>_<dir><threads> that fused_pass.cu, which holds the
-// C interface and says what the kernel replaces and what bounds it, calls.
+// launch_pass_<blocks>_<dir><threads, kMod>, grant_pass_... and
+// query_pass_... that fused_pass.cu, which holds the C interface and says
+// what the kernel replaces and what bounds it, calls: with the exact
+// complex product (kMod false) for every pair of block types, and on the
+// int64 tile (i32_i64, i64) also with the product modulo 2^64 (kMod true).
 
 #include "fused_pass.cuh"
 
@@ -22,6 +24,11 @@
 #define INTFFT_TYPES_i32 int32_t, int32_t, int32_t
 #define INTFFT_TYPES_i32_i64 int32_t, int64_t, int64_t
 #define INTFFT_TYPES_i64 int64_t, int64_t, int64_t
+// whether the tile is int64, which has the modular product too
+#define INTFFT_WIDE_i16 0
+#define INTFFT_WIDE_i32 0
+#define INTFFT_WIDE_i32_i64 1
+#define INTFFT_WIDE_i64 1
 #define INTFFT_INVERSE_fwd false
 #define INTFFT_INVERSE_inv true
 #define INTFFT_CAT_(a, b) a##b
@@ -31,27 +38,36 @@
 #define INTFFT_NAME(what) INTFFT_NAME_(what, INTFFT_BLOCKS, INTFFT_DIR)
 #define INTFFT_FORM                                                          \
   INTFFT_CAT(INTFFT_TYPES_, INTFFT_BLOCKS),                                  \
-      INTFFT_CAT(INTFFT_INVERSE_, INTFFT_DIR), kT
+      INTFFT_CAT(INTFFT_INVERSE_, INTFFT_DIR), kT, kMod
 
 namespace intfft {
 
-template <int kT>
+template <int kT, bool kMod>
 INTFFT_LAUNCH_PASS(INTFFT_NAME(launch)) {
   return launch_tables<INTFFT_FORM>(a, p, syn, smem, stream, launches);
 }
 
-template <int kT>
+template <int kT, bool kMod>
 INTFFT_GRANT_PASS(INTFFT_NAME(grant)) {
   return grant_tables<INTFFT_FORM>(two_d, smem, device);
 }
 
-template <int kT>
+template <int kT, bool kMod>
 INTFFT_QUERY_PASS(INTFFT_NAME(query)) {
   return query_tables<INTFFT_FORM>(two_d, smem, device, out);
 }
 
-template INTFFT_LAUNCH_PASS(INTFFT_NAME(launch)<INTFFT_THREADS>);
-template INTFFT_GRANT_PASS(INTFFT_NAME(grant)<INTFFT_THREADS>);
-template INTFFT_QUERY_PASS(INTFFT_NAME(query)<INTFFT_THREADS>);
+// the template arguments of one form (a macro, so that its comma does not
+// split the arguments of the macros below)
+#define INTFFT_EXACT_FORM INTFFT_THREADS, false
+#define INTFFT_MOD_FORM INTFFT_THREADS, true
+template INTFFT_LAUNCH_PASS(INTFFT_NAME(launch)<INTFFT_EXACT_FORM>);
+template INTFFT_GRANT_PASS(INTFFT_NAME(grant)<INTFFT_EXACT_FORM>);
+template INTFFT_QUERY_PASS(INTFFT_NAME(query)<INTFFT_EXACT_FORM>);
+#if INTFFT_CAT(INTFFT_WIDE_, INTFFT_BLOCKS)
+template INTFFT_LAUNCH_PASS(INTFFT_NAME(launch)<INTFFT_MOD_FORM>);
+template INTFFT_GRANT_PASS(INTFFT_NAME(grant)<INTFFT_MOD_FORM>);
+template INTFFT_QUERY_PASS(INTFFT_NAME(query)<INTFFT_MOD_FORM>);
+#endif
 
 }  // namespace intfft

@@ -6,10 +6,13 @@
 // Numerics: every sum is formed in the tile's unsigned type (uint32, or
 // uint64 on the int64 tile: modular, no signed overflow) and wrapped to the
 // stage's output width with a shift pair, so the result equals the golden
-// model's arithmetic followed by its wrap; the complex products are exact
-// product-sums (64-bit on the int32 tile, __int128 on the int64 tile: a
-// 52-bit datum times a 27-bit twiddle, summed, is 80 bits), floor-shifted
-// and then wrapped.
+// model's arithmetic followed by its wrap.  A complex product's sums are
+// floor-shifted by sh and wrapped to w bits, so only their bits sh .. sh +
+// w - 1 are kept.  They are formed exactly (64-bit on the int32 tile,
+// __int128 on the int64 tile: a 52-bit datum times a 27-bit twiddle,
+// summed, is 80 bits), or, on the int64 tile where every product of a
+// pass keeps bits that fit (sh + w <= 64), modulo 2^64 in uint64: the same
+// bits (ProductOf; the factor pass takes the form per pass).
 //
 // Everything here has internal linkage (an unnamed namespace): each source
 // that includes it compiles its own copy into its own kernels.
@@ -17,6 +20,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -36,6 +40,13 @@ struct Arith<int64_t> {
   using P = __int128;            // |data| < 2^63, |twiddle| < 2^26
 };
 
+// The type a pass forms its complex product-sums in: exact (Arith<V>::P),
+// or with kMod the tile's unsigned word, modulo 2^64 on the int64 tile,
+// where every product of the pass keeps bits that fit the word.
+template <typename V, bool kMod>
+using ProductOf =
+    std::conditional_t<kMod, typename Arith<V>::U, typename Arith<V>::P>;
+
 // Low w bits of v as a signed w-bit value, 1 <= w <= the bits of V.
 template <typename V>
 __device__ __forceinline__ V wrap(typename Arith<V>::U v, int w) {
@@ -52,18 +63,30 @@ __device__ __forceinline__ V neg_guarded(V x) {
                         static_cast<U>(x));
 }
 
-// (br + j*bi) * (c + j*d) >> sh, wrapped to w bits; each product-sum is
-// exact in P before the floor shift.  P is the tile's product type unless
-// the caller knows a narrower one holds its product-sum (the spectrum
-// product: a 32-bit datum on the int64 register).
+// (br + j*bi) * (c + j*d) >> sh, wrapped to w bits.  P is the type the
+// product-sums are formed in: the tile's exact product type unless the
+// caller knows a narrower one holds them (the spectrum product: a 32-bit
+// datum on the int64 register), or the tile's unsigned word U, in which
+// they are formed modulo its 2^bits.  The wrap reads bits sh .. sh + w - 1
+// of each product-sum, which the word holds exactly where sh + w <= bits:
+// the caller's to hold (intfft_prepare_pass refuses a pass that breaks
+// it); the floor shift and the wrap are then one pair of shifts.  Every
+// value of the data and the twiddles gives the bits of the exact form,
+// the most negative ones included.
 template <typename V, typename P = typename Arith<V>::P>
 __device__ __forceinline__ void cmult(V br, V bi, int32_t c, int32_t d,
                                       int sh, int w, V& yr, V& yi) {
   using U = typename Arith<V>::U;
   const P pr = static_cast<P>(br) * c - static_cast<P>(bi) * d;
   const P pi = static_cast<P>(bi) * c + static_cast<P>(br) * d;
-  yr = wrap<V>(static_cast<U>(pr >> sh), w);
-  yi = wrap<V>(static_cast<U>(pi >> sh), w);
+  if constexpr (std::is_same_v<P, U>) {
+    constexpr int bits = 8 * static_cast<int>(sizeof(V));
+    yr = static_cast<V>(pr << (bits - w - sh)) >> (bits - w);
+    yi = static_cast<V>(pi << (bits - w - sh)) >> (bits - w);
+  } else {
+    yr = wrap<V>(static_cast<U>(pr >> sh), w);
+    yi = wrap<V>(static_cast<U>(pi >> sh), w);
+  }
 }
 
 // Sum and difference with the mode's scale (1: per-stage /2) and rounding

@@ -168,10 +168,13 @@ __device__ __forceinline__ void stage_body(
 // ---------------------------------------------------------- stage groups
 
 // Stages a group holds at most, by tile type.  Three on the int64 tile too:
-// its kernels then take all 128 registers a thread of two CTAs per SM (the
-// inverse spills 16 bytes), and still ran the [4096, 1024] int64 transform
-// 2 % faster on an H100 than with groups of two (the probe's group64_3_*
-// against group64_2_* steps read the same way).
+// its kernels then take all 128 registers a thread of two CTAs per SM, and
+// still ran the [4096, 1024] int64 transform 2 % faster on an H100 than
+// with groups of two (the probe's group64_3_* against group64_2_* steps
+// read the same way).  The inverse with exact (__int128) products spills 16
+// bytes at every thread count; with products modulo 2^64 (ProductOf, the
+// form config 4's inverse takes) it spills none at 256 and 512 threads and
+// 8 bytes at 128 (ptxas of CUDA 12.8).
 template <typename V>
 struct GroupSize {
   static constexpr int R = 3;
@@ -260,8 +263,10 @@ __device__ __forceinline__ void group_bfly(V a, V b, int in_w,
 // order 0 and 1 take their own forms: no product, and -j on the odd index,
 // +j inverse), or 2 for "at least 2" (every stage multiplies; lo is read at
 // run time).  in_w is the width entering the stage.  The arithmetic is
-// stage_body's, butterfly for butterfly.
-template <typename V, bool kInverse, bool kTwoD, int R, int kLo, int BIT>
+// stage_body's, butterfly for butterfly; P is the type of the products'
+// sums (cmult; ProductOf: exact, or modulo the word).
+template <typename V, bool kInverse, bool kTwoD, int R, int kLo, int BIT,
+          typename P = typename Arith<V>::P>
 __device__ __forceinline__ void group_stage(
     V (&xr)[1 << R], V (&xi)[1 << R], int lo, int k0, int in_w,
     const PassParams& p, int col, const int32_t* __restrict__ w_re,
@@ -302,7 +307,8 @@ __device__ __forceinline__ void group_stage(
       // order 1 makes it B * j = (neg_guarded(bi), br)
       V bwr = xr[b], bwi = xi[b];
       if constexpr (kMul) {
-        cmult(xr[b], xi[b], tr[kk], -ti[kk], p.tw_shift, in_w, bwr, bwi);
+        cmult<V, P>(xr[b], xi[b], tr[kk], -ti[kk], p.tw_shift, in_w, bwr,
+                    bwi);
       } else if constexpr (kTurn) {
         if (odd) {
           bwr = neg_guarded(xi[b]);
@@ -318,7 +324,7 @@ __device__ __forceinline__ void group_stage(
       dr = yr;
       di = yi;
       if constexpr (kMul) {
-        cmult(yr, yi, tr[kk], ti[kk], p.tw_shift, out_w, dr, di);
+        cmult<V, P>(yr, yi, tr[kk], ti[kk], p.tw_shift, out_w, dr, di);
       } else if constexpr (kTurn) {
         // W = -j on the odd index: (re, im) = (im, neg_guarded(re))
         if (odd) {
@@ -338,18 +344,20 @@ __device__ __forceinline__ void group_stage(
 // xr/xi[a] = row base + (a << lo): forward from the top order down, inverse
 // from the bottom up.  in_w0 is the width entering the group's first stage;
 // every stage adds 1 - scale to it.  col is the task's global column (the
-// 2-D tables' index).  J counts the stages done.
-template <typename V, bool kInverse, bool kTwoD, int R, int kLo, int J = 0>
+// 2-D tables' index).  P: the products' type (group_stage).  J counts the
+// stages done.
+template <typename V, bool kInverse, bool kTwoD, int R, int kLo,
+          typename P = typename Arith<V>::P, int J = 0>
 __device__ __forceinline__ void stage_group(
     V (&xr)[1 << R], V (&xi)[1 << R], int lo, int k0, int in_w0,
     const PassParams& p, int col, const int32_t* __restrict__ w_re,
     const int32_t* __restrict__ w_im, const int32_t* __restrict__ t2_re,
     const int32_t* __restrict__ t2_im) {
   if constexpr (J < R) {
-    group_stage<V, kInverse, kTwoD, R, kLo, kInverse ? J : R - 1 - J>(
+    group_stage<V, kInverse, kTwoD, R, kLo, kInverse ? J : R - 1 - J, P>(
         xr, xi, kLo < 2 ? kLo : lo, k0, in_w0 + J * (1 - p.scale), p, col,
         w_re, w_im, t2_re, t2_im);
-    stage_group<V, kInverse, kTwoD, R, kLo, J + 1>(
+    stage_group<V, kInverse, kTwoD, R, kLo, P, J + 1>(
         xr, xi, lo, k0, in_w0, p, col, w_re, w_im, t2_re, t2_im);
   }
 }

@@ -193,11 +193,49 @@ def _check_pass(shape, dtype, dev, cfg: FFTConfig, tables, epi, synth,
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+#: The forms of a pass's complex products (``product_form``).
+PRODUCT_FORMS = ("int32", "mod64", "int128")
+
+
+def product_form(cfg: FFTConfig, out_dtype: torch.dtype, inverse: bool,
+                 epilogue: bool) -> str:
+    """The form a pass forms its complex product-sums in: ``"int32"`` on
+    the int32 tile (exact in 64 bits), and on the int64 tile (``out_dtype``
+    int64) ``"mod64"`` where every product keeps bits that fit in 64, else
+    ``"int128"`` (exact).  A product is floor-shifted by
+    ``cfg.twiddle_shift`` and wrapped to w bits, so it keeps its bits
+    twiddle_shift .. twiddle_shift + w - 1, the same modulo 2^64 where
+    they fit.  Stage j enters at ``data_width + j * (1 - scale)`` bits and
+    multiplies where its twiddle order is at least 2 (order j inverse,
+    log2(n) - 1 - j forward), wrapped to its input width inverse (DIT) and
+    its output width forward (DIF); the ``epilogue`` wraps to the factor's
+    output width.  ``intfft_prepare_pass`` holds the C entry's request to
+    the same rule (``product_fits``) and refuses a modular one that breaks
+    it."""
+    if out_dtype != torch.int64:
+        return "int32"
+    stages = cfg.n.bit_length() - 1
+    gain = 1 - cfg.scale
+    widths = []
+    if not cfg.bypass_fly:
+        for j in range(stages):
+            order = j if inverse else stages - 1 - j
+            if order >= 2:
+                widths.append(cfg.data_width + (j if inverse else j + 1)
+                              * gain)
+    if epilogue:
+        widths.append(cfg.data_width + stages * gain)
+    fits = max(widths, default=0) + cfg.twiddle_shift <= 64
+    return "mod64" if fits else "int128"
+
+
 def _pass_ints(cfg: FFTConfig, shape, in_dtype, out_dtype, synth, inverse,
-               natural, transpose_in, transpose_out, lane_tile, threads):
+               natural, transpose_in, transpose_out, lane_tile, threads,
+               product):
     """The integers of a pass on blocks of ``shape``, as the C entries take
     them: batch, rows, cols, the element sizes, the numerics, the layout,
-    the synthesis constants, TC and threads per CTA."""
+    the synthesis constants, TC, threads per CTA and the product form
+    (``product_form``: 1 for ``"mod64"``, else 0)."""
     r = cfg.n
     c = shape[1] if transpose_in else shape[2]
     prm = synth_params(cfg, synth.n) if synth is not None else (0, 0, 0, 0)
@@ -205,7 +243,7 @@ def _pass_ints(cfg: FFTConfig, shape, in_dtype, out_dtype, synth, inverse,
             cfg.data_width, cfg.scale, int(cfg.rounding == "round"),
             cfg.twiddle_shift, int(cfg.bypass_fly), int(inverse),
             int(natural), int(transpose_in), int(transpose_out), *prm,
-            lane_tile, threads)
+            lane_tile, threads, int(product == "mod64"))
 
 
 def _table_ptrs(tables, tables_2d, epi, synth) -> tuple:
@@ -315,12 +353,14 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
     y_im = torch.empty(oshape, dtype=out_dtype, device=dev)
     lib = _build.library(threads)
     out = _REPORT()
+    product = product_form(cfg, out_dtype, inverse,
+                           epi is not None or synth is not None)
     err = lib.intfft_fused_pass(
         x_re.data_ptr(), x_im.data_ptr(), y_re.data_ptr(), y_im.data_ptr(),
         *_table_ptrs(tables, tables_2d, epi, synth),
         *_pass_ints(cfg, x_re.shape, x_re.dtype, out_dtype, synth, inverse,
                     natural, transpose_in, transpose_out, lane_tile,
-                    threads),
+                    threads, product),
         dev.index, stream_handle(dev), out)
     if err:
         _build.check(lib, err, f"fused_pass launch (TC {lane_tile}, "
@@ -366,8 +406,9 @@ class PreparedPass:
     ``PreparedChain`` launches it; it keeps the tables it reads alive.
     ``geometry`` is what the C entry reported (TC, threads per CTA, shared
     memory per CTA in bytes, CTAs along the columns); ``out_shape`` and
-    ``out_dtype`` are its output's.  Raises ValueError on a CPU device: the
-    plain version needs no preparing."""
+    ``out_dtype`` are its output's; ``product`` the form of its complex
+    products (``product_form``), whose kernel the C entry took.  Raises
+    ValueError on a CPU device: the plain version needs no preparing."""
 
     def __init__(self, shape, dtype, dev, cfg: FFTConfig, tables, *,
                  epi=None, synth: EpiSynth | None = None, tables_2d=None,
@@ -386,6 +427,8 @@ class PreparedPass:
         self.lib = _build.library(threads)
         self.out_shape = _out_shape(shape, cfg, transpose_in, transpose_out)
         self.out_dtype = out_dtype
+        self.product = product_form(cfg, out_dtype, inverse,
+                                    epi is not None or synth is not None)
         self.keep = [t for pair in (tables, tables_2d, epi, synth)
                      if pair is not None for t in pair[:2]]
         self.table_ptrs = _table_ptrs(tables, tables_2d, epi, synth)
@@ -398,7 +441,8 @@ class PreparedPass:
         err = self.lib.intfft_prepare_pass(
             *_pass_ints(cfg, shape, dtype, out_dtype, synth, inverse,
                         natural, transpose_in, transpose_out, lane_tile,
-                        threads), mask, dev.index, self.desc, report)
+                        threads, self.product), mask, dev.index, self.desc,
+            report)
         if err:
             _build.check(self.lib, err, f"fused_pass prepare (TC "
                          f"{lane_tile}, {threads} threads per CTA)")
@@ -428,7 +472,9 @@ class PreparedChain:
     Passes of one thread-count library go out in one C call; a sweep's
     variant (``_build.library(threads)``) is a library of its own, so a
     chain that mixes it with the tuning rows' counts takes one C call per
-    run of passes in one library."""
+    run of passes in one library.  ``products``: the form of each pass's
+    complex products in launch order (``product_form``; both factors' of a
+    whole call), which ``products_note`` counts."""
 
     def __init__(self, shape, dtype, dev, passes, whole=None):
         self.in_shape, self.in_dtype, self.device = tuple(shape), dtype, dev
@@ -441,6 +487,8 @@ class PreparedChain:
                 p = PreparedPass(shape, dtype, dev, cfg, **kw)
                 self.passes.append(p)
                 shape, dtype = p.out_shape, p.out_dtype
+        self.products = (self.passes[0].products if whole is not None
+                         else tuple(p.product for p in self.passes))
         # the runs of passes in one library: (library, its first pass,
         # their descriptors side by side, their 12 pointers each, count)
         self.runs = []
@@ -492,6 +540,15 @@ class PreparedChain:
             self.counter.launches += launches
         self.counter.geometry = self.geometry
         return outs[-1]
+
+
+def products_note(products) -> str:
+    """What a ``plan.prepare`` span notes of a chain whose passes form
+    their complex products as ``products``: each form of
+    ``PRODUCT_FORMS`` and how many passes take it, e.g. "product int32 0
+    mod64 2 int128 0"."""
+    return "product " + " ".join(f"{f} {list(products).count(f)}"
+                                 for f in PRODUCT_FORMS)
 
 
 def fused_four_step_reference(x_re, x_im, passes):
@@ -588,7 +645,8 @@ class PreparedWhole:
     what the C entry reported: the cluster size, threads per CTA, shared
     memory per CTA in bytes, clusters of the launch, clusters the card holds
     at once, CTAs per SM, registers and local bytes per thread, and the
-    rounds (the blocks the busiest cluster runs)."""
+    rounds (the blocks the busiest cluster runs).  ``products``: the form
+    of each factor's complex products (``PRODUCT_FORMS``), always exact."""
 
     def __init__(self, shape, dtype, dev, passes, *, batch_block: int = 2,
                  cluster: int | None = None):
@@ -627,6 +685,11 @@ class PreparedWhole:
                                f"items (clusters held: {self.held})")
         self.out_shape = (shape[0], shape[2], shape[1])
         self.out_dtype = out_dtype
+        # the cluster kernel forms every product exactly: in 64 bits on an
+        # int32 factor, in __int128 on an int64 one
+        self.products = tuple(
+            "int128" if kw.get("out_dtype", dtype) == torch.int64
+            else "int32" for _, kw in passes)
         self.keep = [t for pair in tables if pair is not None for t in pair]
         pair = lambda p: ((p[0].data_ptr(), p[1].data_ptr()) if p is not None
                           else (None, None))
@@ -702,11 +765,14 @@ class PreparedPlan(nn.Module):
 
     def _prepare(self, key, make):
         """The object prepared for ``key``, made by ``make()`` at its first
-        use."""
+        use; while a recording is open its ``plan.prepare`` span notes the
+        product forms of a chain's passes (``products_note``)."""
         obj = self._prepared.get(key)
         if obj is None:
-            with trace.span("plan.prepare"):
+            with trace.span("plan.prepare") as span:
                 obj = self._prepared[key] = make()
+                if span is not None and hasattr(obj, "products"):
+                    span.note = products_note(obj.products)
         return obj
 
     def _track(self, call):

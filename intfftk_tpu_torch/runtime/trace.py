@@ -29,7 +29,9 @@ The spans, by name:
 * ``plan.build``: ``LargeFFTPlan`` and ``OverlapSaveConv``'s constructors
   (tables, twiddles, tuning);
 * ``plan.prepare``: a prepared object made at a plan's first call with a
-  key (``PreparedChain``, ``PreparedProduct``);
+  key (``PreparedChain``, ``PreparedProduct``); a chain's notes how many
+  of its passes form their complex products in each form, e.g. "product
+  int32 0 mod64 2 int128 0" (``fused_fft.products_note``);
 * ``library.load``: the kernel library's first load for a thread count,
   its ``note`` "built" or "cached";
 * ``stream.repack``, ``stream.dispatch``, ``stream.wait``:

@@ -368,19 +368,24 @@ def stage_pattern(index: int, order: int, wide: bool = False,
             rf"Li{threads}ELi{layout}EE")
 
 
-def pass_pattern(wide: bool = False, threads: int | None = None) -> str:
-    """The forward 1-D-table instantiation of ``fused_pass_kernel``: int16
-    blocks on the int32 tile (the 64k headline), or int64 on int64, at
-    ``threads`` threads per CTA: by default the count the headline's passes
-    (m = 256), or on the int64 tile the config-2 chain's, take from the
-    card's tuning row.  A library whose kernel has no thread count among
-    its template parameters (before the tuning layer) matches too."""
+def pass_pattern(wide: bool = False, threads: int | None = None,
+                 inverse: bool = False, mod: bool = False) -> str:
+    """The 1-D-table instantiation of ``fused_pass_kernel``, forward unless
+    ``inverse``: int16 blocks on the int32 tile (the 64k headline), or
+    int64 on int64, at ``threads`` threads per CTA: by default the count
+    the headline's passes (m = 256), or on the int64 tile the config-2
+    chain's, take from the card's tuning row; with ``mod`` the int64
+    tile's kernel whose products are formed modulo 2^64.  A library whose
+    kernel has no thread count or no product form among its template
+    parameters (before the tuning layer, before the modular form) matches
+    too."""
     if threads is None:
         from ..ops.tuning import TUNINGS, pass_geometry
 
         threads = pass_geometry(TUNINGS["sm_90"], 256, 256, wide)["threads"]
+    form = "Lb1E" if mod else "(?:Lb0E)?"
     return (r"fused_pass_kernelI" + ("lll" if wide else "ssi")
-            + rf"Lb0ELb0E(?:Li{threads}E)?E")
+            + rf"Lb{int(inverse)}ELb0E(?:Li{threads}E)?{form}E")
 
 
 def chain_loop_sizes(sass: dict) -> dict:
@@ -506,12 +511,14 @@ def audit_stage(step: str, sass: dict | None = None,
     return count_loop(ins, span).scaled(butterflies)
 
 
-def audit_pass_static(wide: bool = False, sass: dict | None = None) -> dict:
+def audit_pass_static(wide: bool = False, sass: dict | None = None,
+                      inverse: bool = False, mod: bool = False) -> dict:
     """Instructions per butterfly of ``fused_pass_kernel``'s largest group
-    loop by class: a static count, which holds both operand sources, both
-    destinations and both forms of the inter-factor product."""
+    loop by class (``pass_pattern``'s instantiation): a static count, which
+    holds both operand sources, both destinations and both forms of the
+    inter-factor product."""
     sass = library_sass() if sass is None else sass
-    ins = sass[find_function(sass, pass_pattern(wide))]
+    ins = sass[find_function(sass, pass_pattern(wide, None, inverse, mod))]
     r = GROUP_SIZE[bool(wide)]
     span, tasks = butterfly_loop(ins, 2 << r)
     return count_loop(ins, span).scaled(tasks * r * (1 << r) / 2)
@@ -666,6 +673,9 @@ def main(argv=None) -> int:
     out = {"unknown_opcodes": unknown,
            "headline": {k: {kk: summarize(vv) for kk, vv in v.items()}
                         for k, v in audit_headline(sass).items()},
+           "int64_inverse_static": {
+               form: summarize(audit_pass_static(True, sass, True, mod))
+               for form, mod in (("int128", False), ("mod64", True))},
            "stages": {name: summarize(audit_stage(name, sass))
                       for name in probe_stages.STEPS}}
     if "--probes" in argv:

@@ -78,7 +78,7 @@ import torch
 from ..config import FFTConfig
 from ..ops import _build
 from ..ops.fused_fft import (LargeFFTPlan, circle_table, fused_pass,
-                             fused_pass_reference)
+                             fused_pass_reference, product_form)
 from ..ops.intmath import spectrum_product_reference
 from ..ops.single_pass import (FusedAxisFFT, PallasFFTPlan,
                                PallasWideFFTPlan)
@@ -214,20 +214,26 @@ class Path:
                      for p in self.plans for g in _geometries(p))
 
     def forms(self):
-        """(in_size, out_size, inverse, two_d, rows, synth, geometry) of
-        each pass under the plans' current rows."""
+        """(in_size, out_size, inverse, two_d, rows, synth, product form,
+        geometry) of each pass under the plans' current rows."""
         out = []
         for p in self.plans:
             if isinstance(p, LargeFFTPlan):
                 sizes = (p.in_dtype, p.mid_dtype, p.out_dtype)
                 for i, (cfg, kw) in enumerate(p.passes()):
+                    epi = (kw.get("epi") is not None
+                           or kw.get("synth") is not None)
                     out.append((_size(sizes[i]), _size(sizes[i + 1]),
                                 p.inverse, kw.get("tables_2d") is not None,
-                                cfg.n, "synth" in kw, p.pass_geometry[i]))
+                                cfg.n, "synth" in kw,
+                                product_form(cfg, sizes[i + 1], p.inverse,
+                                             epi), p.pass_geometry[i]))
             else:
                 s = 8 if p.wide else 4
                 out.append((s, s, p.inverse, False, p.cfg.n, False,
-                            p.geometry))
+                            product_form(p.cfg, torch.int64 if p.wide
+                                         else torch.int32, p.inverse,
+                                         False), p.geometry))
         return out
 
 
@@ -398,12 +404,13 @@ def attributes(form, dev) -> tuple[int, int, int]:
     pass form at its geometry, as the library reports them."""
     import ctypes
 
-    in_size, out_size, inverse, two_d, rows, synth, g = form
+    in_size, out_size, inverse, two_d, rows, synth, product, g = form
     lib = _build.library(g["threads"])
     out = (ctypes.c_int * 5)()
     err = lib.intfft_pass_attributes(in_size, out_size, int(inverse),
                                      int(two_d), rows, g["lane_tile"],
-                                     g["threads"], int(synth), dev.index,
+                                     g["threads"], int(synth),
+                                     int(product == "mod64"), dev.index,
                                      out)
     _build.check(lib, err, "intfft_pass_attributes")
     return out[0], out[1], out[3]

@@ -457,6 +457,209 @@ def test_wide_pass_vs_plain(dev, mode, rounding, r, c, nb, wide_in, inverse,
     assert torch.equal(yr, wr) and torch.equal(yi, wi)
 
 
+# ------------------------------ the int64 tile's two forms of the product
+
+def _forced(monkeypatch, form):
+    """Every pass of the int64 tile takes ``form`` ("int128", or "mod64"
+    where the rule allows it) from here on: the rule as the launch paths
+    read it, replaced."""
+    from intfftk_tpu_torch.ops import fused_fft
+
+    rule = fused_fft.product_form
+
+    def pick(cfg, out_dtype, inverse, epilogue):
+        got = rule(cfg, out_dtype, inverse, epilogue)
+        return form if got == "mod64" else got
+
+    monkeypatch.setattr(fused_fft, "product_form", pick)
+
+
+def _conv4(dev, product_width=44):
+    spec = make_conv_spec(n=1 << 16, taps_len=(1 << 13) + 1,
+                          twiddle_width=16, max_product_width=product_width,
+                          max_spectrum_width=25)
+    rng = np.random.default_rng(spec.taps_len)
+    lim = 1 << 13
+    h = rng.integers(-lim, lim, (2, spec.taps_len))
+    return spec, h, OverlapSaveConv(spec, *h, device=dev)
+
+
+def test_conv4_inverse_passes_both_forms_on_card(dev, monkeypatch):
+    """Config 4's inverse (scaled 44-bit, 16-bit twiddles: 59 bits kept)
+    on full-scale adversarial 44-bit spectra: the chain takes the modular
+    form in both passes, per pass equal to the plain version, and equal to
+    the same passes forced to the exact __int128 form."""
+    from intfftk_tpu_torch.ops.fused_fft import PreparedChain
+
+    _, _, conv = _conv4(dev)
+    inv = conv.inv
+    xr, xi = _stimulus((3,) + inv.block_in_shape, 44, seed=44)
+    x = [torch.as_tensor(v, dtype=torch.int64, device=dev) for v in (xr, xi)]
+    key = (x[0].shape, x[0].dtype, x[0].device)
+    chain = PreparedChain(*key, inv.passes())
+    assert chain.products == ("mod64", "mod64")
+    got = chain(*x)
+    want = x
+    for cfg, kw in inv.passes():
+        one = fused_pass(*want, cfg, **kw)
+        want = fused_pass_reference(*want, cfg, **kw)
+        assert torch.equal(one[0], want[0]) and torch.equal(one[1], want[1])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _forced(monkeypatch, "int128")
+    exact = PreparedChain(*key, inv.passes())
+    assert exact.products == ("int128", "int128")
+    ex = exact(*x)
+    assert torch.equal(ex[0], got[0]) and torch.equal(ex[1], got[1])
+
+
+@pytest.mark.parametrize("payloads", [4, 64])
+def test_conv4_against_golden_on_card(dev, payloads):
+    """The benchmark's convolution (BASELINE config 4) at T = 4 and 64
+    payloads, full-scale 14-bit signal, against golden overlap_save_int:
+    the inverse's two passes modular, the output int64 and bit-equal."""
+    from intfftk_tpu_torch.runtime import trace
+
+    spec, h, conv = _conv4(dev)
+    rng = np.random.default_rng(payloads)
+    lim = 1 << 13
+    x = rng.integers(-lim, lim, (2, payloads * spec.payload))
+    x[0, ::7] = -lim
+    x[1, ::5] = lim - 1
+    with trace.recording() as rec:
+        yr, yi = conv(*x)
+    torch.cuda.synchronize()
+    notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
+    assert "product int32 0 mod64 2 int128 0" in notes
+    assert "product int32 2 mod64 0 int128 0" in notes
+    gr, gi = overlap_save_int(*x, *h, spec)
+    assert yr.dtype == torch.int64
+    np.testing.assert_array_equal(yr.cpu().numpy(), gr)
+    np.testing.assert_array_equal(yi.cpu().numpy(), gi)
+
+
+def test_config2_chain_both_forms_on_card(dev, monkeypatch):
+    """BASELINE config 2's 64k chain (unscaled 32-bit forward to 48 bits,
+    20-bit twiddles; the scaled/round inverse at 48): the forward's passes
+    modular (its pass 2 at the bound, 46 + 18 = 64), the inverse's exact;
+    both transforms equal to golden four_step_int, and the forward equal
+    to itself forced to the exact form."""
+    from intfftk_tpu_torch.ops.fused_fft import PreparedChain
+
+    cfg = FFTConfig(n=1 << 16, mode="unscaled", data_width=32,
+                    twiddle_width=20)
+    icfg = dataclasses.replace(cfg, mode="scaled", rounding="round",
+                               data_width=cfg.output_width)
+    fwd = LargeFFTPlan(cfg, order="raw", device=dev)
+    inv = LargeFFTPlan(icfg, fwd.n2, fwd.n1, inverse=True, order="raw",
+                       device=dev)
+    xr, xi = _stimulus((2, 1 << 16), 32, seed=2)
+    x = [torch.as_tensor(v, dtype=torch.int32, device=dev).reshape(
+        (2,) + fwd.block_in_shape) for v in (xr, xi)]
+    key = (x[0].shape, x[0].dtype, x[0].device)
+    cf = PreparedChain(*key, fwd.passes())
+    assert cf.products == ("mod64", "mod64")
+    y = cf(*x)
+    ci = PreparedChain(y[0].shape, y[0].dtype, y[0].device,
+                       inv.passes())
+    assert ci.products == ("int128", "int128")
+    z = ci(*y)
+    torch.cuda.synchronize()
+    gr, gi = four_step_int(xr, xi, cfg, fwd.n1, fwd.n2)
+    o = fwd.raw_spectrum_order()
+    np.testing.assert_array_equal(y[0].cpu().numpy().reshape(2, -1),
+                                  gr[:, o])
+    np.testing.assert_array_equal(y[1].cpu().numpy().reshape(2, -1),
+                                  gi[:, o])
+    hr, hi = four_step_int(gr, gi, icfg, inv.n1, inv.n2, inverse=True)
+    np.testing.assert_array_equal(z[0].cpu().numpy().reshape(2, -1), hr)
+    np.testing.assert_array_equal(z[1].cpu().numpy().reshape(2, -1), hi)
+    _forced(monkeypatch, "int128")
+    ce = PreparedChain(*key, fwd.passes())
+    assert ce.products == ("int128", "int128")
+    e = ce(*x)
+    assert torch.equal(e[0], y[0]) and torch.equal(e[1], y[1])
+
+
+@pytest.mark.parametrize("dw,form", [(49, "mod64"), (50, "int128")])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_pass_at_the_bound_on_card(dev, dw, form, inverse):
+    """An int64 -> int64 pass of 256 rows, scaled at dw bits with 16-bit
+    twiddles and the epilogue: at s + w = 64 it takes the modular form, at
+    65 the exact one, each equal to the plain version on full-scale data."""
+    from intfftk_tpu_torch.ops.fused_fft import PreparedChain
+
+    cfg = FFTConfig(n=256, mode="scaled", rounding="round", data_width=dw,
+                    twiddle_width=16)
+    tables = tuple(torch.as_tensor(t, device=dev) for t in pack_tables(cfg))
+    e = tuple(torch.as_tensor(t, device=dev) for t in circle_table(
+        dataclasses.replace(cfg, n=256 * 64), 256, 40, inverse, "natural"))
+    xr, xi = _stimulus((3, 256, 40), dw, seed=dw)
+    x = [torch.as_tensor(v, dtype=torch.int64, device=dev) for v in (xr, xi)]
+    kw = dict(tables=tables, epi=e, transpose_out=True, inverse=inverse,
+              out_dtype=torch.int64)
+    chain = PreparedChain(x[0].shape, x[0].dtype, x[0].device,
+                          [(cfg, kw)])
+    assert chain.products == (form,)
+    got = chain(*x)
+    want = fused_pass_reference(*x, cfg, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_prepare_refuses_modular_past_the_bound(dev):
+    """intfft_prepare_pass takes the modular form where every product
+    keeps bits that fit in 64 and refuses it (cudaErrorInvalidValue,
+    nothing clamped, no fallback) past that, and on the int32 tile."""
+    import ctypes
+
+    from intfftk_tpu_torch.ops import _build
+
+    lib = _build.library()
+    device = torch.cuda.current_device()
+    desc = (ctypes.c_uint64 * (lib.intfft_prepared_size() // 8))()
+    report = (ctypes.c_int * 4)()
+
+    def prepare(dw, out_size, product, inverse=1, tables=1 | 4):
+        # [2, 256, 40] scaled/truncating, 16-bit twiddles (shift 15), TC 16
+        # of 256 threads
+        return lib.intfft_prepare_pass(
+            2, 256, 40, out_size, out_size, dw, 1, 0, 15, 0, inverse, 1, 0,
+            1, 0, 0, 0, 0, 16, 256, product, tables, device, desc, report)
+
+    assert prepare(49, 8, 1) == 0 and prepare(49, 8, 0) == 0
+    assert prepare(50, 8, 1) == 1 and prepare(50, 8, 0) == 0
+    assert prepare(16, 4, 1) == 1 and prepare(16, 4, 0) == 0
+    assert prepare(49, 8, 2) == 1
+    # unscaled 256 rows at 42 bits in: the inverse's widest product is
+    # order 7's 49 bits, the epilogue's 50
+    assert lib.intfft_prepare_pass(
+        2, 256, 40, 8, 8, 42, 0, 0, 15, 0, 1, 1, 0, 1, 0, 0, 0, 0, 16, 256,
+        1, 1, device, desc, report) == 0
+    assert lib.intfft_prepare_pass(
+        2, 256, 40, 8, 8, 42, 0, 0, 15, 0, 1, 1, 0, 1, 0, 0, 0, 0, 16, 256,
+        1, 1 | 4, device, desc, report) == 1
+
+
+def test_product_form_registers_on_card(dev):
+    """The two forms of config 4's inverse pass at its geometry, as the
+    library reports them: the modular kernel takes no more registers and
+    no more local memory than the exact one."""
+    import ctypes
+
+    from intfftk_tpu_torch.ops import _build
+
+    _, _, conv = _conv4(dev)
+    g = conv.inv.pass_geometry[0]
+    lib = _build.library()
+    read = {}
+    for product in (0, 1):
+        out = (ctypes.c_int * 5)()
+        assert lib.intfft_pass_attributes(
+            8, 8, 1, 0, 256, g["lane_tile"], g["threads"], 0, product,
+            torch.cuda.current_device(), out) == 0
+        read[product] = tuple(out)
+    assert read[1][0] <= read[0][0] and read[1][1] <= read[0][1], read
+
+
 @pytest.mark.parametrize("n", [8, 1024, 4096])
 @pytest.mark.parametrize("order", ["natural", "bitrev"])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
@@ -871,7 +1074,7 @@ def _raw_pass(lib, x, y, tables, rows, cols, tc, threads, dev):
         x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(),
         tables[0].data_ptr(), tables[1].data_ptr(), None, None, None, None,
         None, None, 1, rows, cols, 4, 4, 16, 0, 0, 15, 0, 0, 1, 0, 0,
-        0, 0, 0, 0, tc, threads, torch.cuda.current_device(),
+        0, 0, 0, 0, tc, threads, 0, torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream, out)
     torch.cuda.synchronize()
     return err, out[0]

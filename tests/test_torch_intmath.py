@@ -182,3 +182,101 @@ def test_spectrum_product_checks():
     assert not tm._wide_product(z(1), 44, 25)           # 32 + 25 + 1
     assert tm._wide_product(z(1, d=torch.int64), 48, 25)
     assert not tm._wide_product(z(1, d=torch.int64), 30, 25)
+
+
+# ------------------------------------- the int64 tile's product modulo 2^64
+
+WORD = 1 << 64
+
+
+def _wrap_exact(v, w):
+    """wrap_width of a Python int at w bits."""
+    v &= (1 << w) - 1
+    return v - (1 << w) if v >> (w - 1) else v
+
+
+def _as_int64(u):
+    return u - WORD if u >> 63 else u
+
+
+def _cmult_mod64(br, bi, c, d, s, w):
+    """cmult's modular form on the int64 tile as the kernel computes it
+    (csrc/intfft_arith.cuh, P = uint64): each product a low 64-bit multiply
+    of the datum by the sign-extended int32 twiddle, the sums modulo 2^64,
+    then the shift left by 64 - w - s and the arithmetic shift right by
+    64 - w of the word."""
+    u = lambda v: v % WORD
+    pr = (u(br) * u(c) - u(bi) * u(d)) % WORD
+    pi = (u(bi) * u(c) + u(br) * u(d)) % WORD
+    fold = lambda p: _as_int64((p << (64 - w - s)) % WORD) >> (64 - w)
+    return fold(pr), fold(pi)
+
+
+def _cmult_word_shift_wrap(br, bi, c, d, s, w):
+    """The same product-sums modulo 2^64, shifted right by s and wrapped to
+    w bits, as cmult's generic arm computes them on the word (defined at any
+    s + w, where the fold's left shift would be negative)."""
+    u = lambda v: v % WORD
+    pr = (u(br) * u(c) - u(bi) * u(d)) % WORD
+    pi = (u(bi) * u(c) + u(br) * u(d)) % WORD
+    return _wrap_exact(pr >> s, w), _wrap_exact(pi >> s, w)
+
+
+def _cmult_exact_int(br, bi, c, d, s, w):
+    """wrap(floor((a c -+ b d) / 2^s), w) in exact integers."""
+    return (_wrap_exact((br * c - bi * d) >> s, w),
+            _wrap_exact((bi * c + br * d) >> s, w))
+
+
+def _mod64_cases(w, t, seed, n=3000):
+    """(br, bi, c, d): the data at their w-bit and 64-bit extremes against
+    twiddles of t bits at +-(2^(t-1) - 1) and -2^(t-1), then random data
+    of w bits, of 64 bits and random twiddles of t bits."""
+    data = [-(1 << (w - 1)), (1 << (w - 1)) - 1, -(1 << 63), (1 << 63) - 1,
+            -1, 0, 1]
+    tw = [(1 << (t - 1)) - 1, -((1 << (t - 1)) - 1), -(1 << (t - 1)), 0, 1,
+          -1]
+    out = [(a, b, c, d) for a in data for b in data for c in tw for d in tw]
+    rng = np.random.default_rng(seed)
+    for lim in (1 << (w - 1), 1 << 63):
+        a = rng.integers(-lim, lim, (n, 2), dtype=np.int64).tolist()
+        c = rng.integers(-(1 << (t - 1)), 1 << (t - 1), (n, 2)).tolist()
+        out += [(x, y, p, q) for (x, y), (p, q) in zip(a, c)]
+    return out
+
+
+@pytest.mark.parametrize("conj", [False, True], ids=["fwd", "inv_conj"])
+@pytest.mark.parametrize("w,s,t", [(44, 15, 16), (49, 15, 16), (33, 15, 16),
+                                   (46, 18, 20), (38, 26, 27)],
+                         ids=["config4", "bound_49", "w33", "config2_64",
+                              "t27"])
+def test_cmult_mod64_equals_exact(w, s, t, conj):
+    """Where s + w <= 64 the product-sums formed modulo 2^64 and folded
+    into two shifts of the word give wrap(floor(p / 2^s), w) of the exact
+    product-sums, for every datum of 64 bits and every twiddle of t bits,
+    the most negative included; the inverse multiplies by the conjugate
+    (d negated, -2^(t-1) becoming +2^(t-1))."""
+    assert s + w <= 64
+    for br, bi, c, d in _mod64_cases(w, t, seed=w * 100 + s):
+        if conj:
+            d = -d
+        want = _cmult_exact_int(br, bi, c, d, s, w)
+        assert _cmult_mod64(br, bi, c, d, s, w) == want, (br, bi, c, d)
+        assert _cmult_word_shift_wrap(br, bi, c, d, s, w) == want
+
+
+def test_cmult_mod64_wrong_past_the_word():
+    """At s + w = 65 the kept bits reach bit 64 of the product-sum, which
+    the word does not hold: the modular form differs from the exact one
+    (here at (w, s) = (50, 15), on full-scale data against full-scale
+    twiddles), so the bound is the rule's edge and not a margin."""
+    w, s = 50, 15
+    cases = _mod64_cases(w, 16, seed=65)
+    wrong = sum(_cmult_word_shift_wrap(*v, s, w) != _cmult_exact_int(
+        *v, s, w) for v in cases)
+    assert wrong > len(cases) // 10
+    # one case by hand: -2^49 * (2^15 - 1) is negative, so bit 64, the
+    # top one of the 50 kept, is set; modulo 2^64 it reads 0
+    a, c = -(1 << 49), (1 << 15) - 1
+    assert _cmult_exact_int(a, 0, c, 0, s, w)[0] < 0
+    assert _cmult_word_shift_wrap(a, 0, c, 0, s, w)[0] >= 0

@@ -20,14 +20,14 @@ from intfftk_tpu_torch.golden import make_conv_spec
 from intfftk_tpu_torch.ops import _build
 from intfftk_tpu_torch.ops import fused_fft, intmath, single_pass
 from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, PreparedChain,
-                                              fused_pass)
+                                              fused_pass, products_note)
 from intfftk_tpu_torch.ops.intmath import PreparedProduct, spectrum_product
 from intfftk_tpu_torch.ops.single_pass import (FusedAxisFFT, PallasFFTPlan,
                                                PallasWideFFTPlan)
 from intfftk_tpu_torch.ops.tuning import TUNINGS
 from intfftk_tpu_torch.parallel import OverlapSaveConv
 from intfftk_tpu_torch.parallel import convolve
-from intfftk_tpu_torch.runtime import CapturedCall, captured
+from intfftk_tpu_torch.runtime import CapturedCall, captured, trace
 
 #: Which table pointers a pass takes, as the C entries' mask: w, t2, e, c.
 MASK_BITS = (1, 2, 4, 8)
@@ -55,7 +55,7 @@ class StubLibrary:
         # x, y, then the tables: recorded in the chain's order (x, tables,
         # y)
         ptrs = (*a[:2], *a[4:12], *a[2:4])
-        ints, out = tuple(a[12:32]), a[34]
+        ints, out = tuple(a[12:33]), a[35]
         self.pass_calls += 1
         self.launched.append(("pass", ints, ptrs))
         out[0] = 1
@@ -63,8 +63,8 @@ class StubLibrary:
         return 0
 
     def intfft_prepare_pass(self, *a):
-        ints, mask, device, desc, report = tuple(a[:20]), a[20], a[21], \
-            a[22], a[23]
+        ints, mask, device, desc, report = tuple(a[:21]), a[21], a[22], \
+            a[23], a[24]
         self.prepared.append((ints, mask, device))
         desc[0] = len(self.prepared)            # the descriptor's identity
         report[0], report[1] = ints[18], ints[19]
@@ -85,6 +85,13 @@ class StubLibrary:
                                if p[i] is not None)
             self.launched.append(("chain", ints, p))
             out[0] += 1
+        return 0
+
+    def intfft_query_whole(self, *a):
+        a[-1][3] = 2                            # clusters held at once
+        return 0
+
+    def intfft_prepare_whole(self, *a):
         return 0
 
     def intfft_spectrum_product(self, *a):
@@ -292,7 +299,7 @@ def test_retune_invalidates(lib):
     assert not call._graphs
     plan.apply_blocks(*x)
     assert len(lib.prepared) == 4
-    assert lib.prepared[-1][0][18:] == (plan.pass_geometry[1]["lane_tile"],
+    assert lib.prepared[-1][0][18:20] == (plan.pass_geometry[1]["lane_tile"],
                                        plan.pass_geometry[1]["threads"])
     single = PallasFFTPlan(_cfg(n=256), device="cpu")
     scall = single.capture()
@@ -349,6 +356,57 @@ def test_conv_prepared_product(lib):
                      spec.product_width, spec.spectrum_width, conv.out_dtype)
     assert lib.launched[-1][1] == products[0][1]
     assert lib.launched[-1][2][2:4] == products[0][2][2:4]
+
+
+@pytest.mark.parametrize("product_width,inverse_form", [
+    (44, "mod64"), (52, "int128")])
+def test_conv_product_forms_reach_the_c_entries(lib, product_width,
+                                                inverse_form):
+    """A wide convolution's chains hand intfft_prepare_pass each pass's
+    product form as its last integer (1: modulo 2^64), as fused_pass hands
+    it to intfft_fused_pass, and each chain's plan.prepare span notes the
+    forms: the forward's two passes on the int32 tile, the inverse's two
+    on the int64 tile, modular at a 44-bit product, exact at 52."""
+    spec = make_conv_spec(n=4096, taps_len=129, factors=(64, 64),
+                          twiddle_width=16, max_spectrum_width=25,
+                          max_product_width=product_width)
+    rng = np.random.default_rng(5)
+    conv = OverlapSaveConv(spec, rng.integers(-99, 99, 129),
+                           np.zeros(129, np.int64), device="cpu")
+    x = [torch.as_tensor(rng.integers(-99, 99, 2 * spec.payload),
+                         dtype=torch.int32) for _ in range(2)]
+    with trace.recording() as rec:
+        conv(*x)
+    flag = int(inverse_form == "mod64")
+    assert [ints[20] for ints, _, _ in lib.prepared] == [0, 0, flag, flag]
+    notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
+    assert notes == ["product int32 2 mod64 0 int128 0", "",
+                     products_note((inverse_form,) * 2)]
+    chains = [v for v in conv.inv._prepared.values()]
+    assert len(chains) == 1 and chains[0].products == (inverse_form,) * 2
+    assert [p.product for p in chains[0].passes] == [inverse_form] * 2
+    lib.launched.clear()
+    yr, _ = conv.inv.apply_blocks(
+        *(torch.zeros((2,) + conv.inv.block_in_shape, dtype=torch.int64)
+          for _ in range(2)), pass_fn=fused_pass)
+    assert [ints[20] for _, ints, _ in lib.launched] == [flag, flag]
+
+
+@pytest.mark.parametrize("cfg,kw,want", [
+    (_cfg(), {}, ("int32", "int32")),
+    (_cfg(mode="unscaled", rounding="truncate", data_width=32,
+          twiddle_width=20), dict(order="raw"), ("int128", "int128"))],
+    ids=["narrow", "wide"])
+def test_whole_chain_products(lib, cfg, kw, want):
+    """A whole-form chain (one cluster launch for both factors) reports
+    both factors' product forms: the cluster kernel forms them exactly, in
+    64 bits on the int32 tile and in __int128 on the int64 tile, whatever
+    the widths."""
+    plan = LargeFFTPlan(cfg, device="cpu", fuse="whole", **kw)
+    x = _blocks(plan, 2)
+    chain = PreparedChain(x[0].shape, x[0].dtype, x[0].device,
+                          plan.passes(), whole=plan.whole_geometry)
+    assert chain.products == want
 
 
 def test_prepared_product_checks(lib):
