@@ -31,11 +31,10 @@ import numpy as np
 import torch
 
 from intfftk_tpu_torch.config import FFTConfig, snr_db
-from intfftk_tpu_torch.device import use_kernel
 from intfftk_tpu_torch.golden import (fft_int, four_step_int, make_conv_spec,
                                       overlap_save_int)
 from intfftk_tpu_torch.ops.fused_fft import LargeFFTPlan
-from intfftk_tpu_torch.ops.intmath import PreparedProduct, spectrum_product
+from intfftk_tpu_torch.ops.pair import FFTPairPlan
 from intfftk_tpu_torch.parallel import Channelizer, OverlapSaveConv
 
 from . import count
@@ -190,41 +189,23 @@ def channelizer(dev, layout: str, seed: int | None = None,
 def config2(dev, seed: int = 0, n: int = 1 << 16, batch: int = 8) -> Run:
     """``c2_unscaled32_chain_b8`` (``bench_config2``): the raw unscaled
     int32 forward to 48 bits, the 25-bit spectrum product (P1) by the
-    unity spectrum 2^23 >> 23, the raw scaled/round inverse, on the
-    prepared chains (``apply_blocks``); each call rereads one input (its
-    int64 output cannot feed it).  Msamples/s counts both transforms."""
+    unity spectrum 2^23 >> 23, the raw scaled/round inverse, through
+    ``FFTPairPlan``; each call rereads one input (its int64 output cannot
+    feed it).  Msamples/s counts both transforms."""
     cfg = FFTConfig(n=n, mode="unscaled", data_width=32, twiddle_width=20)
-    icfg = dataclasses.replace(cfg, mode="scaled", rounding="round",
-                               data_width=cfg.output_width)
-    fwd = LargeFFTPlan(cfg, order="raw", device=dev)
-    inv = LargeFFTPlan(icfg, fwd.n2, fwd.n1, inverse=True, order="raw",
+    unity = (np.full(n, 1 << 23), np.zeros(n, np.int64))
+    pair = FFTPairPlan(cfg, unity, product_shift=23, spectrum_width=25,
                        device=dev)
-    hr = torch.full(fwd.block_out_shape, 1 << 23, dtype=torch.int32,
-                    device=dev)
-    hi = torch.zeros_like(hr)
-    args = (hr, hi, 23, cfg.output_width, 25, torch.int64)
-    prepared = {}
-
-    def product(yr, yi):
-        if not use_kernel(yr.device):
-            return spectrum_product(yr, yi, *args)
-        key = (yr.shape, yr.dtype)
-        if key not in prepared:
-            prepared[key] = PreparedProduct(yr, yi, *args)
-        return prepared[key](yr, yi)
-
-    def chain(a, b):
-        return inv.apply_blocks(*product(*fwd.apply_blocks(a, b)))
-
+    fwd, inv = pair.fwd, pair.inv
     rng = np.random.default_rng(seed)
     xr = rng.integers(-(1 << 27), 1 << 27, (batch, n))
     xi = rng.integers(-(1 << 27), 1 << 27, (batch, n))
 
     def reference():
         g = four_step_int(xr, xi, cfg, fwd.n1, fwd.n2)
-        return four_step_int(*g, icfg, inv.n1, inv.n2, inverse=True)
+        return four_step_int(*g, inv.cfg, inv.n1, inv.n2, inverse=True)
 
-    return Run(chain, to_blocks(fwd, xr, xi, dev), (xr, xi), 2 * batch * n,
+    return Run(pair, to_blocks(fwd, xr, xi, dev), (xr, xi), 2 * batch * n,
                reference, batch=batch, feeds=False,
                snr=lambda y: snr_db(xr + 1j * xi, y[0] + 1j * y[1]),
                plans=(fwd, inv))

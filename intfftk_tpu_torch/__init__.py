@@ -18,6 +18,9 @@ compute path:
   from a host table, a device-generated table or synthesized in the
   kernel) or monolithic, natural or raw order, on int16/int32 blocks or,
   above 32 bits, int64 blocks;
+* ``ops.pair``        — ``FFTPairPlan``, the reference's FFT -> IFFT pair
+  with a spectrum product between its cores: a raw forward, the product
+  (``csrc/product.cu``) and the raw inverse, five launches a call;
 * ``ops.twiddle_synth`` — the inter-factor twiddles from the 512-entry
   coarse quarter table: the generator kernel and its plain version;
 * ``ops.single_pass`` — ``PallasFFTPlan`` and ``FusedAxisFFT``, the
@@ -51,8 +54,8 @@ Outputs are bit-identical to ``golden`` and to the JAX plans.
 
 from .config import FFTConfig, snr_db
 
-from .ops import (FFTPlan, FusedAxisFFT, LargeFFTPlan, PallasFFTPlan,
-                  PallasWideFFTPlan, WideFFTPlan)
+from .ops import (FFTPairPlan, FFTPlan, FusedAxisFFT, LargeFFTPlan,
+                  PallasFFTPlan, PallasWideFFTPlan, WideFFTPlan)
 from .parallel import (Channelizer, FourStepPlan, OverlapSaveConv,
                        initialize_multihost, make_mesh, pod_mesh)
 from .runtime import StreamExecutor
@@ -61,7 +64,7 @@ __version__ = "0.1.0"
 
 #: the config and every plan of the package
 __all__ = ["FFTConfig", "snr_db", "__version__", "FFTPlan", "WideFFTPlan",
-           "LargeFFTPlan", "PallasFFTPlan", "FusedAxisFFT",
+           "LargeFFTPlan", "FFTPairPlan", "PallasFFTPlan", "FusedAxisFFT",
            "PallasWideFFTPlan", "Channelizer", "OverlapSaveConv",
            "FourStepPlan", "StreamExecutor", "make_mesh", "pod_mesh",
            "initialize_multihost"]

@@ -766,13 +766,16 @@ class PreparedPlan(nn.Module):
     def _prepare(self, key, make):
         """The object prepared for ``key``, made by ``make()`` at its first
         use; while a recording is open its ``plan.prepare`` span notes the
-        product forms of a chain's passes (``products_note``)."""
+        product forms of a chain's passes (``products_note``), or the form
+        of a ``PreparedProduct``'s product-sums ("p1 int128")."""
         obj = self._prepared.get(key)
         if obj is None:
             with trace.span("plan.prepare") as span:
                 obj = self._prepared[key] = make()
                 if span is not None and hasattr(obj, "products"):
                     span.note = products_note(obj.products)
+                elif span is not None and hasattr(obj, "form"):
+                    span.note = f"p1 {obj.form}"
         return obj
 
     def _track(self, call):

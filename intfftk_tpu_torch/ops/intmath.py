@@ -191,8 +191,10 @@ class PreparedProduct:
     and device (else ValueError; nothing else is checked again), allocates
     re and im as two fresh tensors and makes the one C
     call: one launch, counted in ``spectrum_product.launches``.  It keeps
-    the table alive.  Raises ValueError on a CPU device: the plain version
-    needs no preparing."""
+    the table alive.  ``form`` is the integer its product-sums are formed
+    in, ``"long long"`` or, where one could overflow 64 bits
+    (``_wide_product``), ``"int128"``.  Raises ValueError on a CPU device:
+    the plain version needs no preparing."""
 
     def __init__(self, fr, fi, hr, hi, shift: int, out_width: int,
                  spectrum_width: int = 27,
@@ -209,9 +211,10 @@ class PreparedProduct:
                              "on one device")
         self.shape, self.dtype, self.device = fr.shape, fr.dtype, dev
         self.table = (hr, hi)
+        wide = _wide_product(fr, out_width, spectrum_width)
+        self.form = "int128" if wide else "long long"
         self.ints = (fr.numel(), hr.numel(), fr.element_size(),
-                     self.out_dtype.itemsize,
-                     int(_wide_product(fr, out_width, spectrum_width)),
+                     self.out_dtype.itemsize, int(wide),
                      shift, out_width, dev.index)
 
     def __call__(self, fr, fi):

@@ -26,12 +26,13 @@ The spans, by name:
   ``graph.launch`` (the replay alone, the CUDA graph launch);
 * ``graph.capture``: a ``CapturedCall``'s warm-up and capture, once per
   key;
-* ``plan.build``: ``LargeFFTPlan`` and ``OverlapSaveConv``'s constructors
-  (tables, twiddles, tuning);
+* ``plan.build``: ``LargeFFTPlan``, ``OverlapSaveConv`` and
+  ``FFTPairPlan``'s constructors (tables, twiddles, tuning);
 * ``plan.prepare``: a prepared object made at a plan's first call with a
   key (``PreparedChain``, ``PreparedProduct``); a chain's notes how many
   of its passes form their complex products in each form, e.g. "product
-  int32 0 mod64 2 int128 0" (``fused_fft.products_note``);
+  int32 0 mod64 2 int128 0" (``fused_fft.products_note``), a product's
+  the form of its product-sums, "p1 long long" or "p1 int128";
 * ``library.load``: the kernel library's first load for a thread count,
   its ``note`` "built" or "cached";
 * ``stream.repack``, ``stream.dispatch``, ``stream.wait``:
