@@ -63,7 +63,7 @@
 // 64k path's [64, 256, 256] int16 blocks each pass reads 16 MiB and writes
 // 16 MiB, about 10 us at the data-sheet 3.35 TB/s; the kernel takes several
 // times that, because the integer work per sample (shifts of the register
-// wraps, 64-bit product-sums, index math) fills the SM's integer pipes long
+// wraps, the product-sums, index math) fills the SM's integer pipes long
 // before the bytes fill the memory system.  Run one stage at a time through
 // the tile, that work was not even the limit: each butterfly's loads,
 // products and stores waited on each other with nothing else in flight, and
@@ -114,10 +114,13 @@
 // m = 4096, 192 KiB, under the budget of one CTA per SM), and it takes
 // neither the in-kernel synthesis nor the 2-D stage tables (the JAX package
 // has no wide form of either).  Its complex products are exact in __int128,
-// emulated in 32-bit instructions, unless every product of the pass keeps
-// bits that fit in 64 (the widest wrap w plus the shift s at most 64,
-// product_fits below): then the pass takes the kernel that forms them
-// modulo 2^64 (kMod), whose bits are the same.  Which form a pass takes is
+// emulated in 32-bit instructions, and the int32 tile's in 64 bits, unless
+// every product of the pass keeps bits that fit the tile's word (the
+// widest wrap w plus the shift s at most 64, or 32; product_fits below):
+// then the pass takes the kernel that forms them modulo 2^64, or 2^32
+// (kMod), whose bits are the same; on the int32 tile that kernel folds the
+// left shift of each product into the twiddle (intfft_arith.cuh), so a sum
+// costs two 32-bit multiplies and one shift.  Which form a pass takes is
 // the host's choice (ops/fused_fft.product_form), made from the widths the
 // plan knows and checked here; it is a template parameter, not a run-time
 // branch, and no user sets it.
@@ -229,7 +232,7 @@ CircleLaunch circle_launch(int n1, int n2) {
 
 // The pass's launch, grant and query functions of kT threads per CTA, by
 // pair of block types, direction and product form (fused_pass_inst.cu
-// instantiates them; the modular form on the int64 tile only).
+// instantiates them).
 using Grant = cudaError_t (*)(bool, size_t, int);
 using Query = cudaError_t (*)(bool, size_t, int, int*);
 struct PassFns {
@@ -243,54 +246,51 @@ struct PassFns {
    intfft::query_pass_##BLOCKS##_##DIR<kT, MOD>}
 #define INTFFT_FORMS(BLOCKS, DIR)                                             \
   { INTFFT_FNS(BLOCKS, DIR, false), INTFFT_FNS(BLOCKS, DIR, true) }
-#define INTFFT_EXACT(BLOCKS, DIR)                                             \
-  { INTFFT_FNS(BLOCKS, DIR, false), {nullptr, nullptr, nullptr} }
 template <int kT>
 const PassFns kFns[4][2][2] = {
-    {INTFFT_EXACT(i16, fwd), INTFFT_EXACT(i16, inv)},
-    {INTFFT_EXACT(i32, fwd), INTFFT_EXACT(i32, inv)},
+    {INTFFT_FORMS(i16, fwd), INTFFT_FORMS(i16, inv)},
+    {INTFFT_FORMS(i32, fwd), INTFFT_FORMS(i32, inv)},
     {INTFFT_FORMS(i32_i64, fwd), INTFFT_FORMS(i32_i64, inv)},
     {INTFFT_FORMS(i64, fwd), INTFFT_FORMS(i64, inv)}};
-#undef INTFFT_EXACT
 #undef INTFFT_FORMS
 #undef INTFFT_FNS
 
 // The functions of block form `blocks` (block_form), direction and product
-// form (mod: modulo 2^64) at the kT among the library's thread counts
-// (INTFFT_THREAD_MASK) that equals `threads`; null where none does, or
-// where the form has no such kernel (mod on the int32 tile).  Only the
-// counts the mask names are instantiated.
+// form (mod: modulo the tile's word) at the kT among the library's thread
+// counts (INTFFT_THREAD_MASK) that equals `threads`; null where none does.
+// Only the counts the mask names are instantiated.
 template <int kT = 128>
 const PassFns* pass_fns(int threads, int blocks, int inverse, int mod) {
   if constexpr (kT > 1024) {
     return nullptr;
   } else {
     if constexpr ((INTFFT_THREAD_MASK & (kT / 128)) != 0) {
-      if (threads == kT) {
-        const PassFns* f = &kFns<kT>[blocks][inverse != 0][mod != 0];
-        return f->launch != nullptr ? f : nullptr;
-      }
+      if (threads == kT) return &kFns<kT>[blocks][inverse != 0][mod != 0];
     }
     return pass_fns<kT * 2>(threads, blocks, inverse, mod);
   }
 }
 
-// Whether every complex product of a pass keeps bits that fit in 64, so
-// that the modular form gives the exact form's bits: the widest wrap w of
-// a product plus the shift.  Stage j enters at data_width + j * gain bits
-// (gain = 1 - scale) and multiplies where its order q is at least 2 (q = j
-// inverse, log_rows - 1 - j forward), wrapped to its input width inverse
-// (DIT) and to its output width forward (DIF): at most data_width +
-// (log_rows - 1) * gain, and data_width + (log_rows - 2) * gain; the
+// Whether every complex product of a pass keeps bits that fit the tile's
+// word of `bits` (32 or 64), so that the modular form gives the exact
+// form's bits: the widest wrap w of a product plus the shift.  Stage j
+// enters at data_width + j * gain bits (gain = 1 - scale) and multiplies
+// where its order q is at least 2 (q = j inverse, log_rows - 1 - j
+// forward), or at every order with the 2-D tables (two_d), wrapped to its
+// input width inverse (DIT) and to its output width forward (DIF): at most
+// data_width + (log_rows - 1) * gain inverse, and data_width + (log_rows -
+// 2) * gain forward (data_width + log_rows * gain with two_d); the
 // epilogue wraps to the factor's output width, data_width + log_rows *
 // gain, wider than any stage.  ops/fused_fft.product_form is the same rule.
 bool product_fits(int log_rows, int data_width, int scale, int tw_shift,
-                  int bypass, int inverse, bool epilogue) {
+                  int bypass, int inverse, bool two_d, bool epilogue,
+                  int bits) {
   const int gain = 1 - scale;
+  const int top = inverse ? log_rows - 1 : two_d ? log_rows : log_rows - 2;
   int w = 0;
-  if (!bypass) w = data_width + (log_rows - (inverse ? 1 : 2)) * gain;
+  if (!bypass) w = data_width + top * gain;
   if (epilogue) w = data_width + log_rows * gain;
-  return w + tw_shift <= 64;
+  return w + tw_shift <= bits;
 }
 
 // The row of the launch and query tables of a pair of element sizes:
@@ -343,9 +343,9 @@ PassPtrs pass_ptrs(void* const* v) {
 // per CTA, one of the counts this library was compiled for (the tuning
 // row's, ops/tuning.py, or a sweep's variant, ops/_build.py); the tile of
 // tc columns must fit the card's shared memory per CTA.  product: the form
-// of the complex products, 0 exact (every pass can take it), 1 modulo 2^64
-// (the int64 tile's, where product_fits holds).  What does not is refused
-// with cudaErrorInvalidValue, never clamped.
+// of the complex products, 0 exact (every pass can take it), 1 modulo the
+// tile's word, 2^32 or 2^64 (where product_fits holds).  What does not is
+// refused with cudaErrorInvalidValue, never clamped.
 
 extern "C" int intfft_prepared_size() {
   return static_cast<int>(sizeof(PreparedPass));
@@ -356,9 +356,9 @@ extern "C" int intfft_prepared_size() {
 // pointers, and `tables`, which of the table pointers every launch will
 // give (1 w, 2 t2, 4 e, 8 c).  report[0..3]: TC, threads per CTA, the
 // dynamic shared memory of a CTA in bytes and the CTAs along the columns.
-// product 1 asks for the modular form, refused where the tile is int32 or
-// product_fits does not hold.  Returns a cudaError_t; `desc` is usable
-// only when it is 0.
+// product 1 asks for the modular form, refused where product_fits does not
+// hold for the tile's word.  Returns a cudaError_t; `desc` is usable only
+// when it is 0.
 extern "C" int intfft_prepare_pass(
     int batch, int rows, int cols, int in_size, int out_size, int data_width,
     int scale, int round, int tw_shift, int bypass, int inverse, int natural,
@@ -383,8 +383,9 @@ extern "C" int intfft_prepare_pass(
       (synth && !synth_ok(syn, rows, cols)) || device < 0 ||
       device >= kMaxDevices || product < 0 || product > 1 ||
       (product && !product_fits(log_rows, data_width, scale, tw_shift,
-                                bypass, inverse,
-                                (tables & kTableE) != 0))) {
+                                bypass, inverse, two_d,
+                                (tables & (kTableE | kTableC)) != 0,
+                                wide ? 64 : 32))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PassFns* fns = pass_fns(threads, blocks, inverse, product);

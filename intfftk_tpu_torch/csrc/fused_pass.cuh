@@ -4,9 +4,9 @@
 // at the head of fused_pass.cu, which holds the C interface.
 //
 // The kernel is instantiated for four pairs of block types, two directions,
-// (on the int32 tile) the 1-D and 2-D stage tables and (on the int64 tile)
-// the two forms of the complex product (exact in __int128, or modulo 2^64:
-// kMod, ProductOf): sixteen kernels, each with a body for every shape of
+// (on the int32 tile) the 1-D and 2-D stage tables and the two forms of the
+// complex product (exact, or modulo the tile's word, 2^32 or 2^64: kMod,
+// ProductOf): twenty-four kernels, each with a body for every shape of
 // stage group.  One source with all of them compiles for 40 s on the card's
 // machine; so fused_pass_inst.cu, which includes this header and defines
 // one launch_pass_* function, is compiled once for each pair of block
@@ -46,8 +46,8 @@ struct PassPtrs {
 // fused_pass_inst.cu, for one thread count.  The launch takes `smem` bytes
 // of dynamic shared memory per CTA, which the grant below has allowed on
 // the current device, and adds the kernel launches it made to *launches.
-// kMod: the kernel that forms its complex product-sums modulo 2^64 (the
-// int64 tile's only; ProductOf).
+// kMod: the kernel that forms its complex product-sums modulo the tile's
+// word, 2^32 or 2^64 (ProductOf).
 #define INTFFT_LAUNCH_PASS(NAME)                                              \
   cudaError_t NAME(const PassPtrs& a, const PassParams& p,                    \
                    const SynthParams& syn, size_t smem, cudaStream_t stream,  \
@@ -107,12 +107,14 @@ inline size_t pass_smem(int rows, int tc, int word, bool synth) {
 // on the int64 tile (two), the caps of 256 threads per CTA, kept at every
 // thread count as far as the SM's 65 536 registers allow: at 512 threads
 // the inverse and the int64 tile may take 128 (one CTA), at 1024 every form
-// 64, and there the inverse and the int64 tile spill.  Both forms of the
-// int64 tile's products (kMod) take the same cap: a pass takes the modular
-// form where every product keeps bits that fit in 64 (config 4's inverse,
-// config 2's forward, the 24-bit path's widening pass), the exact one
-// elsewhere (config 2's inverse); at 128 registers the exact inverse spills
-// 16 bytes, the modular one none at 256 and 512 threads (8 at 128).
+// 64, and there the inverse and the int64 tile spill.  Both forms of a
+// tile's products (kMod) take the same cap: a pass takes the modular form
+// where every product keeps bits that fit the word (on the int64 tile
+// config 4's inverse, config 2's forward, the 24-bit path's widening pass;
+// on the int32 tile the core's scaled 16-bit passes), the exact one
+// elsewhere (config 2's inverse, the convolution's unscaled forward); at
+// 128 registers the exact int64 inverse spills 16 bytes, the modular one
+// none at 256 and 512 threads (8 at 128).
 // Where shared memory lets an SM hold fewer CTAs (from m = 1024 up), the
 // tile budget of the tuning row decides, at run time.
 template <typename V, bool kInverse, int kT>
@@ -189,6 +191,11 @@ __device__ __forceinline__ void run_group(const PassCtx<Tin, Tout, V>& k,
   const int lo = kLo < 2 ? kLo : lo_rt;
   const int ld = p.tc + 1;
   const int tasks = (p.rows >> R) << p.log_tc;
+  // folded: the factor of the epilogue's twiddles, whose products wrap to
+  // the factor's output width
+  [[maybe_unused]] const uint32_t f =
+      kFolds<V, P> && last && k.epilogue ? fold_factor(p.tw_shift, k.ow)
+                                          : 1u;
   for (int u = threadIdx.x; u < tasks; u += kT) {
     int c, k0, base;
     group_rows<R>(u, lo, p, c, k0, base);
@@ -229,7 +236,12 @@ __device__ __forceinline__ void run_group(const PassCtx<Tin, Tout, V>& k,
           wr = __ldg(k.e_re + g);
           wi = __ldg(k.e_im + g);
         }
-        cmult<V, P>(xr[a], xi[a], wr, wi, p.tw_shift, k.ow, xr[a], xi[a]);
+        if constexpr (kFolds<V, P>) {
+          cmult_folded(xr[a], xi[a], fold(wr, f), fold(wi, f), k.ow, xr[a],
+                       xi[a]);
+        } else {
+          cmult<V, P>(xr[a], xi[a], wr, wi, p.tw_shift, k.ow, xr[a], xi[a]);
+        }
       }
     }
     if (to_y) {
@@ -252,9 +264,9 @@ __device__ __forceinline__ void run_group(const PassCtx<Tin, Tout, V>& k,
 
 // Tin / Tout: the element types of x and y; V: the tile's (int32, or
 // int64 for the wide forms); kT: threads per CTA; kMod: the complex
-// products modulo the tile's word (ProductOf: the int64 tile's form where
-// every product of the pass keeps bits that fit in 64; the host chooses
-// it per pass and intfft_prepare_pass checks it).  The registers a thread
+// products modulo the tile's word (ProductOf: the form where every product
+// of the pass keeps bits that fit the word; the host chooses it per pass
+// and intfft_prepare_pass checks it).  The registers a thread
 // may take are min_ctas's.  A thread with no task in a loop (more threads
 // than tasks, or the tail CTA's dead columns) still reaches every barrier:
 // no __syncthreads lies inside a loop over tasks.

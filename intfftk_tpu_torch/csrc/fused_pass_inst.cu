@@ -9,8 +9,9 @@
 // launch_pass_<blocks>_<dir><threads, kMod>, grant_pass_... and
 // query_pass_... that fused_pass.cu, which holds the C interface and says
 // what the kernel replaces and what bounds it, calls: with the exact
-// complex product (kMod false) for every pair of block types, and on the
-// int64 tile (i32_i64, i64) also with the product modulo 2^64 (kMod true).
+// complex product (kMod false) and with the product modulo the tile's word
+// (kMod true: 2^32 on the int32 tile, 2^64 on the int64 tile), for every
+// pair of block types.
 
 #include "fused_pass.cuh"
 
@@ -24,11 +25,6 @@
 #define INTFFT_TYPES_i32 int32_t, int32_t, int32_t
 #define INTFFT_TYPES_i32_i64 int32_t, int64_t, int64_t
 #define INTFFT_TYPES_i64 int64_t, int64_t, int64_t
-// whether the tile is int64, which has the modular product too
-#define INTFFT_WIDE_i16 0
-#define INTFFT_WIDE_i32 0
-#define INTFFT_WIDE_i32_i64 1
-#define INTFFT_WIDE_i64 1
 #define INTFFT_INVERSE_fwd false
 #define INTFFT_INVERSE_inv true
 #define INTFFT_CAT_(a, b) a##b
@@ -64,10 +60,8 @@ INTFFT_QUERY_PASS(INTFFT_NAME(query)) {
 template INTFFT_LAUNCH_PASS(INTFFT_NAME(launch)<INTFFT_EXACT_FORM>);
 template INTFFT_GRANT_PASS(INTFFT_NAME(grant)<INTFFT_EXACT_FORM>);
 template INTFFT_QUERY_PASS(INTFFT_NAME(query)<INTFFT_EXACT_FORM>);
-#if INTFFT_CAT(INTFFT_WIDE_, INTFFT_BLOCKS)
 template INTFFT_LAUNCH_PASS(INTFFT_NAME(launch)<INTFFT_MOD_FORM>);
 template INTFFT_GRANT_PASS(INTFFT_NAME(grant)<INTFFT_MOD_FORM>);
 template INTFFT_QUERY_PASS(INTFFT_NAME(query)<INTFFT_MOD_FORM>);
-#endif
 
 }  // namespace intfft

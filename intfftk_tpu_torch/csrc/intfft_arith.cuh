@@ -10,9 +10,11 @@
 // floor-shifted by sh and wrapped to w bits, so only their bits sh .. sh +
 // w - 1 are kept.  They are formed exactly (64-bit on the int32 tile,
 // __int128 on the int64 tile: a 52-bit datum times a 27-bit twiddle,
-// summed, is 80 bits), or, on the int64 tile where every product of a
-// pass keeps bits that fit (sh + w <= 64), modulo 2^64 in uint64: the same
-// bits (ProductOf; the factor pass takes the form per pass).
+// summed, is 80 bits), or, where every product of a pass keeps bits that
+// fit the tile's word (sh + w <= 32, or 64), modulo 2^32 in uint32 or
+// modulo 2^64 in uint64: the same bits (ProductOf; the factor pass takes
+// the form per pass).  On the int32 tile the modular form folds its left
+// shift into the twiddle (fold_factor, cmult_folded).
 //
 // Everything here has internal linkage (an unnamed namespace): each source
 // that includes it compiles its own copy into its own kernels.
@@ -41,8 +43,8 @@ struct Arith<int64_t> {
 };
 
 // The type a pass forms its complex product-sums in: exact (Arith<V>::P),
-// or with kMod the tile's unsigned word, modulo 2^64 on the int64 tile,
-// where every product of the pass keeps bits that fit the word.
+// or with kMod the tile's unsigned word U, modulo 2^32 or 2^64, where every
+// product of the pass keeps bits that fit the word.
 template <typename V, bool kMod>
 using ProductOf =
     std::conditional_t<kMod, typename Arith<V>::U, typename Arith<V>::P>;
@@ -87,6 +89,47 @@ __device__ __forceinline__ void cmult(V br, V bi, int32_t c, int32_t d,
     yr = wrap<V>(static_cast<U>(pr >> sh), w);
     yi = wrap<V>(static_cast<U>(pi >> sh), w);
   }
+}
+
+// Whether products of form P on the V tile fold their left shift into the
+// twiddle: the int32 tile's modular form.  Its product-sums keep bits sh ..
+// sh + w - 1 of 32, which the modular arm of cmult moves to the top with a
+// left shift by k = 32 - w - sh and brings down with an arithmetic right
+// shift by 32 - w: two shifts a sum on the ALU pipe.  Modulo 2^32, br * (c
+// * 2^k) is (br * c) * 2^k, so the caller multiplies each twiddle by
+// fold_factor once where it reads it (an IMAD, on the FMA pipe, shared by
+// the butterflies of a stage) and each sum keeps one shift (cmult_folded).
+template <typename V, typename P>
+constexpr bool kFolds =
+    sizeof(V) == 4 && std::is_same_v<P, typename Arith<V>::U>;
+
+// 2^(32 - w - sh), the factor of a folded twiddle; sh + w <= 32 (the
+// caller's to hold).  The empty asm keeps it an opaque register, so the
+// compiler multiplies by it and does not turn the product into a shift.
+__device__ __forceinline__ uint32_t fold_factor(int sh, int w) {
+  uint32_t f = 1u << (32 - w - sh);
+  asm("" : "+r"(f));
+  return f;
+}
+
+// A twiddle component times the factor, modulo 2^32.
+__device__ __forceinline__ int32_t fold(int32_t c, uint32_t f) {
+  return static_cast<int32_t>(static_cast<uint32_t>(c) * f);
+}
+
+// cmult on the int32 tile with the twiddle (c, d) folded (fold): the
+// product-sums modulo 2^32 hold bits sh .. sh + w - 1 of the exact ones at
+// the top, and the arithmetic shift by 32 - w gives them wrapped to w bits.
+__device__ __forceinline__ void cmult_folded(int32_t br, int32_t bi,
+                                             int32_t c, int32_t d, int w,
+                                             int32_t& yr, int32_t& yi) {
+  const uint32_t uc = static_cast<uint32_t>(c), ud = static_cast<uint32_t>(d);
+  const uint32_t pr = static_cast<uint32_t>(br) * uc -
+                      static_cast<uint32_t>(bi) * ud;
+  const uint32_t pi = static_cast<uint32_t>(bi) * uc +
+                      static_cast<uint32_t>(br) * ud;
+  yr = static_cast<int32_t>(pr) >> (32 - w);
+  yi = static_cast<int32_t>(pi) >> (32 - w);
 }
 
 // Sum and difference with the mode's scale (1: per-stage /2) and rounding

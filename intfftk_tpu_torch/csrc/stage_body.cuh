@@ -29,9 +29,11 @@
 // from the top order down, with the remainder (log_rows mod R orders) at
 // the bottom (group_of): m = 256 is 3 + 3 + 2, m = 4096 four of 3, m = 8
 // one group and no exchange at all.  What bounds a group: the ALU pipe.
-// About 31 of a multiplying butterfly's 43 instructions run there, two
-// thirds of them the shifts of the register wraps, and the group takes 1.3
-// times what that pipe alone would need.
+// With exact products about 31 of a multiplying butterfly's 43
+// instructions run there, two thirds of them the shifts of the register
+// wraps, and the group takes 1.3 times what that pipe alone would need;
+// the modular form of the int32 tile moves the products to 32-bit IMADs
+// and drops a shift of each.
 //
 // stage_body, one butterfly of one stage in place on the tile, stays for
 // the probe's prod_p* steps: the yardstick a group is read against.
@@ -264,7 +266,9 @@ __device__ __forceinline__ void group_bfly(V a, V b, int in_w,
 // +j inverse), or 2 for "at least 2" (every stage multiplies; lo is read at
 // run time).  in_w is the width entering the stage.  The arithmetic is
 // stage_body's, butterfly for butterfly; P is the type of the products'
-// sums (cmult; ProductOf: exact, or modulo the word).
+// sums (cmult; ProductOf: exact, or modulo the word; on the int32 tile the
+// modular form folds the shift of every product into the stage's
+// twiddles as they are read, intfft_arith.cuh's kFolds).
 template <typename V, bool kInverse, bool kTwoD, int R, int kLo, int BIT,
           typename P = typename Arith<V>::P>
 __device__ __forceinline__ void group_stage(
@@ -275,10 +279,15 @@ __device__ __forceinline__ void group_stage(
   constexpr int H = 1 << BIT;
   constexpr bool kMul = kTwoD || kLo + BIT >= 2;
   constexpr bool kTurn = !kTwoD && kLo + BIT == 1;   // the order-1 stage
+  constexpr bool kFold = kFolds<V, P>;
   const int q = lo + BIT;
   const int out_w = in_w + 1 - p.scale;
   int32_t tr[H], ti[H];
   if constexpr (kMul) {
+    // folded: the factor of the stage's twiddles, from the width its
+    // products wrap to (DIT's input, DIF's output)
+    [[maybe_unused]] const uint32_t f =
+        kFold ? fold_factor(p.tw_shift, kInverse ? in_w : out_w) : 1u;
 #pragma unroll
     for (int kk = 0; kk < H; ++kk) {
       const int k = (1 << q) + ((kk << lo) | k0);
@@ -294,6 +303,12 @@ __device__ __forceinline__ void group_stage(
         tr[kk] = __ldg(w_re + k);
         ti[kk] = __ldg(w_im + k);
       }
+      if constexpr (kFold) {
+        // the inverse's conjugate before the fold: -ti is exact, its fold
+        // may be the most negative word
+        tr[kk] = fold(tr[kk], f);
+        ti[kk] = fold(kInverse ? -ti[kk] : ti[kk], f);
+      }
     }
   }
 #pragma unroll
@@ -306,7 +321,9 @@ __device__ __forceinline__ void group_stage(
       // B times conj(W) first, wrapped to in_w; W = -j on the odd index of
       // order 1 makes it B * j = (neg_guarded(bi), br)
       V bwr = xr[b], bwi = xi[b];
-      if constexpr (kMul) {
+      if constexpr (kFold && kMul) {
+        cmult_folded(xr[b], xi[b], tr[kk], ti[kk], in_w, bwr, bwi);
+      } else if constexpr (kMul) {
         cmult<V, P>(xr[b], xi[b], tr[kk], -ti[kk], p.tw_shift, in_w, bwr,
                     bwi);
       } else if constexpr (kTurn) {
@@ -323,7 +340,9 @@ __device__ __forceinline__ void group_stage(
       group_bfly(xi[a], xi[b], in_w, p, si, yi);
       dr = yr;
       di = yi;
-      if constexpr (kMul) {
+      if constexpr (kFold && kMul) {
+        cmult_folded(yr, yi, tr[kk], ti[kk], out_w, dr, di);
+      } else if constexpr (kMul) {
         cmult<V, P>(yr, yi, tr[kk], ti[kk], p.tw_shift, out_w, dr, di);
       } else if constexpr (kTurn) {
         // W = -j on the odd index: (re, im) = (im, neg_guarded(re))

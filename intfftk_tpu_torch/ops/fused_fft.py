@@ -194,39 +194,47 @@ def _check_pass(shape, dtype, dev, cfg: FFTConfig, tables, epi, synth,
 
 
 #: The forms of a pass's complex products (``product_form``).
-PRODUCT_FORMS = ("int32", "mod64", "int128")
+PRODUCT_FORMS = ("int32", "mod32", "mod64", "int128")
 
 
 def product_form(cfg: FFTConfig, out_dtype: torch.dtype, inverse: bool,
-                 epilogue: bool) -> str:
-    """The form a pass forms its complex product-sums in: ``"int32"`` on
-    the int32 tile (exact in 64 bits), and on the int64 tile (``out_dtype``
-    int64) ``"mod64"`` where every product keeps bits that fit in 64, else
-    ``"int128"`` (exact).  A product is floor-shifted by
-    ``cfg.twiddle_shift`` and wrapped to w bits, so it keeps its bits
-    twiddle_shift .. twiddle_shift + w - 1, the same modulo 2^64 where
-    they fit.  Stage j enters at ``data_width + j * (1 - scale)`` bits and
-    multiplies where its twiddle order is at least 2 (order j inverse,
-    log2(n) - 1 - j forward), wrapped to its input width inverse (DIT) and
-    its output width forward (DIF); the ``epilogue`` wraps to the factor's
-    output width.  ``intfft_prepare_pass`` holds the C entry's request to
-    the same rule (``product_fits``) and refuses a modular one that breaks
-    it."""
-    if out_dtype != torch.int64:
-        return "int32"
+                 epilogue: bool, two_d: bool = False) -> str:
+    """The form a pass forms its complex product-sums in.  On the int32
+    tile: ``"mod32"`` where every product keeps bits that fit in 32, else
+    ``"int32"`` (exact in 64 bits); on the int64 tile (``out_dtype``
+    int64): ``"mod64"`` where they fit in 64, else ``"int128"`` (exact).  A
+    product is floor-shifted by ``cfg.twiddle_shift`` and wrapped to w
+    bits, so it keeps its bits twiddle_shift .. twiddle_shift + w - 1, the
+    same modulo the word where they fit.  Stage j enters at ``data_width +
+    j * (1 - scale)`` bits and multiplies where its twiddle order is at
+    least 2 (order j inverse, log2(n) - 1 - j forward), or at every order
+    with the 2-D stage tables (``two_d``), wrapped to its input width
+    inverse (DIT) and its output width forward (DIF); the ``epilogue``
+    wraps to the factor's output width.  ``intfft_prepare_pass`` holds the
+    C entry's request to the same rule (``product_fits``) and refuses a
+    modular one that breaks it."""
+    bits = 64 if out_dtype == torch.int64 else 32
     stages = cfg.n.bit_length() - 1
     gain = 1 - cfg.scale
     widths = []
     if not cfg.bypass_fly:
         for j in range(stages):
             order = j if inverse else stages - 1 - j
-            if order >= 2:
+            if order >= 2 or two_d:
                 widths.append(cfg.data_width + (j if inverse else j + 1)
                               * gain)
     if epilogue:
         widths.append(cfg.data_width + stages * gain)
-    fits = max(widths, default=0) + cfg.twiddle_shift <= 64
+    fits = max(widths, default=0) + cfg.twiddle_shift <= bits
+    if bits == 32:
+        return "mod32" if fits else "int32"
     return "mod64" if fits else "int128"
+
+
+def modular(form: str) -> bool:
+    """Whether ``form`` (of ``PRODUCT_FORMS``) forms its product-sums modulo
+    the tile's word: the C entries' product flag."""
+    return form in ("mod32", "mod64")
 
 
 def _pass_ints(cfg: FFTConfig, shape, in_dtype, out_dtype, synth, inverse,
@@ -235,7 +243,7 @@ def _pass_ints(cfg: FFTConfig, shape, in_dtype, out_dtype, synth, inverse,
     """The integers of a pass on blocks of ``shape``, as the C entries take
     them: batch, rows, cols, the element sizes, the numerics, the layout,
     the synthesis constants, TC, threads per CTA and the product form
-    (``product_form``: 1 for ``"mod64"``, else 0)."""
+    (``product_form``: 1 for a ``modular`` one, else 0)."""
     r = cfg.n
     c = shape[1] if transpose_in else shape[2]
     prm = synth_params(cfg, synth.n) if synth is not None else (0, 0, 0, 0)
@@ -243,7 +251,7 @@ def _pass_ints(cfg: FFTConfig, shape, in_dtype, out_dtype, synth, inverse,
             cfg.data_width, cfg.scale, int(cfg.rounding == "round"),
             cfg.twiddle_shift, int(cfg.bypass_fly), int(inverse),
             int(natural), int(transpose_in), int(transpose_out), *prm,
-            lane_tile, threads, int(product == "mod64"))
+            lane_tile, threads, int(modular(product)))
 
 
 def _table_ptrs(tables, tables_2d, epi, synth) -> tuple:
@@ -354,7 +362,8 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
     lib = _build.library(threads)
     out = _REPORT()
     product = product_form(cfg, out_dtype, inverse,
-                           epi is not None or synth is not None)
+                           epi is not None or synth is not None,
+                           tables_2d is not None)
     err = lib.intfft_fused_pass(
         x_re.data_ptr(), x_im.data_ptr(), y_re.data_ptr(), y_im.data_ptr(),
         *_table_ptrs(tables, tables_2d, epi, synth),
@@ -428,7 +437,8 @@ class PreparedPass:
         self.out_shape = _out_shape(shape, cfg, transpose_in, transpose_out)
         self.out_dtype = out_dtype
         self.product = product_form(cfg, out_dtype, inverse,
-                                    epi is not None or synth is not None)
+                                    epi is not None or synth is not None,
+                                    tables_2d is not None)
         self.keep = [t for pair in (tables, tables_2d, epi, synth)
                      if pair is not None for t in pair[:2]]
         self.table_ptrs = _table_ptrs(tables, tables_2d, epi, synth)
@@ -546,7 +556,7 @@ def products_note(products) -> str:
     """What a ``plan.prepare`` span notes of a chain whose passes form
     their complex products as ``products``: each form of
     ``PRODUCT_FORMS`` and how many passes take it, e.g. "product int32 0
-    mod64 2 int128 0"."""
+    mod32 2 mod64 0 int128 0"."""
     return "product " + " ".join(f"{f} {list(products).count(f)}"
                                  for f in PRODUCT_FORMS)
 

@@ -30,9 +30,12 @@ The spans, by name:
   ``FFTPairPlan``'s constructors (tables, twiddles, tuning);
 * ``plan.prepare``: a prepared object made at a plan's first call with a
   key (``PreparedChain``, ``PreparedProduct``); a chain's notes how many
-  of its passes form their complex products in each form, e.g. "product
-  int32 0 mod64 2 int128 0" (``fused_fft.products_note``), a product's
-  the form of its product-sums, "p1 long long" or "p1 int128";
+  of its passes form their complex products in each form of
+  ``fused_fft.PRODUCT_FORMS``: exact on the int32 tile ("int32"), modulo
+  2^32 there ("mod32"), modulo 2^64 on the int64 tile ("mod64") or exact
+  there ("int128"), e.g. "product int32 0 mod32 2 mod64 0 int128 0" for
+  the core's 64k chain (``fused_fft.products_note``); a product's the
+  form of its product-sums, "p1 long long" or "p1 int128";
 * ``library.load``: the kernel library's first load for a thread count,
   its ``note`` "built" or "cached";
 * ``stream.repack``, ``stream.dispatch``, ``stream.wait``:

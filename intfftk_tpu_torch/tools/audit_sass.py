@@ -50,8 +50,10 @@ the counter:
   the inter-factor product;
 * ``audit_headline()``: both, for the 64k headline (256 x 256): the static
   span of the largest group loop of ``fused_pass_kernel<int16, int16,
-  int32, false, false>``, and ``audit_transform(256, 256)`` per sample;
-  the same for the int64 instantiation;
+  int32, false, false>`` in the form the headline takes (products modulo
+  2^32), and ``audit_transform(256, 256)`` per sample; the same for the
+  int64 instantiation; ``audit_pass_static`` counts either product form
+  of either tile;
 * ``summarize(counts, samples)``: per-sample numbers by class.
 
 Usage, on a machine with the card's toolkit (builds the library first):
@@ -59,7 +61,7 @@ Usage, on a machine with the card's toolkit (builds the library first):
     python -m intfftk_tpu_torch.tools.audit_sass [--probes] [--dump DIR]
 
 prints one JSON dict; ``--probes`` adds the chain bodies, ``--dump`` writes
-the SASS text of the functions the audit reads.
+the SASS text of the functions the audit reads (the test fixtures).
 """
 
 from __future__ import annotations
@@ -374,11 +376,12 @@ def pass_pattern(wide: bool = False, threads: int | None = None,
     ``inverse``: int16 blocks on the int32 tile (the 64k headline), or
     int64 on int64, at ``threads`` threads per CTA: by default the count
     the headline's passes (m = 256), or on the int64 tile the config-2
-    chain's, take from the card's tuning row; with ``mod`` the int64
-    tile's kernel whose products are formed modulo 2^64.  A library whose
-    kernel has no thread count or no product form among its template
+    chain's, take from the card's tuning row; with ``mod`` the kernel
+    whose products are formed modulo the tile's word (2^32 on the int32
+    tile: the form the headline takes; 2^64 on the int64 tile).  A library
+    whose kernel has no thread count or no product form among its template
     parameters (before the tuning layer, before the modular form) matches
-    too."""
+    the exact form too."""
     if threads is None:
         from ..ops.tuning import TUNINGS, pass_geometry
 
@@ -514,9 +517,9 @@ def audit_stage(step: str, sass: dict | None = None,
 def audit_pass_static(wide: bool = False, sass: dict | None = None,
                       inverse: bool = False, mod: bool = False) -> dict:
     """Instructions per butterfly of ``fused_pass_kernel``'s largest group
-    loop by class (``pass_pattern``'s instantiation): a static count, which
-    holds both operand sources, both destinations and both forms of the
-    inter-factor product."""
+    loop by class (``pass_pattern``'s instantiation; ``mod``: the modular
+    product form): a static count, which holds both operand sources, both
+    destinations and both forms of the inter-factor product."""
     sass = library_sass() if sass is None else sass
     ins = sass[find_function(sass, pass_pattern(wide, None, inverse, mod))]
     r = GROUP_SIZE[bool(wide)]
@@ -596,13 +599,16 @@ def audit_transform(n1: int, n2: int = 1, wide: bool = False,
 
 def audit_headline(sass: dict | None = None) -> dict:
     """The 64k headline (256 x 256) and its int64 twin: per butterfly the
-    static span of the pass's largest group loop, per sample the sum over
-    its groups."""
+    static span of the pass's largest group loop, in the product form each
+    takes (the headline modulo 2^32, the twin exact), per sample the sum
+    over its groups (the group steps of the stage probe, whose products
+    are exact)."""
     sass = library_sass() if sass is None else sass
     out = {}
     for name, wide in (("narrow", False), ("int64", True)):
         out[name] = {
-            "static_per_butterfly": audit_pass_static(wide, sass),
+            "static_per_butterfly": audit_pass_static(wide, sass,
+                                                      mod=not wide),
             "per_sample": audit_transform(256, 256, wide, sass)}
     return out
 
@@ -654,11 +660,14 @@ def fixture_text(text: str, patterns) -> str:
 
 
 #: The functions of the test fixture: the chain that sets the ceiling, the
-#: headline pass, and the stage kernels the sum over groups and the loop
-#: finders are tested on.
+#: exact form of the headline's pass, and the stage kernels the sum over
+#: groups and the loop finders are tested on.  The headline's pass in the
+#: form it takes, modulo 2^32, is a second fixture (``MOD32_FIXTURE``).
 FIXTURE_STEPS = ("prod_p0", "prod_p1", "prod_p7", "epilogue_cmult",
                  "arith12", "shfl_p2", "group3_p7", "group3_p3", "group3_p2",
                  "group2_p1", "group1_p0")
+#: The file ``--dump`` writes the headline's modular pass into.
+MOD32_FIXTURE = "sass_fixture_mod32.txt"
 
 
 def main(argv=None) -> int:
@@ -676,6 +685,11 @@ def main(argv=None) -> int:
            "int64_inverse_static": {
                form: summarize(audit_pass_static(True, sass, True, mod))
                for form, mod in (("int128", False), ("mod64", True))},
+           "int32_static": {
+               f"{d} {form}": summarize(audit_pass_static(False, sass, inv,
+                                                          mod))
+               for d, inv in (("fwd", False), ("inv", True))
+               for form, mod in (("int32", False), ("mod32", True))},
            "stages": {name: summarize(audit_stage(name, sass))
                       for name in probe_stages.STEPS}}
     if "--probes" in argv:
@@ -698,6 +712,8 @@ def main(argv=None) -> int:
         (where / "sass_fixture.txt").write_text(fixture_text(
             library_text(), [chain_pattern(probe_vpu.BODIES["mixed7"].index),
                    pass_pattern(False), *steps]))
+        (where / MOD32_FIXTURE).write_text(fixture_text(
+            library_text(), [pass_pattern(False, mod=True)]))
     print(json.dumps(out))
     return 0
 

@@ -78,7 +78,7 @@ import torch
 from ..config import FFTConfig
 from ..ops import _build
 from ..ops.fused_fft import (LargeFFTPlan, circle_table, fused_pass,
-                             fused_pass_reference, product_form)
+                             fused_pass_reference, modular, product_form)
 from ..ops.intmath import spectrum_product_reference
 from ..ops.single_pass import (FusedAxisFFT, PallasFFTPlan,
                                PallasWideFFTPlan)
@@ -223,11 +223,12 @@ class Path:
                 for i, (cfg, kw) in enumerate(p.passes()):
                     epi = (kw.get("epi") is not None
                            or kw.get("synth") is not None)
+                    two_d = kw.get("tables_2d") is not None
                     out.append((_size(sizes[i]), _size(sizes[i + 1]),
-                                p.inverse, kw.get("tables_2d") is not None,
-                                cfg.n, "synth" in kw,
+                                p.inverse, two_d, cfg.n, "synth" in kw,
                                 product_form(cfg, sizes[i + 1], p.inverse,
-                                             epi), p.pass_geometry[i]))
+                                             epi, two_d),
+                                p.pass_geometry[i]))
             else:
                 s = 8 if p.wide else 4
                 out.append((s, s, p.inverse, False, p.cfg.n, False,
@@ -410,7 +411,7 @@ def attributes(form, dev) -> tuple[int, int, int]:
     err = lib.intfft_pass_attributes(in_size, out_size, int(inverse),
                                      int(two_d), rows, g["lane_tile"],
                                      g["threads"], int(synth),
-                                     int(product == "mod64"), dev.index,
+                                     int(modular(product)), dev.index,
                                      out)
     _build.check(lib, err, "intfft_pass_attributes")
     return out[0], out[1], out[3]

@@ -2,8 +2,10 @@
 on the CPU: the parser, the classifier and the loop finders against a SASS
 text captured from the built kernel library on an NVIDIA H100's toolkit
 (tests/data/sass_fixture.txt: ``audit_sass --dump``, the functions the
-tests read, encoding columns cut), and the instruction-counted bound of
-``utils.roofline`` from it.  The counts below were read off that dump."""
+tests read, encoding columns cut; tests/data/sass_fixture_mod32.txt: the
+headline's pass in the form it takes, products modulo 2^32), and the
+instruction-counted bound of ``utils.roofline`` from it.  The counts below
+were read off those dumps."""
 
 import re
 from pathlib import Path
@@ -17,11 +19,17 @@ from intfftk_tpu_torch.tools import probe_vpu as pv
 from intfftk_tpu_torch.utils import roofline as rf
 
 FIXTURE = Path(__file__).resolve().parent / "data" / "sass_fixture.txt"
+MOD32 = FIXTURE.with_name(au.MOD32_FIXTURE)
 
 
 @pytest.fixture(scope="module")
 def sass():
     return au.parse_sass(FIXTURE.read_text())
+
+
+@pytest.fixture(scope="module")
+def sass_mod32():
+    return au.parse_sass(MOD32.read_text())
 
 
 LOOP = """\
@@ -146,6 +154,57 @@ def test_fixture_functions(sass):
         au.find_function(sass, au.pass_pattern(True))
     with pytest.raises(KeyError, match="functions match"):
         au.find_function(sass, "stage_loop_kernel")
+
+
+def test_mod32_fixture_functions(sass_mod32):
+    """The second fixture holds the headline's pass modulo 2^32 alone: the
+    modular pattern names it, the exact one does not, and every opcode
+    has a class."""
+    assert len(sass_mod32) == 1
+    assert MOD32.stat().st_size < 700_000
+    au.find_function(sass_mod32, au.pass_pattern(False, mod=True))
+    with pytest.raises(KeyError, match="0 functions"):
+        au.find_function(sass_mod32, au.pass_pattern(False))
+    assert not [i.opcode for ins in sass_mod32.values() for i in ins
+                if au.classify(i.opcode) == "unknown"]
+
+
+def _loop_opcodes(sass, mod):
+    """{opcode: count per butterfly} of the headline pass's largest group
+    loop (``audit_pass_static``'s span)."""
+    ins = sass[au.find_function(sass, au.pass_pattern(False, mod=mod))]
+    span, tasks = au.butterfly_loop(ins, 16)
+    out = {}
+    for i in ins:
+        if span[0] <= i.addr <= span[1]:
+            out[i.opcode] = out.get(i.opcode, 0) + 1 / (12 * tasks)
+    return out
+
+
+@pytest.mark.parametrize("form,want", [
+    ("int32", (122.917, 95.167, 67.667, 35.583)),
+    ("mod32", (118.917, 90.75, 60.917, 38.25)),
+])
+def test_headline_pass_static_by_form(sass, sass_mod32, form, want):
+    """Per butterfly of the headline pass's largest group loop (issued,
+    alu, ALU pipe, FMA pipe), in both product forms: modulo 2^32, with the
+    left shift of each product folded into the twiddle, the loop issues
+    4 fewer instructions and 6.75 fewer on the ALU pipe, some moved to the
+    FMA pipe: the 64-bit products (IMAD.WIDE) become 32-bit IMADs, the
+    64-bit floor shifts (SHF.R.S64) go, and of the wrap's left shifts
+    (SHF.L.U32) 3.667 of 9.333 go."""
+    mod = form == "mod32"
+    per = au.summarize(au.audit_pass_static(
+        False, sass_mod32 if mod else sass, mod=mod))
+    assert (per["issued"], per["alu"], per["alu_pipe"],
+            per["fma_pipe"]) == want
+    ops = _loop_opcodes(sass_mod32 if mod else sass, mod)
+    got = {k: round(ops.get(k, 0.0), 3)
+           for k in ("IMAD.WIDE", "SHF.R.S64", "SHF.L.U32", "IMAD")}
+    assert got == ({"IMAD.WIDE": 1.167, "SHF.R.S64": 0.0, "SHF.L.U32": 5.667,
+                    "IMAD": 20.583} if mod else
+                   {"IMAD.WIDE": 7.833, "SHF.R.S64": 3.333,
+                    "SHF.L.U32": 9.333, "IMAD": 11.417})
 
 
 def test_chain_count(sass):

@@ -457,19 +457,23 @@ def test_wide_pass_vs_plain(dev, mode, rounding, r, c, nb, wide_in, inverse,
     assert torch.equal(yr, wr) and torch.equal(yi, wi)
 
 
-# ------------------------------ the int64 tile's two forms of the product
+# ------------------------------------ each tile's two forms of the product
 
-def _forced(monkeypatch, form):
-    """Every pass of the int64 tile takes ``form`` ("int128", or "mod64"
-    where the rule allows it) from here on: the rule as the launch paths
-    read it, replaced."""
+#: The exact form of each tile's modular form.
+EXACT = {"mod32": "int32", "mod64": "int128"}
+
+
+def _forced(monkeypatch):
+    """Every pass takes its tile's exact form ("int32", "int128") from
+    here on, where the rule would give it the modular one: the rule as the
+    launch paths read it, replaced."""
     from intfftk_tpu_torch.ops import fused_fft
 
     rule = fused_fft.product_form
 
-    def pick(cfg, out_dtype, inverse, epilogue):
-        got = rule(cfg, out_dtype, inverse, epilogue)
-        return form if got == "mod64" else got
+    def pick(*args, **kw):
+        got = rule(*args, **kw)
+        return EXACT.get(got, got)
 
     monkeypatch.setattr(fused_fft, "product_form", pick)
 
@@ -505,7 +509,7 @@ def test_conv4_inverse_passes_both_forms_on_card(dev, monkeypatch):
         want = fused_pass_reference(*want, cfg, **kw)
         assert torch.equal(one[0], want[0]) and torch.equal(one[1], want[1])
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    _forced(monkeypatch, "int128")
+    _forced(monkeypatch)
     exact = PreparedChain(*key, inv.passes())
     assert exact.products == ("int128", "int128")
     ex = exact(*x)
@@ -529,8 +533,8 @@ def test_conv4_against_golden_on_card(dev, payloads):
         yr, yi = conv(*x)
     torch.cuda.synchronize()
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
-    assert "product int32 0 mod64 2 int128 0" in notes
-    assert "product int32 2 mod64 0 int128 0" in notes
+    assert "product int32 0 mod32 0 mod64 2 int128 0" in notes
+    assert "product int32 2 mod32 0 mod64 0 int128 0" in notes
     gr, gi = overlap_save_int(*x, *h, spec)
     assert yr.dtype == torch.int64
     np.testing.assert_array_equal(yr.cpu().numpy(), gr)
@@ -573,30 +577,88 @@ def test_config2_chain_both_forms_on_card(dev, monkeypatch):
     hr, hi = four_step_int(gr, gi, icfg, inv.n1, inv.n2, inverse=True)
     np.testing.assert_array_equal(z[0].cpu().numpy().reshape(2, -1), hr)
     np.testing.assert_array_equal(z[1].cpu().numpy().reshape(2, -1), hi)
-    _forced(monkeypatch, "int128")
+    _forced(monkeypatch)
     ce = PreparedChain(*key, fwd.passes())
     assert ce.products == ("int128", "int128")
     e = ce(*x)
     assert torch.equal(e[0], y[0]) and torch.equal(e[1], y[1])
 
 
-@pytest.mark.parametrize("dw,form", [(49, "mod64"), (50, "int128")])
+def _core_frames(batch):
+    """Full-scale adversarial int16 frames of the 64k core: frame 0 holds
+    INT16_MAX in its first half and INT16_MIN in its second (imaginary
+    the other way), so that the first stage's butterflies meet (max, min)
+    and the round mode's difference wraps; frame 1 is INT16_MIN
+    throughout; the others are uniform over the 16 bits."""
+    lo, hi = -(1 << 15), (1 << 15) - 1
+    xr, xi = _stimulus((batch, 1 << 16), 16, seed=batch + 16)
+    half = 1 << 15
+    xr[0, :half], xr[0, half:] = hi, lo
+    xi[0, :half], xi[0, half:] = lo, hi
+    xr[1], xi[1] = lo, lo
+    return xr, xi
+
+
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
-def test_pass_at_the_bound_on_card(dev, dw, form, inverse):
-    """An int64 -> int64 pass of 256 rows, scaled at dw bits with 16-bit
-    twiddles and the epilogue: at s + w = 64 it takes the modular form, at
-    65 the exact one, each equal to the plain version on full-scale data."""
+def test_core_chain_both_forms_on_card(dev, monkeypatch, inverse):
+    """The core's 64k transform (scaled, round-half-up, 16-bit data and
+    twiddles: 31 bits kept) on full-scale adversarial frames: the chain
+    takes the modular form modulo 2^32 in both passes, per pass equal to
+    the plain version, the transform equal to golden four_step_int, and
+    equal to the same passes forced to the exact form."""
     from intfftk_tpu_torch.ops.fused_fft import PreparedChain
 
-    cfg = FFTConfig(n=256, mode="scaled", rounding="round", data_width=dw,
+    cfg = FFTConfig(n=1 << 16, mode="scaled", rounding="round",
+                    data_width=16, twiddle_width=16)
+    plan = LargeFFTPlan(cfg, inverse=inverse, order="raw", device=dev)
+    xr, xi = _core_frames(4)
+    x = [torch.as_tensor(v, dtype=torch.int16, device=dev).reshape(
+        (4,) + plan.block_in_shape) for v in (xr, xi)]
+    key = (x[0].shape, x[0].dtype, x[0].device)
+    chain = PreparedChain(*key, plan.passes())
+    assert chain.products == ("mod32", "mod32")
+    got = chain(*x)
+    want = x
+    for c, kw in plan.passes():
+        one = fused_pass(*want, c, **kw)
+        want = fused_pass_reference(*want, c, **kw)
+        assert torch.equal(one[0], want[0]) and torch.equal(one[1], want[1])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if not inverse:
+        gr, gi = four_step_int(xr, xi, cfg, plan.n1, plan.n2)
+        o = plan.raw_spectrum_order()
+        np.testing.assert_array_equal(got[0].cpu().numpy().reshape(4, -1),
+                                      gr[:, o])
+        np.testing.assert_array_equal(got[1].cpu().numpy().reshape(4, -1),
+                                      gi[:, o])
+    _forced(monkeypatch)
+    exact = PreparedChain(*key, plan.passes())
+    assert exact.products == ("int32", "int32")
+    ex = exact(*x)
+    assert torch.equal(ex[0], got[0]) and torch.equal(ex[1], got[1])
+
+
+@pytest.mark.parametrize("rounding", ["round", "truncate"])
+@pytest.mark.parametrize("dw,form", [(49, "mod64"), (50, "int128"),
+                                     (17, "mod32"), (18, "int32")])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_pass_at_the_bound_on_card(dev, dw, form, inverse, rounding):
+    """A pass of 256 rows, scaled at dw bits with 16-bit twiddles and the
+    epilogue, int64 -> int64 on the int64 tile and int32 -> int32 on the
+    int32 tile: at s + w = 64 (32) it takes the modular form, at 65 (33)
+    the exact one, each equal to the plain version on full-scale data."""
+    from intfftk_tpu_torch.ops.fused_fft import PreparedChain
+
+    dtype = torch.int64 if dw > 32 else torch.int32
+    cfg = FFTConfig(n=256, mode="scaled", rounding=rounding, data_width=dw,
                     twiddle_width=16)
     tables = tuple(torch.as_tensor(t, device=dev) for t in pack_tables(cfg))
     e = tuple(torch.as_tensor(t, device=dev) for t in circle_table(
         dataclasses.replace(cfg, n=256 * 64), 256, 40, inverse, "natural"))
     xr, xi = _stimulus((3, 256, 40), dw, seed=dw)
-    x = [torch.as_tensor(v, dtype=torch.int64, device=dev) for v in (xr, xi)]
+    x = [torch.as_tensor(v, dtype=dtype, device=dev) for v in (xr, xi)]
     kw = dict(tables=tables, epi=e, transpose_out=True, inverse=inverse,
-              out_dtype=torch.int64)
+              out_dtype=dtype)
     chain = PreparedChain(x[0].shape, x[0].dtype, x[0].device,
                           [(cfg, kw)])
     assert chain.products == (form,)
@@ -605,10 +667,35 @@ def test_pass_at_the_bound_on_card(dev, dw, form, inverse):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("dw,form", [(9, "mod32"), (10, "int32")])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_2d_pass_at_the_bound_on_card(dev, dw, form, inverse):
+    """An unscaled 256-row pass with the 2-D stage tables (every order
+    multiplies) on the int32 tile: the forward's widest product at dw + 8
+    bits (32 with the shift at dw = 9, modular; 33 at 10, exact), the
+    inverse's at dw + 7 (modular at both); equal to the plain version on
+    full-scale data."""
+    from intfftk_tpu_torch.ops.fused_fft import PreparedChain
+
+    cfg = FFTConfig(n=256, mode="unscaled", data_width=dw, twiddle_width=16)
+    t2 = tuple(torch.as_tensor(t).contiguous().to(dev)
+               for t in pack_tables_2d(FFTConfig(n=256 * 64), 256, 64))
+    xr, xi = _stimulus((3, 256, 64), dw, seed=dw + 2)
+    x = [torch.as_tensor(v, dtype=torch.int32, device=dev) for v in (xr, xi)]
+    kw = dict(tables=None, tables_2d=t2, transpose_out=False,
+              inverse=inverse, out_dtype=torch.int32)
+    chain = PreparedChain(x[0].shape, x[0].dtype, x[0].device,
+                          [(cfg, kw)])
+    assert chain.products == ("mod32" if inverse else form,)
+    got = chain(*x)
+    want = fused_pass_reference(*x, cfg, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_prepare_refuses_modular_past_the_bound(dev):
     """intfft_prepare_pass takes the modular form where every product
-    keeps bits that fit in 64 and refuses it (cudaErrorInvalidValue,
-    nothing clamped, no fallback) past that, and on the int32 tile."""
+    keeps bits that fit the tile's word, 64 or 32, and refuses it
+    (cudaErrorInvalidValue, nothing clamped, no fallback) past that."""
     import ctypes
 
     from intfftk_tpu_torch.ops import _build
@@ -618,17 +705,30 @@ def test_prepare_refuses_modular_past_the_bound(dev):
     desc = (ctypes.c_uint64 * (lib.intfft_prepared_size() // 8))()
     report = (ctypes.c_int * 4)()
 
-    def prepare(dw, out_size, product, inverse=1, tables=1 | 4):
-        # [2, 256, 40] scaled/truncating, 16-bit twiddles (shift 15), TC 16
-        # of 256 threads
+    def prepare(dw, out_size, product, inverse=1, tables=1 | 4, scale=1):
+        # [2, 256, 40], truncating, 16-bit twiddles (shift 15), TC 16 of
+        # 256 threads
         return lib.intfft_prepare_pass(
-            2, 256, 40, out_size, out_size, dw, 1, 0, 15, 0, inverse, 1, 0,
-            1, 0, 0, 0, 0, 16, 256, product, tables, device, desc, report)
+            2, 256, 40, out_size, out_size, dw, scale, 0, 15, 0, inverse, 1,
+            0, 1, 0, 0, 0, 0, 16, 256, product, tables, device, desc, report)
 
     assert prepare(49, 8, 1) == 0 and prepare(49, 8, 0) == 0
     assert prepare(50, 8, 1) == 1 and prepare(50, 8, 0) == 0
-    assert prepare(16, 4, 1) == 1 and prepare(16, 4, 0) == 0
-    assert prepare(49, 8, 2) == 1
+    # the int32 tile: scaled 17 + 15 = 32 modular, 18 + 15 = 33 exact only
+    assert prepare(16, 4, 1) == 0 and prepare(16, 4, 0) == 0
+    assert prepare(17, 4, 1) == 0 and prepare(16, 2, 1) == 0
+    assert prepare(18, 4, 1) == 1 and prepare(18, 4, 0) == 0
+    assert prepare(49, 8, 2) == 1 and prepare(17, 4, 2) == 1
+    # unscaled forward on the int32 tile: 1-D to order 2 (dw + 6), the
+    # epilogue (dw + 8), the 2-D tables to order 0 (dw + 8)
+    fwd = dict(inverse=0, scale=0)
+    assert prepare(11, 4, 1, tables=1, **fwd) == 0
+    assert prepare(12, 4, 1, tables=1, **fwd) == 1
+    assert prepare(9, 4, 1, tables=1 | 4, **fwd) == 0
+    assert prepare(10, 4, 1, tables=1 | 4, **fwd) == 1
+    assert prepare(9, 4, 1, tables=2, **fwd) == 0
+    assert prepare(10, 4, 1, tables=2, **fwd) == 1
+    assert prepare(10, 4, 0, tables=2, **fwd) == 0
     # unscaled 256 rows at 42 bits in: the inverse's widest product is
     # order 7's 49 bits, the epilogue's 50
     assert lib.intfft_prepare_pass(
@@ -639,25 +739,39 @@ def test_prepare_refuses_modular_past_the_bound(dev):
         1, 1 | 4, device, desc, report) == 1
 
 
-def test_product_form_registers_on_card(dev):
-    """The two forms of config 4's inverse pass at its geometry, as the
-    library reports them: the modular kernel takes no more registers and
-    no more local memory than the exact one."""
+@pytest.mark.parametrize("case", ["conv4_inverse", "core_fwd", "core_inv"])
+def test_product_form_registers_on_card(dev, case):
+    """The two forms of a pass at its geometry, as the library reports
+    them: config 4's inverse on the int64 tile, the core's 64k forward and
+    inverse passes on the int32 tile (int16 blocks, 256 rows): the modular
+    kernel takes no more registers and no more local memory than the exact
+    one, and the int32 forward, at its cap of 64 registers, no local memory
+    at all (the int32 inverse's 16-byte stack frame at 128 threads is both
+    forms')."""
     import ctypes
 
     from intfftk_tpu_torch.ops import _build
 
-    _, _, conv = _conv4(dev)
-    g = conv.inv.pass_geometry[0]
+    if case == "conv4_inverse":
+        _, _, conv = _conv4(dev)
+        g, size, inverse = conv.inv.pass_geometry[0], 8, 1
+    else:
+        plan = LargeFFTPlan(FFTConfig(n=1 << 16, mode="scaled",
+                                      rounding="round", data_width=16,
+                                      twiddle_width=16),
+                            inverse=case == "core_inv", device=dev)
+        g, size, inverse = plan.pass_geometry[0], 2, int(plan.inverse)
     lib = _build.library()
     read = {}
     for product in (0, 1):
         out = (ctypes.c_int * 5)()
         assert lib.intfft_pass_attributes(
-            8, 8, 1, 0, 256, g["lane_tile"], g["threads"], 0, product,
-            torch.cuda.current_device(), out) == 0
+            size, size, inverse, 0, 256, g["lane_tile"], g["threads"], 0,
+            product, torch.cuda.current_device(), out) == 0
         read[product] = tuple(out)
     assert read[1][0] <= read[0][0] and read[1][1] <= read[0][1], read
+    if case == "core_fwd":
+        assert read[1][1] == 0, read
 
 
 @pytest.mark.parametrize("n", [8, 1024, 4096])

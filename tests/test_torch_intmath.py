@@ -280,3 +280,77 @@ def test_cmult_mod64_wrong_past_the_word():
     a, c = -(1 << 49), (1 << 15) - 1
     assert _cmult_exact_int(a, 0, c, 0, s, w)[0] < 0
     assert _cmult_word_shift_wrap(a, 0, c, 0, s, w)[0] >= 0
+
+
+WORD32 = 1 << 32
+
+
+def _cmult_mod32_folded(br, bi, c, d, s, w):
+    """cmult's modular form on the int32 tile as the kernel computes it
+    (csrc/intfft_arith.cuh, fold and cmult_folded): each twiddle component
+    times 2^(32 - w - s) modulo 2^32 where the stage reads it, the
+    product-sums of the int32 datum and the folded twiddle modulo 2^32,
+    then the arithmetic shift right by 32 - w of the word."""
+    u = lambda v: v % WORD32
+    f = 1 << (32 - w - s)
+    fc, fd = u(c) * f % WORD32, u(d) * f % WORD32
+    pr = (u(br) * fc - u(bi) * fd) % WORD32
+    pi = (u(bi) * fc + u(br) * fd) % WORD32
+    signed = lambda p: p - WORD32 if p >> 31 else p
+    return signed(pr) >> (32 - w), signed(pi) >> (32 - w)
+
+
+def _mod32_cases(w, t, seed, n=3000):
+    """(br, bi, c, d): int32 data at their w-bit and 32-bit extremes
+    against twiddles of t bits at +-(2^(t-1) - 1) and -2^(t-1), then
+    random data of w bits and of 32 bits against random twiddles."""
+    data = [-(1 << (w - 1)), (1 << (w - 1)) - 1, -(1 << 31), (1 << 31) - 1,
+            -1, 0, 1]
+    tw = [(1 << (t - 1)) - 1, -((1 << (t - 1)) - 1), -(1 << (t - 1)), 0, 1,
+          -1]
+    out = [(a, b, c, d) for a in data for b in data for c in tw for d in tw]
+    rng = np.random.default_rng(seed)
+    for lim in (1 << (w - 1), 1 << 31):
+        a = rng.integers(-lim, lim, (n, 2)).tolist()
+        c = rng.integers(-(1 << (t - 1)), 1 << (t - 1), (n, 2)).tolist()
+        out += [(x, y, p, q) for (x, y), (p, q) in zip(a, c)]
+    return out
+
+
+@pytest.mark.parametrize("conj", [False, True], ids=["fwd", "inv_conj"])
+@pytest.mark.parametrize("w,s,t", [(16, 15, 16), (17, 15, 16), (9, 15, 16),
+                                   (14, 18, 20), (5, 26, 27)],
+                         ids=["core", "bound_17", "w9", "t20_bound",
+                              "t27"])
+def test_cmult_mod32_equals_exact(w, s, t, conj):
+    """Where s + w <= 32 the product-sums of the int32 datum and the
+    twiddle folded by 2^(32 - w - s), formed modulo 2^32 and shifted right
+    by 32 - w, give wrap(floor(p / 2^s), w) of the exact product-sums, for
+    every datum of 32 bits and every twiddle of t bits, the most negative
+    included; the inverse negates d before the fold (-2^(t-1) becoming
+    +2^(t-1)); at s + w = 32 the fold is 1."""
+    assert s + w <= 32
+    for br, bi, c, d in _mod32_cases(w, t, seed=w * 100 + s):
+        if conj:
+            d = -d
+        want = _cmult_exact_int(br, bi, c, d, s, w)
+        assert _cmult_mod32_folded(br, bi, c, d, s, w) == want, (br, bi, c,
+                                                                 d)
+
+
+def test_cmult_mod32_wrong_past_the_word():
+    """At s + w = 33 the kept bits reach bit 32 of the product-sum, which
+    the word does not hold: the fold by 2^-1 does not exist, and the sums
+    modulo 2^32 shifted and wrapped as the word's generic arm reads them
+    differ from the exact ones (at (w, s) = (18, 15), full-scale data
+    against full-scale twiddles)."""
+    w, s = 18, 15
+    cases = _mod32_cases(w, 16, seed=33)
+    word = lambda p: _wrap_exact((p % WORD32) >> s, w)
+    wrong = sum((word(br * c - bi * d), word(bi * c + br * d))
+                != _cmult_exact_int(br, bi, c, d, s, w)
+                for br, bi, c, d in cases)
+    assert wrong > len(cases) // 10
+    a, c = -(1 << 17), (1 << 15) - 1
+    assert _cmult_exact_int(a, 0, c, 0, s, w)[0] < 0
+    assert word(a * c) >= 0

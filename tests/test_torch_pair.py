@@ -229,8 +229,8 @@ def test_call_is_two_chains_and_one_product(lib):
         plan(x, x)
         plan(x, x)
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
-    assert notes == ["product int32 0 mod64 2 int128 0", "p1 int128",
-                     "product int32 0 mod64 0 int128 2"]
+    assert notes == ["product int32 0 mod32 0 mod64 2 int128 0", "p1 int128",
+                     "product int32 0 mod32 0 mod64 0 int128 2"]
     kinds = [k for k, _, _ in lib.launched]
     assert kinds == ["chain", "chain", "product", "chain", "chain"] * 2
     assert lib.chain_calls == 4
@@ -286,8 +286,8 @@ def test_pair_64k_on_card(dev, kind):
         assert (fused_pass.launches - before[0],
                 spectrum_product.launches - before[1]) == (4, 1)
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
-    assert notes == ["product int32 0 mod64 2 int128 0", "p1 int128",
-                     "product int32 0 mod64 0 int128 2"]
+    assert notes == ["product int32 0 mod32 0 mod64 2 int128 0", "p1 int128",
+                     "product int32 0 mod32 0 mod64 0 int128 2"]
     want = _plain(xr, xi, n, factors)
     call = plan.capture()
     x = tuple(v.to(torch.int32).reshape((batch,) + factors)

@@ -381,8 +381,8 @@ def test_conv_product_forms_reach_the_c_entries(lib, product_width,
     flag = int(inverse_form == "mod64")
     assert [ints[20] for ints, _, _ in lib.prepared] == [0, 0, flag, flag]
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
-    assert notes == ["product int32 2 mod64 0 int128 0", "p1 long long",
-                     products_note((inverse_form,) * 2)]
+    assert notes == ["product int32 2 mod32 0 mod64 0 int128 0",
+                     "p1 long long", products_note((inverse_form,) * 2)]
     chains = [v for v in conv.inv._prepared.values()]
     assert len(chains) == 1 and chains[0].products == (inverse_form,) * 2
     assert [p.product for p in chains[0].passes] == [inverse_form] * 2
@@ -390,6 +390,33 @@ def test_conv_product_forms_reach_the_c_entries(lib, product_width,
     yr, _ = conv.inv.apply_blocks(
         *(torch.zeros((2,) + conv.inv.block_in_shape, dtype=torch.int64)
           for _ in range(2)), pass_fn=fused_pass)
+    assert [ints[20] for _, ints, _ in lib.launched] == [flag, flag]
+
+
+@pytest.mark.parametrize("cfg,kw,form", [
+    (_cfg(n=1 << 16), {}, "mod32"),
+    (_cfg(n=1 << 16), dict(inverse=True), "mod32"),
+    (_cfg(mode="unscaled", rounding="truncate"), dict(n1=16, n2=256),
+     "int32")], ids=["core-fwd", "core-inv", "unscaled-4096"])
+def test_int32_product_forms_reach_the_c_entries(lib, cfg, kw, form):
+    """The core's 64k chain (scaled 16-bit, 16-bit twiddles: 31 bits kept)
+    hands intfft_prepare_pass, and fused_pass hands intfft_fused_pass, the
+    modular flag for both passes, and its plan.prepare span notes "mod32
+    2"; an unscaled 4096-point chain (its first factor's epilogue at 20
+    bits, 35 with the shift) takes the exact form."""
+    n1, n2 = kw.pop("n1", None), kw.pop("n2", None)
+    plan = LargeFFTPlan(cfg, n1, n2, device="cpu", **kw)
+    x = _blocks(plan, 2)
+    with trace.recording() as rec:
+        plan.apply_blocks(*x)
+    flag = int(form == "mod32")
+    assert [ints[20] for ints, _, _ in lib.prepared] == [flag, flag]
+    notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
+    assert notes == [products_note((form,) * 2)]
+    assert notes[0] == ("product int32 0 mod32 2 mod64 0 int128 0" if flag
+                        else "product int32 2 mod32 0 mod64 0 int128 0")
+    lib.launched.clear()
+    plan.apply_blocks(*x, pass_fn=fused_pass)
     assert [ints[20] for _, ints, _ in lib.launched] == [flag, flag]
 
 
