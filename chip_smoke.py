@@ -399,9 +399,9 @@ def main() -> int:
                                                   fused_pass_reference,
                                                   fused_four_step_reference,
                                                   fused_whole)
-    from intfftk_tpu_torch.ops.intmath import (PreparedProduct, cmult_exact,
-                                               spectrum_product,
+    from intfftk_tpu_torch.ops.intmath import (cmult_exact, spectrum_product,
                                                spectrum_product_reference)
+    from intfftk_tpu_torch.ops.pair import FFTPairPlan
     from intfftk_tpu_torch.runtime import captured
     from intfftk_tpu_torch.ops.single_pass import (PallasFFTPlan,
                                                    PallasWideFFTPlan)
@@ -1126,9 +1126,13 @@ def main() -> int:
 
     # ---- 10. the wide (> 32-bit) data path: int64 tiles
     lap(10)
-    f2 = LargeFFTPlan(c2, order="raw", device=dev)
-    i2 = LargeFFTPlan(c2i, f2.n2, f2.n1, inverse=True, order="raw",
-                      device=dev)
+    # config 2's chain: the raw unscaled forward, the exact-unity 25-bit
+    # spectrum product (y * 2^23) >> 23 at 48 bits (the product kernel,
+    # 128-bit product-sums), the raw scaled/round inverse
+    pair = FFTPairPlan(c2, (np.full(N, 1 << 23), np.zeros(N, np.int64)),
+                       inverse_rounding="round", product_shift=23,
+                       spectrum_width=25, factors=(256, 256), device=dev)
+    f2, i2 = pair.fwd, pair.inv
     w24 = LargeFFTPlan(c24, device=dev)
     check((f2.n1, f2.n2, f2.epi_mode, f2.wide_in, f2.wide1, f2.wide2)
           == (256, 256, "host", False, True, True)
@@ -1188,33 +1192,10 @@ def main() -> int:
                  f"{inverse} natural={natural} epilogue={epi}",
                  "K1w" if wide_in else "K2w")
 
-    # (b) the config-2 chain at batch 8 (bench_config2): the raw unscaled
-    # forward, the exact-unity 25-bit spectrum product (y * 2^23) >> 23 at
-    # 48 bits (the product kernel, 128-bit product-sums), the raw
-    # scaled/round inverse
-    hr1 = torch.full(f2.block_out_shape, 1 << 23, dtype=torch.int32,
-                     device=dev)
-    hi1 = torch.zeros_like(hr1)
-
-    c2_products = {}
-
-    def product(yr, yi, product_fn=None):
-        """The unity product; ``product_fn=None``: prepared once per shape
-        (``PreparedProduct``), as the convolution prepares its own."""
-        args = (hr1, hi1, 23, c2.output_width, 25, torch.int64)
-        if product_fn is None:
-            key = (yr.shape, yr.dtype)
-            if key not in c2_products:
-                c2_products[key] = PreparedProduct(yr, yi, *args)
-            return c2_products[key](yr, yi)
-        return product_fn(yr, yi, *args)
-
-    def c2_chain(a, b, pass_fn=None, product_fn=None):
-        """The config-2 chain: by default the plans' prepared chains and
-        the prepared product; ``fused_pass``, ``spectrum_product``: one
-        call per pass and per product, as before the prepared chains."""
-        y = f2.apply_blocks(a, b, pass_fn=pass_fn)
-        return y, i2.apply_blocks(*product(*y, product_fn), pass_fn=pass_fn)
+    # (b) the config-2 chain at batch 8 (bench_config2): by default the
+    # plans' prepared chains and the prepared product; ``fused_pass``,
+    # ``spectrum_product``: one call per pass and per product
+    c2_chain = pair.apply_blocks
 
     def c2_plain(a, b):
         return c2_chain(a, b, fused_pass_reference,
@@ -1224,7 +1205,7 @@ def main() -> int:
         """The config-2 chain through the whole form: the raw forward and
         the raw inverse one cluster launch each, the product between."""
         y = f2w.apply_blocks(a, b)
-        return y, i2w.apply_blocks(*product(*y))
+        return y, i2w.apply_blocks(*pair.product(*y))
 
     rng = np.random.default_rng(0)
     xr, xi = (rng.integers(-(1 << 27), 1 << 27, (RT_BATCH, N))
@@ -1234,17 +1215,18 @@ def main() -> int:
     x = blocks(f2, xr, xi)
     torch.cuda.synchronize()
     fused_pass.launches = spectrum_product.launches = 0
-    y, z = c2_chain(*x)
+    z = c2_chain(*x)
     torch.cuda.synchronize()
     launches_c2 = fused_pass.launches
     product_launches = {"config 2": spectrum_product.launches}
+    y = f2.apply_blocks(*x)
     check(launches_c2 == 4 and product_launches["config 2"] == 1,
           f"config-2 chain: {launches_c2} pass launches, "
           f"{product_launches['config 2']} product launch")
     check(y[0].dtype == z[0].dtype == torch.int64
           and tuple(z[0].shape) == (RT_BATCH,) + f2.block_in_shape,
           "config-2 chain: int64 spectrum and output blocks")
-    check(all(torch.equal(a, b) for a, b in zip(product(*y), y)),
+    check(all(torch.equal(a, b) for a, b in zip(pair.product(*y), y)),
           "the exact-unity spectrum product returns the spectrum")
     t0 = time.perf_counter()
     gr, gi = four_step_int(xr, xi, c2, f2.n1, f2.n2)
@@ -1428,13 +1410,13 @@ def main() -> int:
     h_re = rng.integers(-(1 << 13), 1 << 13, m)
     h_im = np.zeros(m, np.int64)
     conv = OverlapSaveConv(spec, h_re, h_im)        # on the card by default
-    check(conv.hr.device == dev and conv.large and conv.wide
+    cf, ci = conv.pair.fwd, conv.pair.inv
+    check(conv.pair.hr.device == dev and conv.large and conv.wide
           and (spec.product_width, spec.spectrum_width, spec.product_shift)
           == (44, 25, 14)
-          and (conv.fwd.in_dtype, conv.fwd.out_dtype, conv.inv.in_dtype,
-               conv.inv.out_dtype) == (torch.int32, torch.int32,
-                                       torch.int64, torch.int64)
-          and conv.inv.block_in_shape == conv.fwd.block_out_shape,
+          and (cf.in_dtype, cf.out_dtype, ci.in_dtype, ci.out_dtype)
+          == (torch.int32, torch.int32, torch.int64, torch.int64)
+          and ci.block_in_shape == cf.block_out_shape,
           "config-4 plan on the card: raw 256 x 256 pair, int32 forward "
           "(32 bits), 44-bit product, int64 inverse")
     conv_x, conv_launches, conv_snr = {}, {}, {}
@@ -1510,7 +1492,7 @@ def main() -> int:
         v.view(-1)[:2] = torch.tensor([-lim, lim - 1], device=dev)
         return v.to(dtype)
 
-    blk = conv.fwd.block_out_shape
+    blk = cf.block_out_shape
     for what, shape, table, dw, dt, sw, shift, ow, odt in (
             ("config 4: int32 -> int64, 44 bits, +-2^31 data", (64,) + blk,
              blk, 32, torch.int32, 25, spec.product_shift, 44, torch.int64),
@@ -2123,7 +2105,8 @@ def main() -> int:
     step_ms = {what: _event_ms(fixed(
         lambda u, v, c=p.passes()[k][0], kw=p.passes()[k][1]: fused_pass(
             u, v, c, **kw)), *xs) for what, (p, k, xs) in steps.items()}
-    step_ms["spectrum product (kernel)"] = _event_ms(fixed(product), *y)
+    step_ms["spectrum product (kernel)"] = _event_ms(fixed(pair.product),
+                                                     *y)
     print("  config-2 chain steps (ms): " + ", ".join(
         f"{what} {t:.4f}" for what, t in step_ms.items()))
     w24_ms = _turns(fixed(w24.apply_blocks), fixed(
@@ -2164,27 +2147,25 @@ def main() -> int:
     def windows(v):
         e = torch.nn.functional.pad(v.reshape(1, t), (m - 1, 0))
         return e.unfold(-1, N, spec.payload).reshape(
-            (-1,) + conv.fwd.block_in_shape).contiguous()
+            (-1,) + cf.block_in_shape).contiguous()
 
     def conv_product(u, v, product_fn=spectrum_product):
-        return product_fn(u, v, conv.hr, conv.hi, spec.product_shift,
-                          spec.product_width, spec.spectrum_width,
-                          torch.int64)
+        return conv.pair.product(u, v, product_fn)
 
     def cut(v):
         return v.reshape(-1, N)[:, m - 1:].reshape(t)
 
     b = [windows(v) for v in x]
-    f = conv.fwd.apply_blocks(*b)
+    f = cf.apply_blocks(*b)
     pq = conv_product(*f)
-    z = conv.inv.apply_blocks(*pq)
+    z = ci.apply_blocks(*pq)
     conv_steps = {what: _event_ms(fixed(fn), *xs, calls=20)
                   for what, fn, xs in (
         ("windows (pad, unfold, copy)",
          lambda u, v: (windows(u), windows(v)), x),
-        ("forward (int32, 2 launches)", conv.fwd.apply_blocks, b),
+        ("forward (int32, 2 launches)", cf.apply_blocks, b),
         ("product (kernel, 44 bits)", conv_product, f),
-        ("inverse (int64, 2 launches)", conv.inv.apply_blocks, pq),
+        ("inverse (int64, 2 launches)", ci.apply_blocks, pq),
         ("cut", lambda u, v: (cut(u), cut(v)), z))}
     print("  config 4, T = 64 payloads, steps (ms): " + ", ".join(
         f"{what} {ms:.4f}" for what, ms in conv_steps.items()))
@@ -2357,7 +2338,7 @@ def main() -> int:
 
     def c2_whole_b1(a, b):
         y = f2w1.apply_blocks(a, b)
-        return y, i2w1.apply_blocks(*product(*y))
+        return y, i2w1.apply_blocks(*pair.product(*y))
 
     x_mono = blocks(mono, *_stimulus(BATCH, N, 28))
     ab_paths = {
@@ -2665,7 +2646,7 @@ def main() -> int:
                   ("16M", [p16["device"][0]]), ("monolithic 64k", [mono]),
                   ("monolithic 512K", [m512]), ("config 2", [f2, i2]),
                   ("64k 24-bit", [w24]), ("K5", list(k5.values())[:1]),
-                  ("config 4", [conv.fwd, conv.inv]),
+                  ("config 4", [cf, ci]),
                   ("config 5", [p5_passes.plan1, p5_passes.plan2]))))
     print("the whole form's launches (cluster, threads per CTA, shared memory "
           "per CTA, clusters per launch, clusters held at once, CTAs per SM, "

@@ -761,12 +761,12 @@ fused_whole.geometry = None
 
 class PreparedPlan(nn.Module):
     """What the modules whose calls on the card go through prepared
-    launches share: one prepared object (a ``PreparedChain``, or the
-    convolution's ``PreparedProduct``) per key of input shape, dtype,
-    device and form, made at the first call with that key, and the
-    ``CapturedCall``s made from the module (``capture()``), all dropped
-    when the launch geometry or a buffer changes (``retune``, ``.to()``:
-    ``invalidate``)."""
+    launches share: one prepared object (a ``PreparedChain``, or P1's
+    ``PreparedProduct``) per key of input shape, dtype, device and form,
+    made at the first call with that key, and the ``CapturedCall``s made
+    from the module or from a module holding it (``capture()``), all
+    dropped when the launch geometry or a buffer changes (``retune``,
+    ``.to()``: ``invalidate``)."""
 
     def __init__(self):
         super().__init__()
@@ -790,8 +790,11 @@ class PreparedPlan(nn.Module):
 
     def _track(self, call):
         """Register ``call`` (a ``CapturedCall`` that runs this module) to
-        be reset with the module's prepared launches; returns it."""
-        self._captures.add(call)
+        be reset with the prepared launches of this module and of every
+        ``PreparedPlan`` inside it; returns it."""
+        for module in self.modules():
+            if isinstance(module, PreparedPlan):
+                module._captures.add(call)
         return call
 
     def invalidate(self):

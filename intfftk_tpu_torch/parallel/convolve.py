@@ -24,8 +24,8 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..device import use_kernel
 from ..golden.convolve import ConvSpec, taps_spectrum_int
-from ..ops.fused_fft import LargeFFTPlan, PreparedPlan
-from ..ops.intmath import PreparedProduct, spectrum_product
+from ..ops.fused_fft import PreparedPlan
+from ..ops.pair import FFTPairPlan, product_step
 from ..runtime import trace
 from .four_step import local_plan
 from .mesh import FFT_AXIS, plan_device, single_axis_size
@@ -55,29 +55,26 @@ class OverlapSaveConv(PreparedPlan):
 
     taps: integer arrays (h_re, h_im) of length ``spec.taps_len``.  The
     taps spectrum is built on the host (exact integer FFT,
-    ``taps_spectrum_int``) and held as buffers ``hr``/``hi`` on ``device``
-    (the current CUDA device unless the caller names one; ``device="cpu"``
-    for the CPU).
+    ``taps_spectrum_int``) and held on ``device`` (the current CUDA device
+    unless the caller names one; ``device="cpu"`` for the CPU).
 
     Block transforms, by ``kernel`` (the names of ``resolve_kernel``):
 
     * "pallas" (and "auto"): the CUDA kernel, its plain version on the CPU:
-      a ``FusedAxisFFT`` pair for n <= 4096, one launch each; where
-      ``spec.factors`` is set (the 64k-block / 8k-tap scale), a raw-order
-      ``LargeFFTPlan`` pair, the forward then the swapped-factor inverse,
-      two launches each.  The chain stays in block layout from the forward
-      through the product into the inverse: the taps spectrum is permuted
-      once by ``raw_spectrum_order()`` into the forward's
-      ``block_out_shape``, which is the inverse's ``block_in_shape``, so
-      no reorder exists on the spectrum side;
+      where ``spec.factors`` is set (the 64k-block / 8k-tap scale), an
+      ``FFTPairPlan`` (``pair``) of ``spec.fft_cfg``, the taps spectrum and
+      ``spec.ifft_cfg``'s inverse: the raw-order four-step forward (two
+      launches), the product (one) and the swapped-factor inverse (two),
+      with the windows before it and the cut after it; for n <= 4096 a
+      ``FusedAxisFFT`` pair (``fwd``, ``inv``), one launch each, with the
+      spectrum in natural order (``hr``, ``hi``);
     * "xla": the staged ``FFTPlan`` pair, on the CPU only.
 
-    The frequency product is ``intmath.spectrum_product``: one launch of
-    the product kernel on the card, its plain version on the CPU (in JAX
-    it is XLA arithmetic inside the chain's jit, outside any Pallas
-    kernel).  It writes the inverse's input dtype itself.  A product wider
-    than 32 bits (``spec.product_width``) needs the four-step engine; its
-    inverse runs on int64 blocks.
+    The frequency product is ``ops.pair.product_step`` either way: one
+    launch of the product kernel on the card, its plain version on the CPU
+    (in JAX it is XLA arithmetic inside the chain's jit, outside any Pallas
+    kernel).  A product wider than 32 bits (``spec.product_width``) needs
+    the four-step engine; its inverse runs on int64 blocks.
 
     Call with x_re, x_im of shape [..., T], T a multiple of
     ``spec.payload`` (pad on the host; ``golden.convolve`` documents the
@@ -116,23 +113,21 @@ class OverlapSaveConv(PreparedPlan):
             raise NotImplementedError(
                 "products wider than 32 bits need the four-step pallas "
                 "engine (spec.factors set, kernel='pallas')")
+        self.out_dtype = torch.int64 if self.wide else torch.int32
         if self.large:
-            n1, n2 = spec.factors
-            self.fwd = LargeFFTPlan(spec.fft_cfg, n1, n2, order="raw",
-                                    device=device)
-            self.inv = LargeFFTPlan(spec.ifft_cfg, n2, n1, inverse=True,
-                                    order="raw", device=device)
-            bo = self.fwd.block_out_shape
-            assert self.inv.block_in_shape == bo
-            perm = self.fwd.raw_spectrum_order()
-            hr, hi = hr[perm].reshape(bo), hi[perm].reshape(bo)
+            self.pair = FFTPairPlan(
+                spec.fft_cfg, (hr, hi), inverse_mode="scaled",
+                inverse_rounding=spec.rounding,
+                product_shift=spec.product_shift,
+                spectrum_width=spec.spectrum_width,
+                product_width=spec.product_width, factors=spec.factors,
+                device=device)
         else:
             self.fwd = local_plan(spec.fft_cfg, False, kernel, device)
             self.inv = local_plan(spec.ifft_cfg, True, kernel, device)
-        self.out_dtype = torch.int64 if self.wide else torch.int32
-        for name, h in (("hr", hr), ("hi", hi)):
-            self.register_buffer(name, torch.as_tensor(
-                h.astype(np.int32), device=device))
+            for name, h in (("hr", hr), ("hi", hi)):
+                self.register_buffer(name, torch.as_tensor(
+                    h.astype(np.int32), device=device))
 
     def _blocks(self, xr, xi, pass_fn, product_fn, heads=None):
         """[..., T] on the device (and the M - 1 samples before each row,
@@ -150,20 +145,6 @@ class OverlapSaveConv(PreparedPlan):
                  else torch.cat([head, x], -1))
             return e.unfold(-1, n, lpay)
 
-        def product(fr, fi):
-            # int32 or int64 in (an int16 forward widens first), the
-            # inverse's input dtype out unless that is int16
-            if fr.dtype == torch.int16:
-                fr, fi = fr.int(), fi.int()
-            fr, fi = fr.contiguous(), fi.contiguous()
-            args = (self.hr, self.hi, spec.product_shift, spec.product_width,
-                    spec.spectrum_width, self.out_dtype)
-            if product_fn is None and use_kernel(fr.device):
-                key = (fr.shape, fr.dtype, fr.device, "product")
-                return self._prepare(key, lambda: PreparedProduct(
-                    fr, fi, *args))(fr, fi)
-            return (product_fn or spectrum_product)(fr, fi, *args)
-
         def cut(y):
             return y.reshape(shp + (-1, n))[..., m - 1:].reshape(
                 shp + (t,)).to(self.out_dtype)
@@ -171,29 +152,28 @@ class OverlapSaveConv(PreparedPlan):
         hr, hi = (None, None) if heads is None else heads
         br, bi = windows(xr, hr), windows(xi, hi)
         if self.large:
-            blk = lambda b: b.reshape((-1,) + self.fwd.block_in_shape).to(
-                self.fwd.in_dtype).contiguous()
-            fr, fi = self.fwd.apply_blocks(blk(br), blk(bi), pass_fn=pass_fn)
-            pr, pi = product(fr, fi)
-            yr, yi = self.inv.apply_blocks(pr.to(self.inv.in_dtype),
-                                           pi.to(self.inv.in_dtype),
-                                           pass_fn=pass_fn)
+            fwd = self.pair.fwd
+            blk = lambda b: b.reshape((-1,) + fwd.block_in_shape).to(
+                fwd.in_dtype).contiguous()
+            yr, yi = self.pair.apply_blocks(blk(br), blk(bi), pass_fn,
+                                            product_fn)
         else:
             fr, fi = self.fwd(br, bi)
-            yr, yi = self.inv(*product(fr, fi))
+            yr, yi = self.inv(*product_step(
+                self, fr, fi, self.hr, self.hi, spec.product_shift,
+                spec.product_width, spec.spectrum_width, self.out_dtype,
+                product_fn))
         return cut(yr), cut(yi)
 
     def forward(self, x_re, x_im, pass_fn=None, product_fn=None):
         """Integer [..., T] (tensors or arrays) -> (y_re, y_im) [..., T] on
         this module's device.  On the card the four-step engine's passes
-        go out as its plans' prepared chains and the product as a
-        ``PreparedProduct`` (prepared at the first call with a shape);
-        ``pass_fn`` and ``product_fn`` run them one call each instead
-        (``fused_pass``, ``spectrum_product``), and
-        ``pass_fn=fused_pass_reference`` with
-        ``product_fn=spectrum_product_reference`` the plain versions on any
-        device."""
-        dev = self.hr.device
+        go out as its plans' prepared chains and the product as P1's
+        prepared launch (prepared at the first call with a shape);
+        ``pass_fn`` and ``product_fn`` run them one call each instead, as
+        ``FFTPairPlan.apply_blocks`` takes them (the single-pass engines
+        take ``product_fn`` only)."""
+        dev = (self.pair if self.large else self).hr.device
         xr = torch.as_tensor(x_re).to(device=dev, dtype=torch.int32)
         xi = torch.as_tensor(x_im).to(device=dev, dtype=torch.int32)
         t, lpay = xr.shape[-1], self.spec.payload
@@ -225,14 +205,10 @@ class OverlapSaveConv(PreparedPlan):
         not with a ``mesh`` (its halo exchange is a collective).  Its
         outputs are static: each call overwrites the previous call's
         outputs of the same key (see ``CapturedCall``).  A ``retune`` of
-        either plan and ``.to()`` drop its graphs."""
+        either transform's plan and ``.to()`` drop its graphs."""
         from ..runtime.graph import captured
 
         if self.mesh is not None:
             raise NotImplementedError("a convolution over a mesh exchanges "
                                       "halos between calls: no capture")
-        call = self._track(captured(self))
-        for plan in (self.fwd, self.inv):
-            if isinstance(plan, PreparedPlan):
-                plan._track(call)
-        return call
+        return self._track(captured(self))

@@ -337,7 +337,8 @@ def paths(dev) -> list[Path]:
     conv = OverlapSaveConv(spec, taps, np.zeros_like(taps), device=dev)
     t = spec.payload * 64
     out.append(Path(
-        "config 4 overlap-save, T = 64 payloads", [conv.fwd, conv.inv],
+        "config 4 overlap-save, T = 64 payloads",
+        [conv.pair.fwd, conv.pair.inv],
         conv, lambda u, v: conv(u, v, pass_fn=fused_pass_reference,
                                 product_fn=spectrum_product_reference),
         _data((t,), torch.int32, 14, 28, dev), 20,

@@ -3,6 +3,8 @@ the JAX OverlapSaveConv (its Pallas engines in interpret mode) and against
 golden overlap_save_int: the same numpy-seeded taps and signal, exactly
 (tolerance 0).  Each side is handed its own ConvSpec class."""
 
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, fused_pass,
                                               fused_pass_reference)
 from intfftk_tpu_torch.ops.intmath import (spectrum_product,
                                            spectrum_product_reference)
+from intfftk_tpu_torch.ops.pair import FFTPairPlan
 from intfftk_tpu_torch.ops.single_pass import FusedAxisFFT
 from intfftk_tpu_torch.ops.transform import FFTPlan
 from intfftk_tpu_torch.parallel import OverlapSaveConv
@@ -87,13 +90,15 @@ def test_conv_four_step_engine_wide():
     x = _signal((spec.payload * 2,), 16)
     port = _check(spec, h, x, jax_kw=dict(mesh=None, interpret=True),
                   dtype=torch.int64)
-    assert port.wide and port.large
-    assert isinstance(port.fwd, LargeFFTPlan) and port.fwd.order == "raw"
-    assert (port.fwd.in_dtype, port.fwd.out_dtype, port.inv.in_dtype,
-            port.inv.out_dtype) == (torch.int32, torch.int32, torch.int64,
-                                    torch.int64)
-    assert port.inv.block_in_shape == port.fwd.block_out_shape == (128, 128)
-    assert tuple(port.hr.shape) == (128, 128) and port.hr.dtype == torch.int32
+    assert port.wide and port.large and isinstance(port.pair, FFTPairPlan)
+    fwd, inv = port.pair.fwd, port.pair.inv
+    assert isinstance(fwd, LargeFFTPlan) and fwd.order == "raw"
+    assert (fwd.in_dtype, fwd.out_dtype, inv.in_dtype, inv.out_dtype) == (
+        torch.int32, torch.int32, torch.int64, torch.int64)
+    assert inv.block_in_shape == fwd.block_out_shape == (128, 128)
+    assert inv.cfg == conv_spec_from_jax(spec).ifft_cfg
+    hr = port.pair.hr
+    assert tuple(hr.shape) == (128, 128) and hr.dtype == torch.int32
     # the plain version of the four-step engine gives the same bits
     before = fused_pass.launches, spectrum_product.launches
     pr, pi = port(*x, pass_fn=fused_pass_reference,
@@ -112,6 +117,35 @@ def test_conv_four_step_engine_narrow():
     x = _signal((2, spec.payload * 2), 16)
     port = _check(spec, h, x, jax_kw=dict(interpret=True))
     assert port.large and not port.wide
+    assert port.pair.inv.cfg == conv_spec_from_jax(spec).ifft_cfg
+
+
+def test_conv_frees_its_blocks_before_the_inverse(monkeypatch):
+    """The windows cast to the forward's blocks are garbage once the
+    forward has read them: nothing holds them while P1 and the inverse
+    allocate (on the card, a graph's pool reuses their memory)."""
+    spec = make_conv_spec(n=4096, taps_len=129, factors=(64, 64))
+    h = _taps(129, 16)
+    port = OverlapSaveConv(conv_spec_from_jax(spec), *h, device="cpu")
+    blocks, alive = [], []
+    fwd, inv = port.pair.fwd.apply_blocks, port.pair.inv.apply_blocks
+
+    def forward(xr, xi, pass_fn=None):
+        blocks.extend(weakref.ref(x) for x in (xr, xi))
+        return fwd(xr, xi, pass_fn=pass_fn)
+
+    def inverse(xr, xi, pass_fn=None):
+        alive.extend(b() is not None for b in blocks)
+        return inv(xr, xi, pass_fn=pass_fn)
+
+    monkeypatch.setattr(port.pair.fwd, "apply_blocks", forward)
+    monkeypatch.setattr(port.pair.inv, "apply_blocks", inverse)
+    x = _signal((2 * spec.payload,), 16)
+    yr, yi = port(*x)
+    assert alive == [False, False]
+    gr, gi = overlap_save_int(*x, *h, spec)
+    np.testing.assert_array_equal(yr.numpy(), gr)
+    np.testing.assert_array_equal(yi.numpy(), gi)
 
 
 def test_conv_errors():

@@ -496,7 +496,7 @@ def test_conv4_inverse_passes_both_forms_on_card(dev, monkeypatch):
     from intfftk_tpu_torch.ops.fused_fft import PreparedChain
 
     _, _, conv = _conv4(dev)
-    inv = conv.inv
+    inv = conv.pair.inv
     xr, xi = _stimulus((3,) + inv.block_in_shape, 44, seed=44)
     x = [torch.as_tensor(v, dtype=torch.int64, device=dev) for v in (xr, xi)]
     key = (x[0].shape, x[0].dtype, x[0].device)
@@ -754,7 +754,7 @@ def test_product_form_registers_on_card(dev, case):
 
     if case == "conv4_inverse":
         _, _, conv = _conv4(dev)
-        g, size, inverse = conv.inv.pass_geometry[0], 8, 1
+        g, size, inverse = conv.pair.inv.pass_geometry[0], 8, 1
     else:
         plan = LargeFFTPlan(FFTConfig(n=1 << 16, mode="scaled",
                                       rounding="round", data_width=16,

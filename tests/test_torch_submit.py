@@ -18,7 +18,7 @@ import torch
 from intfftk_tpu_torch.config import FFTConfig
 from intfftk_tpu_torch.golden import make_conv_spec
 from intfftk_tpu_torch.ops import _build
-from intfftk_tpu_torch.ops import fused_fft, intmath, single_pass
+from intfftk_tpu_torch.ops import fused_fft, intmath, pair, single_pass
 from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, PreparedChain,
                                               fused_pass, products_note)
 from intfftk_tpu_torch.ops.intmath import PreparedProduct, spectrum_product
@@ -104,7 +104,7 @@ def lib(monkeypatch):
     """The stub library, with the launch path taken on CPU tensors."""
     stub = StubLibrary()
     monkeypatch.setattr(_build, "library", lambda threads=None: stub)
-    for mod in (fused_fft, single_pass, intmath, convolve):
+    for mod in (fused_fft, single_pass, intmath, pair, convolve):
         monkeypatch.setattr(mod, "use_kernel", lambda device: True)
     for mod in (fused_fft, intmath):
         monkeypatch.setattr(mod, "stream_handle", lambda device: 0)
@@ -320,6 +320,25 @@ def test_to_invalidates(lib):
     assert not plan._prepared and not call._graphs
 
 
+def test_track_reaches_nested_plans():
+    """A call tracked on a convolution is reset by a retune of a plan
+    inside its pair, and by a .to() of the pair alone."""
+    class Call:
+        resets = 0
+
+        def reset(self):
+            self.resets += 1
+
+    spec = make_conv_spec(n=4096, taps_len=129, factors=(64, 64))
+    conv = OverlapSaveConv(spec, np.ones(129, np.int64),
+                           np.zeros(129, np.int64), device="cpu")
+    call = conv._track(Call())
+    conv.pair.inv.retune(TUNINGS["default"])
+    assert call.resets == 1
+    conv.pair.to("cpu")             # the pair and both of its plans
+    assert call.resets > 1
+
+
 def test_chain_error_raises(lib):
     """A launch error from the C entry raises; the launches made before it
     are counted, none of the failed one."""
@@ -350,9 +369,9 @@ def test_conv_prepared_product(lib):
     products = [c for c in lib.launched if c[0] == "product"]
     assert len(products) == 2 and products[0][1] == products[1][1]
     assert sum(isinstance(v, PreparedProduct)
-               for v in conv._prepared.values()) == 1
-    fr = torch.zeros((2,) + conv.fwd.block_out_shape, dtype=torch.int32)
-    spectrum_product(fr, fr, conv.hr, conv.hi, spec.product_shift,
+               for v in conv.pair._prepared.values()) == 1
+    fr = torch.zeros((2,) + conv.pair.fwd.block_out_shape, dtype=torch.int32)
+    spectrum_product(fr, fr, conv.pair.hr, conv.pair.hi, spec.product_shift,
                      spec.product_width, spec.spectrum_width, conv.out_dtype)
     assert lib.launched[-1][1] == products[0][1]
     assert lib.launched[-1][2][2:4] == products[0][2][2:4]
@@ -383,12 +402,12 @@ def test_conv_product_forms_reach_the_c_entries(lib, product_width,
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
     assert notes == ["product int32 2 mod32 0 mod64 0 int128 0",
                      "p1 long long", products_note((inverse_form,) * 2)]
-    chains = [v for v in conv.inv._prepared.values()]
+    chains = [v for v in conv.pair.inv._prepared.values()]
     assert len(chains) == 1 and chains[0].products == (inverse_form,) * 2
     assert [p.product for p in chains[0].passes] == [inverse_form] * 2
     lib.launched.clear()
-    yr, _ = conv.inv.apply_blocks(
-        *(torch.zeros((2,) + conv.inv.block_in_shape, dtype=torch.int64)
+    yr, _ = conv.pair.inv.apply_blocks(
+        *(torch.zeros((2,) + conv.pair.inv.block_in_shape, dtype=torch.int64)
           for _ in range(2)), pass_fn=fused_pass)
     assert [ints[20] for _, ints, _ in lib.launched] == [flag, flag]
 

@@ -157,8 +157,8 @@ def test_convolution_build_nests_its_plans():
     spec = make_conv_spec(n=8192, taps_len=1025)
     with trace.recording() as rec:
         OverlapSaveConv(spec, np.ones(1025), np.zeros(1025), device="cpu")
-    assert _names(rec) == ["plan.build"] * 3
-    assert [s.parent for s in rec.spans] == [-1, 0, 0]
+    assert _names(rec) == ["plan.build"] * 4
+    assert [s.parent for s in rec.spans] == [-1, 0, 1, 1]
     outer = rec.spans[0]
     assert all(outer.start_ns <= s.start_ns <= s.end_ns <= outer.end_ns
                for s in rec.spans[1:])
