@@ -113,17 +113,18 @@
 // An int64 tile holds twice the bytes: TC halves from m = 512 on (TC = 2 at
 // m = 4096, 192 KiB, under the budget of one CTA per SM), and it takes
 // neither the in-kernel synthesis nor the 2-D stage tables (the JAX package
-// has no wide form of either).  Its complex products are exact in __int128,
-// emulated in 32-bit instructions, and the int32 tile's in 64 bits, unless
-// every product of the pass keeps bits that fit the tile's word (the
-// widest wrap w plus the shift s at most 64, or 32; product_fits below):
-// then the pass takes the kernel that forms them modulo 2^64, or 2^32
-// (kMod), whose bits are the same; on the int32 tile that kernel folds the
-// left shift of each product into the twiddle (intfft_arith.cuh), so a sum
-// costs two 32-bit multiplies and one shift.  Which form a pass takes is
-// the host's choice (ops/fused_fft.product_form), made from the widths the
-// plan knows and checked here; it is a template parameter, not a run-time
-// branch, and no user sets it.
+// has no wide form of either).  Its complex products are exact in two
+// 32-bit limbs a datum (Limbs64: four int32 x int32 -> int64 multiplies a
+// sum, no __int128; a floor shift of at most 32), and the int32 tile's in
+// 64 bits, unless every product of the pass keeps bits that fit the tile's
+// word (the widest wrap w plus the shift s at most 64, or 32;
+// product_fits below): then the pass takes the kernel that forms them
+// modulo 2^64, or 2^32 (kMod), whose bits are the same; on the int32 tile
+// that kernel folds the left shift of each product into the twiddle
+// (intfft_arith.cuh), so a sum costs two 32-bit multiplies and one shift.
+// Which form a pass takes is the host's choice (ops/fused_fft.product_form),
+// made from the widths the plan knows and checked here; it is a template
+// parameter, not a run-time branch, and no user sets it.
 //
 // The batch is the grid's y dimension, which holds at most 65 535 items: a
 // larger batch goes out as several launches of that many items each, on
@@ -343,7 +344,8 @@ PassPtrs pass_ptrs(void* const* v) {
 // per CTA, one of the counts this library was compiled for (the tuning
 // row's, ops/tuning.py, or a sweep's variant, ops/_build.py); the tile of
 // tc columns must fit the card's shared memory per CTA.  product: the form
-// of the complex products, 0 exact (every pass can take it), 1 modulo the
+// of the complex products, 0 exact (every pass can take it; on the int64
+// tile, the limbs, at a twiddle shift of 0 .. kLimbMaxShift), 1 modulo the
 // tile's word, 2^32 or 2^64 (where product_fits holds).  What does not is
 // refused with cudaErrorInvalidValue, never clamped.
 
@@ -357,8 +359,9 @@ extern "C" int intfft_prepared_size() {
 // give (1 w, 2 t2, 4 e, 8 c).  report[0..3]: TC, threads per CTA, the
 // dynamic shared memory of a CTA in bytes and the CTAs along the columns.
 // product 1 asks for the modular form, refused where product_fits does not
-// hold for the tile's word.  Returns a cudaError_t; `desc` is usable only
-// when it is 0.
+// hold for the tile's word; product 0 on the int64 tile, the limbs, is
+// refused at a twiddle shift outside 0 .. kLimbMaxShift.  Returns a
+// cudaError_t; `desc` is usable only when it is 0.
 extern "C" int intfft_prepare_pass(
     int batch, int rows, int cols, int in_size, int out_size, int data_width,
     int scale, int round, int tw_shift, int bypass, int inverse, int natural,
@@ -382,6 +385,7 @@ extern "C" int intfft_prepare_pass(
       ((tables & kTableE) != 0 && synth) || (wide && (two_d || synth)) ||
       (synth && !synth_ok(syn, rows, cols)) || device < 0 ||
       device >= kMaxDevices || product < 0 || product > 1 ||
+      (wide && !product && (tw_shift < 0 || tw_shift > kLimbMaxShift)) ||
       (product && !product_fits(log_rows, data_width, scale, tw_shift,
                                 bypass, inverse, two_d,
                                 (tables & (kTableE | kTableC)) != 0,

@@ -112,9 +112,10 @@ inline size_t pass_smem(int rows, int tc, int word, bool synth) {
 // where every product keeps bits that fit the word (on the int64 tile
 // config 4's inverse, config 2's forward, the 24-bit path's widening pass;
 // on the int32 tile the core's scaled 16-bit passes), the exact one
-// elsewhere (config 2's inverse, the convolution's unscaled forward); at
-// 128 registers the exact int64 inverse spills 16 bytes, the modular one
-// none at 256 and 512 threads (8 at 128).
+// elsewhere (config 2's inverse, the convolution's unscaled forward).  On
+// the int64 tile the exact inverse, in limbs, takes 114 registers and
+// spills nothing, the modular one 127 and none at 256 and 512 threads (8
+// bytes at 128).
 // Where shared memory lets an SM hold fewer CTAs (from m = 1024 up), the
 // tile budget of the tuning row decides, at run time.
 template <typename V, bool kInverse, int kT>
@@ -178,8 +179,8 @@ struct PassCtx {
 // memory (to_y: out[b, k, col], the forward's natural order an index on k)
 // or to the tile.  The last group multiplies its registers by the
 // inter-factor twiddle of the stored row first.  A thread whose column lies
-// past p.cols loads zeros and stores nothing to device memory.  P: the type
-// of every complex product's sums, the stages' and the epilogue's (cmult).
+// past p.cols loads zeros and stores nothing to device memory.  P: the form
+// of every complex product, the stages' and the epilogue's (cmult).
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
           int kT, int R, int kLo, typename P>
 __device__ __forceinline__ void run_group(const PassCtx<Tin, Tout, V>& k,

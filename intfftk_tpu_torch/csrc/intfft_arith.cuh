@@ -8,10 +8,11 @@
 // stage's output width with a shift pair, so the result equals the golden
 // model's arithmetic followed by its wrap.  A complex product's sums are
 // floor-shifted by sh and wrapped to w bits, so only their bits sh .. sh +
-// w - 1 are kept.  They are formed exactly (64-bit on the int32 tile,
-// __int128 on the int64 tile: a 52-bit datum times a 27-bit twiddle,
-// summed, is 80 bits), or, where every product of a pass keeps bits that
-// fit the tile's word (sh + w <= 32, or 64), modulo 2^32 in uint32 or
+// w - 1 are kept.  They are formed exactly (64-bit on the int32 tile; on the
+// int64 tile a 52-bit datum times a 27-bit twiddle, summed, is 80 bits:
+// __int128, or in the factor pass two 32-bit limbs a datum, Limbs64, the
+// same bits in 64-bit words), or, where every product of a pass keeps bits
+// that fit the tile's word (sh + w <= 32, or 64), modulo 2^32 in uint32 or
 // modulo 2^64 in uint64: the same bits (ProductOf; the factor pass takes
 // the form per pass).  On the int32 tile the modular form folds its left
 // shift into the twiddle (fold_factor, cmult_folded).
@@ -26,28 +27,39 @@
 
 namespace {
 
+// The int64 tile's exact complex product in two 32-bit limbs a datum
+// (cmult's arm for P = Limbs64, limb_sum): the bits of the __int128 form,
+// every product an int32 x int32 -> int64 multiply.  It takes a floor shift
+// of at most kLimbMaxShift, so that 2^sh divides 2^32; twiddles are at most
+// 27 bits (shift 25), and intfft_prepare_pass refuses a larger shift.
+struct Limbs64 {};
+constexpr int kLimbMaxShift = 32;
+
 // The arithmetic types of a tile type V: its unsigned twin U, in which
-// sums wrap, and the product type P, which holds a complex product-sum of
-// a V datum and an int32 twiddle exactly.
+// sums wrap; the product type P, which holds a complex product-sum of a V
+// datum and an int32 twiddle exactly; and E, the factor pass's exact form
+// (P itself, or on the int64 tile the limbs).
 template <typename V>
 struct Arith;
 template <>
 struct Arith<int32_t> {
   using U = uint32_t;
   using P = long long;           // |data| < 2^31, |twiddle| < 2^26
+  using E = P;
 };
 template <>
 struct Arith<int64_t> {
   using U = uint64_t;
   using P = __int128;            // |data| < 2^63, |twiddle| < 2^26
+  using E = Limbs64;
 };
 
-// The type a pass forms its complex product-sums in: exact (Arith<V>::P),
+// The form a pass forms its complex product-sums in: exact (Arith<V>::E),
 // or with kMod the tile's unsigned word U, modulo 2^32 or 2^64, where every
 // product of the pass keeps bits that fit the word.
 template <typename V, bool kMod>
 using ProductOf =
-    std::conditional_t<kMod, typename Arith<V>::U, typename Arith<V>::P>;
+    std::conditional_t<kMod, typename Arith<V>::U, typename Arith<V>::E>;
 
 // Low w bits of v as a signed w-bit value, 1 <= w <= the bits of V.
 template <typename V>
@@ -65,10 +77,52 @@ __device__ __forceinline__ V neg_guarded(V x) {
                         static_cast<U>(x));
 }
 
-// (br + j*bi) * (c + j*d) >> sh, wrapped to w bits.  P is the type the
+// The low and high words of x, from an opaque move: read as x >> 32, the
+// high word's int32 x int32 product is folded back into a 64 x 64-bit
+// multiply (IMAD.WIDE.U32 and the sign words' IMADs).
+__device__ __forceinline__ void words(int64_t x, int32_t& lo, int32_t& hi) {
+  asm("mov.b64 {%0, %1}, %2;" : "=r"(lo), "=r"(hi) : "l"(x));
+}
+
+// floor((x0 c0 + x1 c1) / 2^sh) modulo 2^64, exactly, for any int64 data
+// x0, x1, factors |c0|, |c1| <= 2^26 and 0 <= sh <= kLimbMaxShift (the
+// caller's to hold), in 64-bit words.  A datum is x = h 2^32 + l, h its high
+// word (signed) and l its low word, which read signed is l - 2^32 t, t its
+// top bit.  So the sum is H 2^32 + L with H = h0 c0 + h1 c1 and L = l0 c0 +
+// l1 c1 + 2^32 (t0 c0 + t1 c1), the low words signed: four int32 x int32
+// -> int64 products (IMAD.WIDE), |H| <= 2^58 and |L| < 2^59, the carries
+// t c added to L's high word modulo 2^32 (two IMADs).  2^sh divides 2^32,
+// so the floor shift is exact on the two parts: H 2^(32 - sh) + (L >> sh).
+// (The balanced split, l in [-2^31, 2^31) and h = hi + t, saves the carries
+// but its h does not fit 32 bits from x = 2^63 - 2^31 up.)
+__device__ __forceinline__ uint64_t limb_sum(int64_t x0, int32_t c0,
+                                             int64_t x1, int32_t c1, int sh) {
+  int32_t l0, h0, l1, h1;
+  words(x0, l0, h0);
+  words(x1, l1, h1);
+  const uint32_t t0 = static_cast<uint32_t>(l0) >> 31;
+  const uint32_t t1 = static_cast<uint32_t>(l1) >> 31;
+  const int64_t H = static_cast<int64_t>(h0) * c0 +
+                    static_cast<int64_t>(h1) * c1;
+  int64_t L = static_cast<int64_t>(l0) * c0 + static_cast<int64_t>(l1) * c1;
+  asm("{\n\t"
+      ".reg .u32 lo, hi;\n\t"
+      "mov.b64 {lo, hi}, %0;\n\t"
+      "mad.lo.u32 hi, %1, %2, hi;\n\t"
+      "mad.lo.u32 hi, %3, %4, hi;\n\t"
+      "mov.b64 %0, {lo, hi};\n\t"
+      "}"
+      : "+l"(L)
+      : "r"(t0), "r"(c0), "r"(t1), "r"(c1));
+  return (static_cast<uint64_t>(H) << (32 - sh)) +
+         static_cast<uint64_t>(L >> sh);
+}
+
+// (br + j*bi) * (c + j*d) >> sh, wrapped to w bits.  P is the form the
 // product-sums are formed in: the tile's exact product type unless the
 // caller knows a narrower one holds them (the spectrum product: a 32-bit
-// datum on the int64 register), or the tile's unsigned word U, in which
+// datum on the int64 register); on the int64 tile the limbs (Limbs64,
+// limb_sum), exact in 64-bit words; or the tile's unsigned word U, in which
 // they are formed modulo its 2^bits.  The wrap reads bits sh .. sh + w - 1
 // of each product-sum, which the word holds exactly where sh + w <= bits:
 // the caller's to hold (intfft_prepare_pass refuses a pass that breaks
@@ -79,15 +133,21 @@ template <typename V, typename P = typename Arith<V>::P>
 __device__ __forceinline__ void cmult(V br, V bi, int32_t c, int32_t d,
                                       int sh, int w, V& yr, V& yi) {
   using U = typename Arith<V>::U;
-  const P pr = static_cast<P>(br) * c - static_cast<P>(bi) * d;
-  const P pi = static_cast<P>(bi) * c + static_cast<P>(br) * d;
-  if constexpr (std::is_same_v<P, U>) {
-    constexpr int bits = 8 * static_cast<int>(sizeof(V));
-    yr = static_cast<V>(pr << (bits - w - sh)) >> (bits - w);
-    yi = static_cast<V>(pi << (bits - w - sh)) >> (bits - w);
+  if constexpr (std::is_same_v<P, Limbs64>) {
+    static_assert(sizeof(V) == 8, "the limbs are the int64 tile's form");
+    yr = wrap<V>(limb_sum(br, c, bi, -d, sh), w);
+    yi = wrap<V>(limb_sum(bi, c, br, d, sh), w);
   } else {
-    yr = wrap<V>(static_cast<U>(pr >> sh), w);
-    yi = wrap<V>(static_cast<U>(pi >> sh), w);
+    const P pr = static_cast<P>(br) * c - static_cast<P>(bi) * d;
+    const P pi = static_cast<P>(bi) * c + static_cast<P>(br) * d;
+    if constexpr (std::is_same_v<P, U>) {
+      constexpr int bits = 8 * static_cast<int>(sizeof(V));
+      yr = static_cast<V>(pr << (bits - w - sh)) >> (bits - w);
+      yi = static_cast<V>(pi << (bits - w - sh)) >> (bits - w);
+    } else {
+      yr = wrap<V>(static_cast<U>(pr >> sh), w);
+      yi = wrap<V>(static_cast<U>(pi >> sh), w);
+    }
   }
 }
 

@@ -173,10 +173,12 @@ __device__ __forceinline__ void stage_body(
 // its kernels then take all 128 registers a thread of two CTAs per SM, and
 // still ran the [4096, 1024] int64 transform 2 % faster on an H100 than
 // with groups of two (the probe's group64_3_* against group64_2_* steps
-// read the same way).  The inverse with exact (__int128) products spills 16
-// bytes at every thread count; with products modulo 2^64 (ProductOf, the
-// form config 4's inverse takes) it spills none at 256 and 512 threads and
-// 8 bytes at 128 (ptxas of CUDA 12.8).
+// read the same way).  The inverse with exact products in limbs (ProductOf,
+// the form config 2's inverse takes) takes 114 registers at 256 and 512
+// threads and 115 at 128, and spills nothing (in __int128 it spilled 16
+// bytes at every count); with products modulo 2^64 (config 4's inverse) it
+// takes 127 and spills none at 256 and 512 threads and 8 bytes at 128
+// (ptxas of CUDA 12.8).
 template <typename V>
 struct GroupSize {
   static constexpr int R = 3;

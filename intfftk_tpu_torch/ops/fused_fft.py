@@ -194,7 +194,7 @@ def _check_pass(shape, dtype, dev, cfg: FFTConfig, tables, epi, synth,
 
 
 #: The forms of a pass's complex products (``product_form``).
-PRODUCT_FORMS = ("int32", "mod32", "mod64", "int128")
+PRODUCT_FORMS = ("int32", "mod32", "mod64", "limb64", "int128")
 
 
 def product_form(cfg: FFTConfig, out_dtype: torch.dtype, inverse: bool,
@@ -202,7 +202,8 @@ def product_form(cfg: FFTConfig, out_dtype: torch.dtype, inverse: bool,
     """The form a pass forms its complex product-sums in.  On the int32
     tile: ``"mod32"`` where every product keeps bits that fit in 32, else
     ``"int32"`` (exact in 64 bits); on the int64 tile (``out_dtype``
-    int64): ``"mod64"`` where they fit in 64, else ``"int128"`` (exact).  A
+    int64): ``"mod64"`` where they fit in 64, else ``"limb64"`` (exact, in
+    two 32-bit limbs a datum; ``"int128"`` is the whole form's).  A
     product is floor-shifted by ``cfg.twiddle_shift`` and wrapped to w
     bits, so it keeps its bits twiddle_shift .. twiddle_shift + w - 1, the
     same modulo the word where they fit.  Stage j enters at ``data_width +
@@ -228,7 +229,7 @@ def product_form(cfg: FFTConfig, out_dtype: torch.dtype, inverse: bool,
     fits = max(widths, default=0) + cfg.twiddle_shift <= bits
     if bits == 32:
         return "mod32" if fits else "int32"
-    return "mod64" if fits else "int128"
+    return "mod64" if fits else "limb64"
 
 
 def modular(form: str) -> bool:
@@ -556,7 +557,7 @@ def products_note(products) -> str:
     """What a ``plan.prepare`` span notes of a chain whose passes form
     their complex products as ``products``: each form of
     ``PRODUCT_FORMS`` and how many passes take it, e.g. "product int32 0
-    mod32 2 mod64 0 int128 0"."""
+    mod32 2 mod64 0 limb64 0 int128 0"."""
     return "product " + " ".join(f"{f} {list(products).count(f)}"
                                  for f in PRODUCT_FORMS)
 

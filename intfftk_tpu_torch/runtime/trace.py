@@ -33,7 +33,8 @@ The spans, by name:
   of its passes form their complex products in each form of
   ``fused_fft.PRODUCT_FORMS``: exact on the int32 tile ("int32"), modulo
   2^32 there ("mod32"), modulo 2^64 on the int64 tile ("mod64") or exact
-  there ("int128"), e.g. "product int32 0 mod32 2 mod64 0 int128 0" for
+  there, in 32-bit limbs ("limb64") or in the whole form's __int128
+  ("int128"), e.g. "product int32 0 mod32 2 mod64 0 limb64 0 int128 0" for
   the core's 64k chain (``fused_fft.products_note``); a product's the
   form of its product-sums, "p1 long long" or "p1 int128";
 * ``library.load``: the kernel library's first load for a thread count,

@@ -684,7 +684,7 @@ def main(argv=None) -> int:
                         for k, v in audit_headline(sass).items()},
            "int64_inverse_static": {
                form: summarize(audit_pass_static(True, sass, True, mod))
-               for form, mod in (("int128", False), ("mod64", True))},
+               for form, mod in (("limb64", False), ("mod64", True))},
            "int32_static": {
                f"{d} {form}": summarize(audit_pass_static(False, sass, inv,
                                                           mod))

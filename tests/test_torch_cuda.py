@@ -460,11 +460,11 @@ def test_wide_pass_vs_plain(dev, mode, rounding, r, c, nb, wide_in, inverse,
 # ------------------------------------ each tile's two forms of the product
 
 #: The exact form of each tile's modular form.
-EXACT = {"mod32": "int32", "mod64": "int128"}
+EXACT = {"mod32": "int32", "mod64": "limb64"}
 
 
 def _forced(monkeypatch):
-    """Every pass takes its tile's exact form ("int32", "int128") from
+    """Every pass takes its tile's exact form ("int32", "limb64") from
     here on, where the rule would give it the modular one: the rule as the
     launch paths read it, replaced."""
     from intfftk_tpu_torch.ops import fused_fft
@@ -492,7 +492,7 @@ def test_conv4_inverse_passes_both_forms_on_card(dev, monkeypatch):
     """Config 4's inverse (scaled 44-bit, 16-bit twiddles: 59 bits kept)
     on full-scale adversarial 44-bit spectra: the chain takes the modular
     form in both passes, per pass equal to the plain version, and equal to
-    the same passes forced to the exact __int128 form."""
+    the same passes forced to the exact form, in limbs."""
     from intfftk_tpu_torch.ops.fused_fft import PreparedChain
 
     _, _, conv = _conv4(dev)
@@ -511,7 +511,7 @@ def test_conv4_inverse_passes_both_forms_on_card(dev, monkeypatch):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     _forced(monkeypatch)
     exact = PreparedChain(*key, inv.passes())
-    assert exact.products == ("int128", "int128")
+    assert exact.products == ("limb64", "limb64")
     ex = exact(*x)
     assert torch.equal(ex[0], got[0]) and torch.equal(ex[1], got[1])
 
@@ -533,8 +533,8 @@ def test_conv4_against_golden_on_card(dev, payloads):
         yr, yi = conv(*x)
     torch.cuda.synchronize()
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
-    assert "product int32 0 mod32 0 mod64 2 int128 0" in notes
-    assert "product int32 2 mod32 0 mod64 0 int128 0" in notes
+    assert "product int32 0 mod32 0 mod64 2 limb64 0 int128 0" in notes
+    assert "product int32 2 mod32 0 mod64 0 limb64 0 int128 0" in notes
     gr, gi = overlap_save_int(*x, *h, spec)
     assert yr.dtype == torch.int64
     np.testing.assert_array_equal(yr.cpu().numpy(), gr)
@@ -565,7 +565,7 @@ def test_config2_chain_both_forms_on_card(dev, monkeypatch):
     y = cf(*x)
     ci = PreparedChain(y[0].shape, y[0].dtype, y[0].device,
                        inv.passes())
-    assert ci.products == ("int128", "int128")
+    assert ci.products == ("limb64", "limb64")
     z = ci(*y)
     torch.cuda.synchronize()
     gr, gi = four_step_int(xr, xi, cfg, fwd.n1, fwd.n2)
@@ -579,9 +579,87 @@ def test_config2_chain_both_forms_on_card(dev, monkeypatch):
     np.testing.assert_array_equal(z[1].cpu().numpy().reshape(2, -1), hi)
     _forced(monkeypatch)
     ce = PreparedChain(*key, fwd.passes())
-    assert ce.products == ("int128", "int128")
+    assert ce.products == ("limb64", "limb64")
     e = ce(*x)
     assert torch.equal(e[0], y[0]) and torch.equal(e[1], y[1])
+
+
+def _limb_items(shape, w, seed):
+    """[B, R, C] w-bit items, B >= 3, that drive the exact int64 form to its
+    edges: item 0 at the top value in the first half of its rows and the
+    least in the second (imaginary the other way), item 1 the two by turns
+    row by row, so that the forward's and the inverse's first butterflies
+    meet (max, min) and the round mode's difference wraps; item 2 at the
+    top value throughout, whose sums reach the top of the output width;
+    the others uniform over the w bits."""
+    lo, hi = -(1 << (w - 1)), (1 << (w - 1)) - 1
+    xr, xi = _stimulus(shape, w, seed)
+    half = shape[1] // 2
+    xr[0, :half], xr[0, half:] = hi, lo
+    xi[0, :half], xi[0, half:] = lo, hi
+    xr[1, 0::2], xr[1, 1::2] = hi, lo
+    xi[1, 0::2], xi[1, 1::2] = lo, hi
+    xr[2], xi[2] = hi, hi
+    return xr, xi
+
+
+def test_config2_inverse_limb_passes_on_card(dev):
+    """Config 2's inverse (scaled, round-half-up, 48 bits, 20-bit twiddles:
+    shift 18, so 66 bits kept: the limbs in both passes) on full-scale
+    adversarial 48-bit items: each pass equal to the plain version, the
+    prepared chain equal to the passes."""
+    from intfftk_tpu_torch.ops.fused_fft import PreparedChain
+
+    cfg = FFTConfig(n=1 << 16, mode="unscaled", data_width=32,
+                    twiddle_width=20)
+    icfg = dataclasses.replace(cfg, mode="scaled", rounding="round",
+                               data_width=cfg.output_width)
+    inv = LargeFFTPlan(icfg, 256, 256, inverse=True, order="raw",
+                       device=dev)
+    xr, xi = _limb_items((4,) + inv.block_in_shape, 48, seed=48)
+    x = [torch.as_tensor(v, dtype=torch.int64, device=dev) for v in (xr, xi)]
+    chain = PreparedChain(x[0].shape, x[0].dtype, x[0].device, inv.passes())
+    assert chain.products == ("limb64", "limb64")
+    got = chain(*x)
+    want = x
+    for c, kw in inv.passes():
+        one = fused_pass(*want, c, **kw)
+        want = fused_pass_reference(*want, c, **kw)
+        assert torch.equal(one[0], want[0]) and torch.equal(one[1], want[1])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_limb_pass_at_64_bits_on_card(dev, inverse):
+    """The exact int64 form at the widest a pass takes: 4096 rows unscaled
+    from 52 bits (the widest data) with 27-bit twiddles (the largest
+    shift, 25) and the epilogue, which wraps to 64 bits.  Item 2's first
+    row, which the epilogue multiplies, passes 2^62: forward its sum, 4096
+    (2^51 - 1) = 2^63 - 4096, a datum whose low word has its top bit set
+    under a high word of 2^31 - 1; inverse a little less (each stage
+    multiplies it by conj W^0 = (2^25 - 1) / 2^25).  Equal to the plain
+    version."""
+    from intfftk_tpu_torch.ops.fused_fft import PreparedChain
+
+    r, c = 4096, 6
+    cfg = FFTConfig(n=r, mode="unscaled", data_width=52, twiddle_width=27)
+    assert (cfg.output_width, cfg.twiddle_shift) == (64, 25)
+    tables = tuple(torch.as_tensor(t, device=dev) for t in pack_tables(cfg))
+    e = tuple(torch.as_tensor(t, device=dev) for t in circle_table(
+        dataclasses.replace(cfg, n=r * 64), r, c, inverse, "natural"))
+    xr, xi = _limb_items((4, r, c), 52, seed=64)
+    x = [torch.as_tensor(v, dtype=torch.int64, device=dev) for v in (xr, xi)]
+    top = fused_pass_reference(*x, cfg, tables, transpose_out=False,
+                               inverse=inverse, out_dtype=torch.int64)
+    assert (top[0][2, 0] > 1 << 62).all()
+    assert inverse or (top[0][2, 0] == (1 << 63) - r).all()
+    kw = dict(tables=tables, epi=e, transpose_out=True, inverse=inverse,
+              out_dtype=torch.int64)
+    chain = PreparedChain(x[0].shape, x[0].dtype, x[0].device, [(cfg, kw)])
+    assert chain.products == ("limb64",)
+    got = chain(*x)
+    want = fused_pass_reference(*x, cfg, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _core_frames(batch):
@@ -639,8 +717,9 @@ def test_core_chain_both_forms_on_card(dev, monkeypatch, inverse):
 
 
 @pytest.mark.parametrize("rounding", ["round", "truncate"])
-@pytest.mark.parametrize("dw,form", [(49, "mod64"), (50, "int128"),
-                                     (17, "mod32"), (18, "int32")])
+@pytest.mark.parametrize("dw,form", [(49, "mod64"), (50, "limb64"),
+                                     (17, "mod32"), (18, "int32")],
+                         ids=["49-mod64", "50-int128", "17-mod32", "18-int32"])
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 def test_pass_at_the_bound_on_card(dev, dw, form, inverse, rounding):
     """A pass of 256 rows, scaled at dw bits with 16-bit twiddles and the
@@ -739,15 +818,47 @@ def test_prepare_refuses_modular_past_the_bound(dev):
         1, 1 | 4, device, desc, report) == 1
 
 
+@pytest.mark.parametrize("out_size", [8, 4], ids=["int64", "int32"])
+def test_prepare_refuses_limbs_past_their_shift(dev, out_size):
+    """The int64 tile's exact form, the limbs, takes a twiddle shift of 0
+    to 32 (2^s divides 2^32); intfft_prepare_pass refuses 33 and a
+    negative shift (cudaErrorInvalidValue, nothing clamped).  The int32
+    tile's exact form, whose product-sums are one 64-bit word, is not held
+    to that limit."""
+    import ctypes
+
+    from intfftk_tpu_torch.ops import _build
+
+    lib = _build.library()
+    device = torch.cuda.current_device()
+    desc = (ctypes.c_uint64 * (lib.intfft_prepared_size() // 8))()
+    report = (ctypes.c_int * 4)()
+
+    def prepare(shift):
+        # [2, 256, 40] scaled at 8 bits, exact products, TC 16 of 256
+        # threads
+        return lib.intfft_prepare_pass(
+            2, 256, 40, out_size, out_size, 8, 1, 0, shift, 0, 1, 1, 0, 1,
+            0, 0, 0, 0, 16, 256, 0, 1 | 4, device, desc, report)
+
+    assert prepare(0) == 0 and prepare(25) == 0 and prepare(32) == 0
+    if out_size == 8:
+        assert prepare(33) == 1 and prepare(-1) == 1
+    else:
+        assert prepare(33) == 0
+
+
 @pytest.mark.parametrize("case", ["conv4_inverse", "core_fwd", "core_inv"])
 def test_product_form_registers_on_card(dev, case):
     """The two forms of a pass at its geometry, as the library reports
     them: config 4's inverse on the int64 tile, the core's 64k forward and
-    inverse passes on the int32 tile (int16 blocks, 256 rows): the modular
-    kernel takes no more registers and no more local memory than the exact
-    one, and the int32 forward, at its cap of 64 registers, no local memory
-    at all (the int32 inverse's 16-byte stack frame at 128 threads is both
-    forms')."""
+    inverse passes on the int32 tile (int16 blocks, 256 rows).  On the
+    int32 tile the modular kernel takes no more registers and no more local
+    memory than the exact one, and the forward, at its cap of 64
+    registers, no local memory at all (the inverse's 16-byte stack frame
+    at 128 threads is both forms'); on the int64 tile both forms, the
+    exact one in limbs, fit the cap of 128 registers with no local
+    memory."""
     import ctypes
 
     from intfftk_tpu_torch.ops import _build
@@ -769,7 +880,11 @@ def test_product_form_registers_on_card(dev, case):
             size, size, inverse, 0, 256, g["lane_tile"], g["threads"], 0,
             product, torch.cuda.current_device(), out) == 0
         read[product] = tuple(out)
-    assert read[1][0] <= read[0][0] and read[1][1] <= read[0][1], read
+    if case == "conv4_inverse":
+        assert max(read[0][0], read[1][0]) <= 128, read
+        assert read[0][1] == read[1][1] == 0, read
+    else:
+        assert read[1][0] <= read[0][0] and read[1][1] <= read[0][1], read
     if case == "core_fwd":
         assert read[1][1] == 0, read
 

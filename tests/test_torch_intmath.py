@@ -354,3 +354,70 @@ def test_cmult_mod32_wrong_past_the_word():
     a, c = -(1 << 17), (1 << 15) - 1
     assert _cmult_exact_int(a, 0, c, 0, s, w)[0] < 0
     assert word(a * c) >= 0
+
+
+def _as_int32(u):
+    u %= WORD32
+    return u - WORD32 if u >> 31 else u
+
+
+def _limb_sum(x0, c0, x1, c1, s):
+    """limb_sum (csrc/intfft_arith.cuh) as the kernel computes it, word by
+    word: each int64 datum's high word (signed) and low word read signed,
+    four int32 x int32 products summed modulo 2^64, the low words' top
+    bits times the factors added to L's high word modulo 2^32, then (H <<
+    (32 - s)) + (L >> s) modulo 2^64."""
+    h0, h1 = _as_int32(x0 >> 32), _as_int32(x1 >> 32)
+    l0, l1 = _as_int32(x0), _as_int32(x1)
+    t0, t1 = (x0 % WORD32) >> 31, (x1 % WORD32) >> 31
+    big = (h0 * c0 + h1 * c1) % WORD
+    low = (l0 * c0 + l1 * c1) % WORD
+    low = (low + (((t0 * c0 + t1 * c1) % WORD32) << 32)) % WORD
+    return ((big << (32 - s)) + (_as_int64(low) >> s)) % WORD
+
+
+def _cmult_limb64(br, bi, c, d, s, w):
+    """cmult's limb form (P = Limbs64): the two limb sums with the int32
+    twiddle -d and d, each wrapped to w bits by the shift pair of the
+    word."""
+    wrap = lambda u: _as_int64((u << (64 - w)) % WORD) >> (64 - w)
+    return (wrap(_limb_sum(br, c, bi, _as_int32(-d), s)),
+            wrap(_limb_sum(bi, c, br, d, s)))
+
+
+def _limb_cases(w, t, seed, n=1500):
+    """(br, bi, c, d): int64 data at their w-bit and 64-bit extremes and at
+    the low word's edges (its top bit set or clear under every high word,
+    2^63 - 2^31 among them) against twiddles of t bits at +-(2^(t-1) - 1)
+    and -2^(t-1), then random data of w and of 64 bits against random
+    twiddles."""
+    data = [-(1 << (w - 1)), (1 << (w - 1)) - 1, -(1 << 63), (1 << 63) - 1,
+            (1 << 63) - (1 << 31), (1 << 63) - (1 << 31) - 1, 1 << 31,
+            (1 << 31) - 1, -(1 << 31), -(1 << 31) - 1, -1, 0, 1]
+    tw = [(1 << (t - 1)) - 1, -((1 << (t - 1)) - 1), -(1 << (t - 1)), 0, 1,
+          -1]
+    out = [(a, b, c, d) for a in data for b in data for c in tw for d in tw]
+    rng = np.random.default_rng(seed)
+    for lim in (1 << (w - 1), 1 << 63):
+        a = rng.integers(-lim, lim, (n, 2), dtype=np.int64).tolist()
+        c = rng.integers(-(1 << (t - 1)), 1 << (t - 1), (n, 2)).tolist()
+        out += [(x, y, p, q) for (x, y), (p, q) in zip(a, c)]
+    return out
+
+
+@pytest.mark.parametrize("conj", [False, True], ids=["fwd", "inv_conj"])
+@pytest.mark.parametrize("t,s", [(16, 15), (20, 18), (27, 25)])
+@pytest.mark.parametrize("w", [48, 52, 63, 64])
+def test_cmult_limb64_equals_exact(w, t, s, conj):
+    """The int64 tile's exact form in 32-bit limbs gives wrap(floor(p /
+    2^s), w) of the exact product-sums for every int64 datum and every
+    twiddle of t bits, the most negative included, at every width a pass
+    wraps to (config 2's inverse at 48 bits with 20-bit twiddles, the
+    widest data's 52, up to the 64 of an unscaled 4096-row epilogue) and
+    every shift the twiddles give; the inverse multiplies by the conjugate
+    (d negated, -2^(t-1) becoming +2^(t-1))."""
+    for br, bi, c, d in _limb_cases(w, t, seed=w * 100 + s):
+        if conj:
+            d = -d
+        want = _cmult_exact_int(br, bi, c, d, s, w)
+        assert _cmult_limb64(br, bi, c, d, s, w) == want, (br, bi, c, d)

@@ -220,8 +220,9 @@ def lib(monkeypatch):
 def test_call_is_two_chains_and_one_product(lib):
     """The 64k plan of config 2: the forward chain (two modular passes),
     P1 on 48-bit data in __int128 writing int64, the inverse chain (two
-    exact passes); each reads what the one before wrote, with nothing in
-    between; prepared once, noted in the ``plan.prepare`` spans."""
+    exact passes, in limbs); each reads what the one before wrote, with
+    nothing in between; prepared once, noted in the ``plan.prepare``
+    spans."""
     n = 1 << 16
     plan = _plan(n, (256, 256))
     x = torch.zeros((2, 256, 256), dtype=torch.int32)
@@ -229,8 +230,9 @@ def test_call_is_two_chains_and_one_product(lib):
         plan(x, x)
         plan(x, x)
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
-    assert notes == ["product int32 0 mod32 0 mod64 2 int128 0", "p1 int128",
-                     "product int32 0 mod32 0 mod64 0 int128 2"]
+    assert notes == ["product int32 0 mod32 0 mod64 2 limb64 0 int128 0",
+                     "p1 int128",
+                     "product int32 0 mod32 0 mod64 0 limb64 2 int128 0"]
     kinds = [k for k, _, _ in lib.launched]
     assert kinds == ["chain", "chain", "product", "chain", "chain"] * 2
     assert lib.chain_calls == 4
@@ -286,8 +288,9 @@ def test_pair_64k_on_card(dev, kind):
         assert (fused_pass.launches - before[0],
                 spectrum_product.launches - before[1]) == (4, 1)
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
-    assert notes == ["product int32 0 mod32 0 mod64 2 int128 0", "p1 int128",
-                     "product int32 0 mod32 0 mod64 0 int128 2"]
+    assert notes == ["product int32 0 mod32 0 mod64 2 limb64 0 int128 0",
+                     "p1 int128",
+                     "product int32 0 mod32 0 mod64 0 limb64 2 int128 0"]
     want = _plain(xr, xi, n, factors)
     call = plan.capture()
     x = tuple(v.to(torch.int32).reshape((batch,) + factors)
@@ -296,3 +299,28 @@ def test_pair_64k_on_card(dev, kind):
     for a, b, w in zip(y, z, want):
         assert torch.equal(a.reshape(batch, n), w)
         assert torch.equal(b.reshape(batch, n), w)
+
+
+@pytest.mark.cuda
+def test_pair_64k_adversarial_on_card(dev):
+    """The 64k plan on the card on full-scale adversarial 32-bit frames:
+    frame 0 at the top value in its first half and the least in its second
+    (imaginary the other way), frame 1 at the top value throughout (a DC of
+    2^16 (2^31 - 1), at the top of the forward's 48 bits, which P1 spreads
+    over every bin of the inverse's input); the inverse's passes in limbs,
+    the output equal to the golden pair (the frozen NumPy composition) bit
+    for bit."""
+    n, factors = 1 << 16, (256, 256)
+    lo, hi = -(1 << 31), (1 << 31) - 1
+    xr = torch.full((2, n), hi, dtype=torch.int64)
+    xi = xr.clone()
+    xr[0, n // 2:] = lo
+    xi[0, :n // 2] = lo
+    plan = _plan(n, factors, device=dev)
+    with trace.recording() as rec:
+        y = _call(plan, xr.to(dev), xi.to(dev))
+    notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
+    assert notes[-1] == "product int32 0 mod32 0 mod64 0 limb64 2 int128 0"
+    for got, want in zip(y, _frozen(xr, xi, n, factors)):
+        np.testing.assert_array_equal(got.reshape(2, n).cpu().numpy(),
+                                      np.asarray(want, dtype=np.int64))

@@ -2,8 +2,9 @@
 widths the plan knows (``ops.fused_fft.product_form``): on the int32 tile
 ``"mod32"`` where every product keeps bits that fit in 32, else ``"int32"``
 (exact); on the int64 tile ``"mod64"`` where they fit in 64, else
-``"int128"``.  The forms of the plans are pinned here; the identity the
-modular forms rest on is tested in tests/test_torch_intmath.py, the kernels
+``"limb64"`` (exact, in 32-bit limbs; ``"int128"`` is the whole form's).
+The forms of the plans are pinned here; the identities the modular and the
+limb forms rest on are tested in tests/test_torch_intmath.py, the kernels
 of every form against the plain version on the card in
 tests/test_torch_cuda.py."""
 
@@ -66,10 +67,10 @@ def test_config4_inverse_is_modular():
 
 
 def test_wider_product_keeps_int128():
-    """A 52-bit product (52 + 15 = 67 bits) keeps the exact form."""
+    """A 52-bit product (52 + 15 = 67 bits) keeps the exact form, in limbs."""
     spec, _, inv = _conv(52)
     assert spec.ifft_cfg.data_width == 52
-    assert _forms(inv) == ["int128", "int128"]
+    assert _forms(inv) == ["limb64", "limb64"]
 
 
 def test_config2_wide_passes_pinned():
@@ -77,12 +78,13 @@ def test_config2_wide_passes_pinned():
     shift 18; the inverse scaled at 48 bits): the forward's widening pass 1
     keeps at most its epilogue's 40 bits (58), pass 2 (40 bits in, no
     epilogue) at most its last multiplying stage's 46 (64, the bound
-    itself): both modular; the inverse keeps 48 (66) in both: exact."""
+    itself): both modular; the inverse keeps 48 (66) in both: exact, in
+    limbs."""
     fwd, inv = _config2()
     assert [c.data_width for c, _ in fwd.passes()] == [32, 40]
     assert (fwd.mid_dtype, fwd.out_dtype) == (torch.int64, torch.int64)
     assert _forms(fwd) == ["mod64", "mod64"]
-    assert _forms(inv) == ["int128", "int128"]
+    assert _forms(inv) == ["limb64", "limb64"]
 
 
 def test_24bit_widening_pass2():
@@ -128,12 +130,14 @@ def test_monolithic_forms(n, mode, dw, want, inverse):
 
 @pytest.mark.parametrize("dw,inverse,epilogue,want", [
     (43, False, False, "mod64"),    # DIF: last product at order 2, 49 bits
-    (43, True, False, "int128"),    # DIT: order 7 multiplies at 50 bits
+    (43, True, False, "limb64"),    # DIT: order 7 multiplies at 50 bits
     (42, True, False, "mod64"),
-    (43, False, True, "int128"),    # the epilogue wraps to 51 bits
+    (43, False, True, "limb64"),    # the epilogue wraps to 51 bits
     (41, False, True, "mod64"),
     (41, True, True, "mod64"),
-])
+], ids=["43-False-False-mod64", "43-True-False-int128",    # the cases'
+        "42-True-False-mod64", "43-False-True-int128",     # names from
+        "41-False-True-mod64", "41-True-True-mod64"])      # before limb64
 def test_unscaled_widths_by_direction_and_epilogue(dw, inverse, epilogue,
                                                    want):
     """A 256-row unscaled pass with 16-bit twiddles (shift 15): the forward
@@ -171,7 +175,7 @@ def test_unscaled_int32_bound_by_direction(dw, inverse, epilogue, two_d,
 
 
 @pytest.mark.parametrize("dw,dtype,want", [
-    (49, torch.int64, "mod64"), (50, torch.int64, "int128"),
+    (49, torch.int64, "mod64"), (50, torch.int64, "limb64"),
     (17, torch.int32, "mod32"), (18, torch.int32, "int32")],
     ids=["49-mod64", "50-int128", "17-mod32", "18-int32"])
 def test_scaled_bound_is_sixty_four(dw, dtype, want):
@@ -195,7 +199,7 @@ def test_scaled_bound_is_sixty_four(dw, dtype, want):
     (FFTConfig(n=256, mode="unscaled", data_width=50, twiddle_width=16,
                bypass_fly=True), torch.int64, False, "mod64"),
     (FFTConfig(n=256, mode="unscaled", data_width=50, twiddle_width=16,
-               bypass_fly=True), torch.int64, True, "int128"),
+               bypass_fly=True), torch.int64, True, "limb64"),
     (FFTConfig(n=256, mode="unscaled", data_width=24, twiddle_width=16,
                bypass_fly=True), torch.int32, False, "mod32"),
     (FFTConfig(n=256, mode="unscaled", data_width=24, twiddle_width=16,
@@ -218,12 +222,14 @@ def test_int32_tile_and_bypass(cfg, dtype, epilogue, want):
 def test_products_note():
     """The plan.prepare span's note counts every form, in PRODUCT_FORMS'
     order; the C entries' flag is 1 for the two modular forms."""
-    assert PRODUCT_FORMS == ("int32", "mod32", "mod64", "int128")
+    assert PRODUCT_FORMS == ("int32", "mod32", "mod64", "limb64", "int128")
     assert products_note(("mod64", "mod64")) == \
-        "product int32 0 mod32 0 mod64 2 int128 0"
+        "product int32 0 mod32 0 mod64 2 limb64 0 int128 0"
     assert products_note(["int32", "int128"]) == \
-        "product int32 1 mod32 0 mod64 0 int128 1"
+        "product int32 1 mod32 0 mod64 0 limb64 0 int128 1"
     assert products_note(("mod32", "mod32")) == \
-        "product int32 0 mod32 2 mod64 0 int128 0"
+        "product int32 0 mod32 2 mod64 0 limb64 0 int128 0"
+    assert products_note(("limb64", "limb64")) == \
+        "product int32 0 mod32 0 mod64 0 limb64 2 int128 0"
     assert [modular(f) for f in PRODUCT_FORMS] == [False, True, True,
-                                                   False]
+                                                   False, False]

@@ -378,15 +378,15 @@ def test_conv_prepared_product(lib):
 
 
 @pytest.mark.parametrize("product_width,inverse_form", [
-    (44, "mod64"), (52, "int128")])
+    (44, "mod64"), (52, "limb64")], ids=["44-mod64", "52-int128"])
 def test_conv_product_forms_reach_the_c_entries(lib, product_width,
                                                 inverse_form):
     """A wide convolution's chains hand intfft_prepare_pass each pass's
     product form as its last integer (1: modulo 2^64), as fused_pass hands
     it to intfft_fused_pass, and each chain's plan.prepare span notes the
     forms: the forward's two passes on the int32 tile, the inverse's two
-    on the int64 tile, modular at a 44-bit product, exact at 52; the
-    product's span notes its sums in long long (int32 data)."""
+    on the int64 tile, modular at a 44-bit product, exact (in limbs) at
+    52; the product's span notes its sums in long long (int32 data)."""
     spec = make_conv_spec(n=4096, taps_len=129, factors=(64, 64),
                           twiddle_width=16, max_spectrum_width=25,
                           max_product_width=product_width)
@@ -400,7 +400,7 @@ def test_conv_product_forms_reach_the_c_entries(lib, product_width,
     flag = int(inverse_form == "mod64")
     assert [ints[20] for ints, _, _ in lib.prepared] == [0, 0, flag, flag]
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
-    assert notes == ["product int32 2 mod32 0 mod64 0 int128 0",
+    assert notes == ["product int32 2 mod32 0 mod64 0 limb64 0 int128 0",
                      "p1 long long", products_note((inverse_form,) * 2)]
     chains = [v for v in conv.pair.inv._prepared.values()]
     assert len(chains) == 1 and chains[0].products == (inverse_form,) * 2
@@ -432,8 +432,9 @@ def test_int32_product_forms_reach_the_c_entries(lib, cfg, kw, form):
     assert [ints[20] for ints, _, _ in lib.prepared] == [flag, flag]
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
     assert notes == [products_note((form,) * 2)]
-    assert notes[0] == ("product int32 0 mod32 2 mod64 0 int128 0" if flag
-                        else "product int32 2 mod32 0 mod64 0 int128 0")
+    assert notes[0] == (
+        "product int32 0 mod32 2 mod64 0 limb64 0 int128 0" if flag
+        else "product int32 2 mod32 0 mod64 0 limb64 0 int128 0")
     lib.launched.clear()
     plan.apply_blocks(*x, pass_fn=fused_pass)
     assert [ints[20] for _, ints, _ in lib.launched] == [flag, flag]
