@@ -31,10 +31,9 @@ One JSON line per cell on stdout (progress on stderr; over several ranks
 rank 0 prints).  Every line but the smoke's and the CPU mesh's carries the
 card's name and power limit, torch's CUDA and nvcc's version.  A cell
 reads its ``msamples_per_sec`` from 40 individually timed readings, each
-one replay of one CUDA graph of the cell's chained calls (the
-channelizer: eager calls, with CUDA events): every sample of every
-reading over the device time of the whole window, with the rates at the
-median and the p75 reading and their count beside it.  Then its output
+one replay of one CUDA graph of the cell's chained calls: every sample
+of every reading over the device time of the whole window, with the
+rates at the median and the p75 reading and their count beside it.  Then its output
 on its input, as a CUDA graph of one call replays it and as an eager call
 gives it, is held to the golden model.  Exits non-zero when any cell or
 family is not correct, or config 5's bits are not golden's.  Without

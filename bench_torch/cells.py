@@ -170,8 +170,8 @@ def channelizer(dev, layout: str, seed: int | None = None,
                 channels: int = 4096, n: int = 4096) -> Run:
     """``c3_channelizer_cn`` / ``_nc``: ``channels`` n-point scaled/round
     transforms through ``Channelizer`` (``bench_config3``): int32
-    [channels, n] ("cn") or [n, channels] ("nc", K4's engine).  No
-    ``capture()``: read eagerly.  Seeds as ``bench.py``'s: 0 for "cn", 1
+    [channels, n] ("cn") or [n, channels] ("nc", K4's engine), read
+    captured as the other cells.  Seeds as ``bench.py``'s: 0 for "cn", 1
     for "nc"."""
     cfg = FFTConfig(n=n, mode="scaled", rounding="round")
     chz = Channelizer(cfg, layout=layout, device=dev)
@@ -183,7 +183,7 @@ def channelizer(dev, layout: str, seed: int | None = None,
         return [turn(g) for g in fft_int(turn(xr), turn(xi), cfg)]
 
     return Run(chz, (chz.shard(xr), chz.shard(xi)), (xr, xi), channels * n,
-               reference, batch=xr.shape[0], capture=False, plans=(chz,))
+               reference, batch=xr.shape[0], plans=(chz,))
 
 
 def config2(dev, seed: int = 0, n: int = 1 << 16, batch: int = 8) -> Run:

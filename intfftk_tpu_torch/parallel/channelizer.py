@@ -4,24 +4,26 @@ Counterpart of ``intfftk_tpu/parallel/channelizer.py:25-141``, BASELINE
 config 3: thousands of independent channels, each an n-point integer FFT,
 one kernel launch per call.  With a ``mesh`` the channels are split over
 its ``axis`` (SPMD: each rank holds and transforms its own channels), with
-no communication at all; ``shard`` gives a rank its slice.
+no communication at all; ``shard`` gives a rank its slice.  On the card a
+call is replayed from a CUDA graph through ``capture()``, as the plans'.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import FFTConfig
 
+from ..ops.fused_fft import PreparedPlan
 from ..ops.single_pass import PallasFFTPlan
+from ..runtime import trace
 from .four_step import local_plan, resolve_kernel
 from .mesh import CHANNEL_AXIS, plan_device, shard, single_axis_size
 
 
-class Channelizer(nn.Module):
+class Channelizer(PreparedPlan):
     """Batched integer FFT over channels on ``device`` (the current CUDA
     device unless the caller names one; ``device="cpu"`` for the CPU).
 
@@ -36,8 +38,11 @@ class Channelizer(nn.Module):
     is then the mesh's unless named.  The positional order is the JAX
     class's (``intfftk_tpu/parallel/channelizer.py:37-39``), ``device`` in
     the slot of its ``interpret``: ``Channelizer(cfg, mesh)`` is the
-    sharded forward channelizer."""
+    sharded forward channelizer.  The constructor is a ``plan.build`` span
+    noting the layout and the engine ("cn FusedAxisFFT", "nc
+    PallasFFTPlan(nb)")."""
 
+    @trace.spanned("plan.build")
     def __init__(self, cfg: FFTConfig, mesh: DeviceMesh | None = None,
                  axis: str = CHANNEL_AXIS, inverse: bool = False,
                  kernel: str = "auto",
@@ -57,8 +62,10 @@ class Channelizer(nn.Module):
                     "32 bits)")
             self.plan = PallasFFTPlan(cfg, inverse=inverse, layout="nb",
                                       device=self.device)
+            trace.note("nc PallasFFTPlan(nb)")
         else:
             self.plan = local_plan(cfg, inverse, self.kernel, self.device)
+            trace.note(f"cn {type(self.plan).__name__}")
 
     def shard(self, x) -> torch.Tensor:
         """A host array as int32 on this channelizer's device: with a mesh,
@@ -102,3 +109,16 @@ class Channelizer(nn.Module):
         device -> int32 of the same shape."""
         yr, yi = self.plan(x_re, x_im)
         return yr.to(torch.int32), yi.to(torch.int32)
+
+    def capture(self):
+        """``runtime.graph.captured(self)``: the whole call (the shape check,
+        the one pass, the casts) replayed from one CUDA graph per input
+        (shape, dtype, device), the port's counterpart of the JAX class's
+        ``jax.jit``.  It takes CUDA tensors only (a CPU tensor raises
+        ValueError), with or without a ``mesh``: the channels exchange
+        nothing.  Its outputs are static: each call overwrites the previous
+        call's outputs of the same key (see ``CapturedCall``).  A
+        ``retune`` of the plan and ``.to()`` drop its graphs."""
+        from ..runtime.graph import captured
+
+        return self._track(captured(self))

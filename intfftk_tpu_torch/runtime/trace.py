@@ -13,10 +13,10 @@ Recording is off unless a ``recording()`` is open; then ``on`` is True
 and ``active`` is the ``Recording``.  A boundary that runs on every call
 (``CapturedCall.__call__``) checks ``on`` once and runs its untraced body
 when it is False; set-up boundaries wrap their function with
-``spanned(name)``, which costs the same check.  With recording off no
-span is kept and no clock is read.  One thread records: spans opened on
-another thread while a recording is open would nest under the wrong
-parent.
+``spanned(name)``, which costs the same check, and may give it a note
+with ``note(text)``.  With recording off no span is kept and no clock is
+read.  One thread records: spans opened on another thread while a
+recording is open would nest under the wrong parent.
 
 The spans, by name:
 
@@ -26,8 +26,10 @@ The spans, by name:
   ``graph.launch`` (the replay alone, the CUDA graph launch);
 * ``graph.capture``: a ``CapturedCall``'s warm-up and capture, once per
   key;
-* ``plan.build``: ``LargeFFTPlan``, ``OverlapSaveConv`` and
-  ``FFTPairPlan``'s constructors (tables, twiddles, tuning);
+* ``plan.build``: ``LargeFFTPlan``, ``OverlapSaveConv``, ``FFTPairPlan``
+  and ``Channelizer``'s constructors (tables, twiddles, tuning); a
+  channelizer's notes its layout and engine, "cn FusedAxisFFT" or "nc
+  PallasFFTPlan(nb)";
 * ``plan.prepare``: a prepared object made at a plan's first call with a
   key (``PreparedChain``, ``PreparedProduct``); a chain's notes how many
   of its passes form their complex products in each form of
@@ -178,6 +180,13 @@ def span(name: str):
         return
     with active.span(name) as s:
         yield s
+
+
+def note(text: str) -> None:
+    """Give the innermost open span the note ``text`` while a recording is
+    open; nothing otherwise."""
+    if on and active._stack:
+        active.spans[active._stack[-1]].note = text
 
 
 def spanned(name: str):

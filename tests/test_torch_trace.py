@@ -1,9 +1,10 @@
 """The port's spans (``intfftk_tpu_torch.runtime.trace``): nesting, parent
 and call ids and self time; nothing recorded and no clock read with
 recording off; the clock against the profiler's; the set-up spans of a
-plan built on the CPU; the stream's spans beside its ``stats``; the
-replay's spans on the CPU with a stand-in graph.  The ``graph.*`` spans of
-real captured calls are marked ``cuda`` and skip without a card."""
+plan built on the CPU (a channelizer's noting its engine); the stream's
+spans beside its ``stats``; the replay's spans on the CPU with a stand-in
+graph.  The ``graph.*`` spans of real captured calls are marked ``cuda``
+and skip without a card."""
 
 import contextlib
 import ctypes
@@ -21,7 +22,7 @@ from intfftk_tpu_torch.ops.fused_fft import (LargeFFTPlan, PreparedPlan,
                                               fused_pass)
 from intfftk_tpu_torch.ops.intmath import spectrum_product
 from intfftk_tpu_torch.ops.single_pass import PallasFFTPlan
-from intfftk_tpu_torch.parallel import OverlapSaveConv
+from intfftk_tpu_torch.parallel import Channelizer, OverlapSaveConv
 from intfftk_tpu_torch.runtime import CapturedCall, StreamExecutor, trace
 from intfftk_tpu_torch.runtime import graph as graph_mod
 
@@ -101,8 +102,8 @@ def test_launch_counters_are_read_not_copied(monkeypatch):
 
 def test_off_records_nothing_and_reads_no_clock(monkeypatch):
     """With recording off, a plan's build, prepare and call, a
-    convolution's build and the stream run without one read of the spans'
-    clock."""
+    convolution's and a channelizer's build and the stream run without one
+    read of the spans' clock."""
     def no_clock():
         raise AssertionError("the clock was read with recording off")
 
@@ -113,6 +114,7 @@ def test_off_records_nothing_and_reads_no_clock(monkeypatch):
     plan._prepare(("key",), lambda: object())
     spec = make_conv_spec(n=8192, taps_len=1025)
     OverlapSaveConv(spec, np.ones(1025), np.zeros(1025), device="cpu")
+    Channelizer(CFG, device="cpu", layout="nc")
     n = 64
     ex = StreamExecutor(PallasFFTPlan(FFTConfig(n=n), layout="nb",
                                       device="cpu"), n=n, lane_tile=8,
@@ -162,6 +164,19 @@ def test_convolution_build_nests_its_plans():
     outer = rec.spans[0]
     assert all(outer.start_ns <= s.start_ns <= s.end_ns <= outer.end_ns
                for s in rec.spans[1:])
+
+
+@pytest.mark.parametrize("layout, kernel, note", [
+    ("cn", "auto", "cn FusedAxisFFT"), ("nc", "auto", "nc PallasFFTPlan(nb)"),
+    ("cn", "xla", "cn FFTPlan")])
+def test_channelizer_build_notes_its_engine(layout, kernel, note):
+    """A channelizer built on the CPU is one root ``plan.build`` whose note
+    gives its layout and engine."""
+    with trace.recording() as rec:
+        Channelizer(CFG, kernel=kernel, device="cpu", layout=layout)
+    assert _names(rec) == ["plan.build"]
+    (s,) = rec.spans
+    assert s.parent == -1 and s.end_ns > s.start_ns and s.note == note
 
 
 def test_prepare_is_a_span_at_its_first_use_only():
