@@ -59,7 +59,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import FFTConfig
+from ..config import TAYLOR_COARSE_BITS, FFTConfig
 from ..golden.float_model import bitrev_indices
 from ..golden.twiddle import circle_twiddles_int
 
@@ -72,9 +72,9 @@ from .transform import (check_width, fft_stages, fft_stages_2d, pack_tables,
 from .tuning import (MAX_CLUSTER, device_tuning, pass_geometry,
                      whole_candidates, whole_capacity, whole_cluster,
                      whole_launch, whole_shape)
-from .twiddle_synth import (EpiSynth, can_synth, check_block, coarse_table,
-                            device_circle_table, synth_circle_block,
-                            synth_params)
+from .twiddle_synth import (TABLE_ENTRY_BYTES, EpiSynth, can_synth,
+                            check_block, coarse_table, device_circle_table,
+                            synth_circle_block, synth_params)
 
 #: Factor sizes one CTA holds in shared memory (``csrc/fused_pass.cu``).
 MIN_ROWS, MAX_ROWS = 8, 4096
@@ -83,6 +83,9 @@ MIN_ROWS, MAX_ROWS = 8, 4096
 MAX_MONOLITHIC = 1 << 19
 #: Where a four-step plan's inter-factor twiddles come from.
 EPI_MODES = ("auto", "host", "device", "inkernel")
+#: Bytes of the coarse table an in-kernel epilogue reads: two int32
+#: planes of 2^TAYLOR_COARSE_BITS entries.
+COARSE_BYTES = 2 * 4 << TAYLOR_COARSE_BITS
 #: How a plan runs its two factors: in one launch ("whole"), in two
 #: ("split"), or as the card's tuning row says ("auto").
 FUSE_MODES = ("auto", "whole", "split")
@@ -560,15 +563,25 @@ class PreparedChain:
         return outs[-1]
 
 
-def products_note(products, skewed: int = 0) -> str:
+def products_note(products, skewed: int = 0, epi: str | None = None) -> str:
     """What a ``plan.prepare`` span notes of a chain whose passes form
     their complex products as ``products`` and of which ``skewed`` run on
     the skewed tile: each form of ``PRODUCT_FORMS`` and how many passes
     take it, then "skew" and that count, e.g. "product int32 0 mod32 2
-    mod64 0 limb64 0 int128 0 skew 1" (the core's 64k chain)."""
+    mod64 0 limb64 0 int128 0 skew 1", then ``epi`` where the chain has
+    an inter-factor twiddle (``LargeFFTPlan.epi_note``): "... skew 1 epi
+    device 524288" (the core's 64k chain)."""
     return ("product " + " ".join(f"{f} {list(products).count(f)}"
                                   for f in PRODUCT_FORMS)
-            + f" skew {skewed}")
+            + f" skew {skewed}" + (f" {epi}" if epi else ""))
+
+
+def epi_table_bytes(mode: str, n1: int, n2: int) -> int:
+    """The bytes of table that each call's pass 1 reads for a four-step
+    plan's inter-factor twiddle from ``mode`` (``LargeFFTPlan.epi_mode``):
+    the [n1, n2] table's two int32 planes from ``"host"`` or ``"device"``,
+    the coarse table's ``COARSE_BYTES`` ``"inkernel"``."""
+    return COARSE_BYTES if mode == "inkernel" else TABLE_ENTRY_BYTES * n1 * n2
 
 
 def fused_four_step_reference(x_re, x_im, passes):
@@ -776,7 +789,11 @@ class PreparedPlan(nn.Module):
     made at the first call with that key, and the ``CapturedCall``s made
     from the module or from a module holding it (``capture()``), all
     dropped when the launch geometry or a buffer changes (``retune``,
-    ``.to()``: ``invalidate``)."""
+    ``.to()``: ``invalidate``).  ``epi_note``: what a chain's
+    ``plan.prepare`` note ends with, where the module's chain has an
+    inter-factor twiddle (``LargeFFTPlan.epi_note``), else None."""
+
+    epi_note = None
 
     def __init__(self):
         super().__init__()
@@ -786,15 +803,16 @@ class PreparedPlan(nn.Module):
     def _prepare(self, key, make):
         """The object prepared for ``key``, made by ``make()`` at its first
         use; while a recording is open its ``plan.prepare`` span notes the
-        product forms of a chain's passes and how many run on the skewed
-        tile (``products_note``), or the form of a ``PreparedProduct``'s
-        product-sums ("p1 int128")."""
+        product forms of a chain's passes, how many run on the skewed tile
+        and the source of its inter-factor twiddle (``products_note``), or
+        the form of a ``PreparedProduct``'s product-sums ("p1 int128")."""
         obj = self._prepared.get(key)
         if obj is None:
             with trace.span("plan.prepare") as span:
                 obj = self._prepared[key] = make()
                 if span is not None and hasattr(obj, "products"):
-                    span.note = products_note(obj.products, obj.skewed)
+                    span.note = products_note(obj.products, obj.skewed,
+                                              self.epi_note)
                 elif span is not None and hasattr(obj, "form"):
                     span.note = f"p1 {obj.form}"
         return obj
@@ -851,6 +869,13 @@ class LargeFFTPlan(PreparedPlan):
       raise ValueError where it does not hold (raw order, twiddles wider
       than 16 bits, ROM twiddles, n < 4096) and under ``wide1``: the JAX
       plan never synthesizes for a wide pass 1 (``pallas_fft.py:1617``).
+
+    While a recording is open, the table's making is a span
+    ``twiddle.table`` noting its source, shape and bytes ("host 256x256
+    524288"; "inkernel 512 4096" for the coarse table), and the
+    ``plan.build`` span and each chain's ``plan.prepare`` span note
+    ``epi_note``: "epi <mode> <bytes>", the bytes of table each call's
+    pass 1 reads (``epi_table_bytes``).
 
     ``schedule="monolithic"`` (n <= 512K): bits identical to the single
     full-size core, ``golden.fft_int`` (per-stage rounding, full-size
@@ -992,16 +1017,25 @@ class LargeFFTPlan(PreparedPlan):
                     f"twiddles of <= 16 bits, n >= 4096 (can_synth) and a "
                     f"pass 1 of <= 32 bits")
             self.epi_mode = mode
+            table = epi_table_bytes(mode, n1, n2)
+            self.epi_note = f"epi {mode} {table}"
             tables["w1r"], tables["w1i"] = pack_tables(self.cfg1)
             tables["w2r"], tables["w2i"] = pack_tables(self.cfg2)
-            if mode == "host":
-                tables["er"], tables["ei"] = circle_table(cfg, n1, n2,
-                                                          inverse, order)
-            elif mode == "device":
+            if mode == "device":
                 tables["er"], tables["ei"] = device_circle_table(
                     cfg, n, n1, n2, inverse, device)
             else:
-                tables["coarse_re"], tables["coarse_im"] = coarse_table(cfg)
+                with trace.span("twiddle.table") as span:
+                    if mode == "host":
+                        tables["er"], tables["ei"] = circle_table(
+                            cfg, n1, n2, inverse, order)
+                        shape = f"{n1}x{n2}"
+                    else:
+                        tables["coarse_re"], tables["coarse_im"] = \
+                            coarse_table(cfg)
+                        shape = f"{1 << TAYLOR_COARSE_BITS}"
+                    if span is not None:
+                        span.note = f"{mode} {shape} {table}"
         self.io16 = max(cfg.data_width, self.cfg1.output_width,
                         self.cfg2.output_width) <= 16
         self.wide_in = cfg.data_width > 32
@@ -1017,6 +1051,8 @@ class LargeFFTPlan(PreparedPlan):
         self.retune(device_tuning(device))
         for name, arr in tables.items():
             self.register_buffer(name, torch.as_tensor(arr, device=device))
+        if self.epi_note:
+            trace.note(self.epi_note)
 
     def retune(self, tuning):
         """Record ``tuning`` as ``self.tuning`` and the launch geometry it

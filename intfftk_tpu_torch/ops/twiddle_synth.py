@@ -33,6 +33,7 @@ from ..config import FFTConfig, TAYLOR_COARSE_BITS, TAYLOR_STAGE
 from ..golden.twiddle import quarter_table, taylor_mathpi
 
 from ..device import resolve, use_kernel
+from ..runtime import trace
 from . import _build
 
 
@@ -177,6 +178,11 @@ def _circle_args(cfg: FFTConfig, n: int, n1: int, n2: int,
     return (n1, n2, int(inverse), *synth_params(cfg, n))
 
 
+#: Bytes of one entry of an [n1, n2] epilogue table: an int32 re and im.
+TABLE_ENTRY_BYTES = 8
+
+
+@trace.spanned("twiddle.table")
 def device_circle_table(cfg: FFTConfig, n: int, n1: int, n2: int,
                         inverse: bool, device=None, coarse=None, out=None):
     """The [n1, n2] epilogue table generated on ``device`` from the 4 KiB
@@ -190,7 +196,10 @@ def device_circle_table(cfg: FFTConfig, n: int, n1: int, n2: int,
     [n1, n2] tensors on the coarse table's device to write (else
     allocated); with ``coarse`` and ``out`` given a call allocates nothing
     and does not synchronise, so a CUDA graph captures it.  Returns the
-    pair written."""
+    pair written.  While a recording is open each call is a span
+    ``twiddle.table`` noting its source, shape and bytes, e.g. "device
+    4096x4096 134217728"."""
+    trace.note(f"device {n1}x{n2} {TABLE_ENTRY_BYTES * n1 * n2}")
     if coarse is None:
         coarse = coarse_table(cfg, resolve(device))
     dev = coarse[0].device

@@ -29,18 +29,31 @@ The spans, by name:
 * ``plan.build``: ``LargeFFTPlan``, ``OverlapSaveConv``, ``FFTPairPlan``
   and ``Channelizer``'s constructors (tables, twiddles, tuning); a
   channelizer's notes its layout and engine, "cn FusedAxisFFT" or "nc
-  PallasFFTPlan(nb)";
+  PallasFFTPlan(nb)"; a four-step ``LargeFFTPlan``'s where its
+  inter-factor twiddle comes from and the bytes of table each call's pass
+  1 reads for it, "epi device 134217728" at 4096 x 4096
+  (``fused_fft.epi_table_bytes``: 8 n1 n2 from an [n1, n2] table, the
+  coarse table's 4096 for "inkernel");
+* ``twiddle.table``: the making of that table at a plan's build:
+  ``twiddle_synth.device_circle_table`` (the generator, one launch on the
+  card, counted in its ``launches``), the host's ``circle_table`` or the
+  coarse table's upload, noting the source, the shape and the bytes,
+  "device 4096x4096 134217728", "host 256x256 524288", "inkernel 512
+  4096".  The epilogue adds no launch to a call, and its bytes are no
+  counter: a counter of ``graph._counters``' family is summed into the
+  benchmark's ``launches_per_call`` in every cell;
 * ``plan.prepare``: a prepared object made at a plan's first call with a
   key (``PreparedChain``, ``PreparedProduct``); a chain's notes how many
   of its passes form their complex products in each form of
   ``fused_fft.PRODUCT_FORMS``: exact on the int32 tile ("int32"), modulo
   2^32 there ("mod32"), modulo 2^64 on the int64 tile ("mod64") or exact
   there, in 32-bit limbs ("limb64") or in the whole form's __int128
-  ("int128"), and how many run on the skewed tile ("skew": a forward pass
-  whose store is turned and in natural order), e.g. "product int32 0
-  mod32 2 mod64 0 limb64 0 int128 0 skew 1" for the core's 64k chain
-  (``fused_fft.products_note``); a product's the form of its
-  product-sums, "p1 long long" or "p1 int128";
+  ("int128"), how many run on the skewed tile ("skew": a forward pass
+  whose store is turned and in natural order) and, for a four-step
+  plan's chain, its ``plan.build``'s "epi" note, e.g. "product int32 0
+  mod32 2 mod64 0 limb64 0 int128 0 skew 1 epi device 524288" for the
+  core's 64k chain (``fused_fft.products_note``); a product's the form
+  of its product-sums, "p1 long long" or "p1 int128";
 * ``library.load``: the kernel library's first load for a thread count,
   its ``note`` "built" or "cached";
 * ``stream.repack``, ``stream.dispatch``, ``stream.wait``:

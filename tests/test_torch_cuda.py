@@ -645,8 +645,10 @@ def test_conv4_against_golden_on_card(dev, payloads):
         yr, yi = conv(*x)
     torch.cuda.synchronize()
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
-    assert "product int32 0 mod32 0 mod64 2 limb64 0 int128 0 skew 0" in notes
-    assert "product int32 2 mod32 0 mod64 0 limb64 0 int128 0 skew 0" in notes
+    assert ("product int32 0 mod32 0 mod64 2 limb64 0 int128 0 skew 0 "
+            "epi host 524288") in notes
+    assert ("product int32 2 mod32 0 mod64 0 limb64 0 int128 0 skew 0 "
+            "epi host 524288") in notes
     gr, gi = overlap_save_int(*x, *h, spec)
     assert yr.dtype == torch.int64
     np.testing.assert_array_equal(yr.cpu().numpy(), gr)

@@ -231,9 +231,11 @@ def test_call_is_two_chains_and_one_product(lib):
         plan(x, x)
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
     assert notes == [
-        "product int32 0 mod32 0 mod64 2 limb64 0 int128 0 skew 0",
+        "product int32 0 mod32 0 mod64 2 limb64 0 int128 0 skew 0 "
+        "epi host 524288",
         "p1 int128",
-        "product int32 0 mod32 0 mod64 0 limb64 2 int128 0 skew 0"]
+        "product int32 0 mod32 0 mod64 0 limb64 2 int128 0 skew 0 "
+        "epi host 524288"]
     kinds = [k for k, _, _ in lib.launched]
     assert kinds == ["chain", "chain", "product", "chain", "chain"] * 2
     assert lib.chain_calls == 4
@@ -290,9 +292,11 @@ def test_pair_64k_on_card(dev, kind):
                 spectrum_product.launches - before[1]) == (4, 1)
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
     assert notes == [
-        "product int32 0 mod32 0 mod64 2 limb64 0 int128 0 skew 0",
+        "product int32 0 mod32 0 mod64 2 limb64 0 int128 0 skew 0 "
+        "epi host 524288",
         "p1 int128",
-        "product int32 0 mod32 0 mod64 0 limb64 2 int128 0 skew 0"]
+        "product int32 0 mod32 0 mod64 0 limb64 2 int128 0 skew 0 "
+        "epi host 524288"]
     want = _plain(xr, xi, n, factors)
     call = plan.capture()
     x = tuple(v.to(torch.int32).reshape((batch,) + factors)
@@ -323,7 +327,8 @@ def test_pair_64k_adversarial_on_card(dev):
         y = _call(plan, xr.to(dev), xi.to(dev))
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
     assert notes[-1] == \
-        "product int32 0 mod32 0 mod64 0 limb64 2 int128 0 skew 0"
+        "product int32 0 mod32 0 mod64 0 limb64 2 int128 0 skew 0 " \
+        "epi host 524288"
     for got, want in zip(y, _frozen(xr, xi, n, factors)):
         np.testing.assert_array_equal(got.reshape(2, n).cpu().numpy(),
                                       np.asarray(want, dtype=np.int64))

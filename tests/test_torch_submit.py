@@ -408,8 +408,10 @@ def test_conv_product_forms_reach_the_c_entries(lib, product_width,
     assert [ints[20] for ints, _, _ in lib.prepared] == [0, 0, flag, flag]
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
     assert notes == [
-        "product int32 2 mod32 0 mod64 0 limb64 0 int128 0 skew 0",
-        "p1 long long", products_note((inverse_form,) * 2)]
+        "product int32 2 mod32 0 mod64 0 limb64 0 int128 0 skew 0 "
+        "epi host 32768",
+        "p1 long long",
+        products_note((inverse_form,) * 2, 0, "epi host 32768")]
     chains = [v for v in conv.pair.inv._prepared.values()]
     assert len(chains) == 1 and chains[0].products == (inverse_form,) * 2
     assert [p.product for p in chains[0].passes] == [inverse_form] * 2
@@ -441,11 +443,11 @@ def test_int32_product_forms_reach_the_c_entries(lib, cfg, kw, form, skewed):
     flag = int(form == "mod32")
     assert [ints[20] for ints, _, _ in lib.prepared] == [flag, flag]
     notes = [s.note for s in rec.spans if s.name == "plan.prepare"]
-    assert notes == [products_note((form,) * 2, skewed)]
+    assert notes == [products_note((form,) * 2, skewed, plan.epi_note)]
     assert notes[0] == (
         "product int32 0 mod32 2 mod64 0 limb64 0 int128 0" if flag
         else "product int32 2 mod32 0 mod64 0 limb64 0 int128 0") + (
-        f" skew {skewed}")
+        f" skew {skewed} epi device {8 * plan.n1 * plan.n2}")
     lib.launched.clear()
     plan.apply_blocks(*x, pass_fn=fused_pass)
     assert [ints[20] for _, ints, _ in lib.launched] == [flag, flag]

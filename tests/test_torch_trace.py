@@ -146,21 +146,31 @@ def test_clock_is_the_profilers():
 
 
 def test_plan_build_on_the_cpu():
-    """A plan built on the CPU is one root ``plan.build``; no library is
-    loaded and nothing is prepared there."""
+    """A plan built on the CPU is one root ``plan.build``, noting where its
+    inter-factor twiddle comes from, with the table's ``twiddle.table``
+    inside it; no library is loaded and nothing is prepared there."""
     with trace.recording() as rec:
         LargeFFTPlan(CFG, device="cpu")
-    assert _names(rec) == ["plan.build"]
-    (s,) = rec.spans
+    assert _names(rec) == ["plan.build", "twiddle.table"]
+    s, table = rec.spans
     assert s.parent == -1 and s.call == -1 and s.end_ns > s.start_ns
+    assert s.note == "epi device 32768"
+    assert table.parent == 0 and table.note == "device 32x128 32768"
+    assert s.start_ns <= table.start_ns <= table.end_ns <= s.end_ns
 
 
 def test_convolution_build_nests_its_plans():
     spec = make_conv_spec(n=8192, taps_len=1025)
     with trace.recording() as rec:
         OverlapSaveConv(spec, np.ones(1025), np.zeros(1025), device="cpu")
-    assert _names(rec) == ["plan.build"] * 4
-    assert [s.parent for s in rec.spans] == [-1, 0, 1, 1]
+    assert _names(rec) == ["plan.build"] * 3 + ["twiddle.table",
+                                                "plan.build",
+                                                "twiddle.table"]
+    assert [s.parent for s in rec.spans] == [-1, 0, 1, 2, 1, 4]
+    # the pair's chains run in raw order: the tables come from the host
+    assert [s.note for s in rec.spans[2:]] == [
+        "epi host 65536", "host 64x128 65536", "epi host 65536",
+        "host 128x64 65536"]
     outer = rec.spans[0]
     assert all(outer.start_ns <= s.start_ns <= s.end_ns <= outer.end_ns
                for s in rec.spans[1:])
@@ -370,11 +380,14 @@ def test_graph_spans_on_the_card(dev):
 
 @pytest.mark.cuda
 def test_library_load_on_the_card(dev):
-    """The library's load, made anew, is one span inside the plan's build
-    (the device twiddle generator loads it)."""
+    """The library's load, made anew, is one span inside the plan's build:
+    the device twiddle generator loads it, inside its ``twiddle.table``."""
     _build.library.cache_clear()
     with trace.recording() as rec:
         LargeFFTPlan(CFG, device=dev)
     loads = [s for s in rec.spans if s.name == "library.load"]
     assert len(loads) == 1 and loads[0].note in ("built", "cached")
-    assert rec.spans[loads[0].parent].name == "plan.build"
+    table = rec.spans[loads[0].parent]
+    assert table.name == "twiddle.table" and table.note == \
+        "device 32x128 32768"
+    assert rec.spans[table.parent].name == "plan.build"
