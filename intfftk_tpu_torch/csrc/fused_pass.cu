@@ -130,6 +130,18 @@
 // larger batch goes out as several launches of that many items each, on
 // the same stream.
 //
+// The convolution's edges (EdgeParams, fused_pass.cuh): overlap-save reads
+// overlapping windows of its signal and drops the first M - 1 samples of
+// each inverse block.  Run by torch around the chain, the windows (a fill,
+// a padded copy, a gathering cast) and the cut (a strided cast) took a
+// fifth of config 4's device time at 64 payloads.  Where M - 1 and the
+// payload are whole rows of the blocks, the forward's first pass reads the
+// windows from the signal (each item's offset in it, zeros before a row's
+// start) and the inverse's last pass stores the cut into the output (rows
+// past M - 1 only): the same loads and stores with another offset and a
+// row predicate, in two instances of their own (edge_form), so that no
+// other pass carries a branch of them.
+//
 // The whole four-step's cluster kernel (fused_whole.cuh) is prepared by
 // intfft_prepare_whole (fused_whole.cu) into the same descriptor
 // (prepared.cuh), which holds its launch, and goes out through
@@ -234,8 +246,8 @@ CircleLaunch circle_launch(int n1, int n2) {
 // The pass's launch, grant and query functions of kT threads per CTA, by
 // pair of block types, direction and product form (fused_pass_inst.cu
 // instantiates them).
-using Grant = cudaError_t (*)(bool, bool, size_t, int);
-using Query = cudaError_t (*)(bool, bool, size_t, int, int*);
+using Grant = cudaError_t (*)(bool, bool, int, size_t, int);
+using Query = cudaError_t (*)(bool, bool, int, size_t, int, int*);
 struct PassFns {
   Launch launch;
   Grant grant;
@@ -361,14 +373,22 @@ extern "C" int intfft_prepared_size() {
 // the skew of its tile (pass_skew: s, or 0 for the padded tile).
 // product 1 asks for the modular form, refused where product_fits does not
 // hold for the tile's word; product 0 on the int64 tile, the limbs, is
-// refused at a twiddle shift outside 0 .. kLimbMaxShift.  Returns a
-// cudaError_t; `desc` is usable only when it is 0.
+// refused at a twiddle shift outside 0 .. kLimbMaxShift.  edge (EdgeParams:
+// 0 none, 1 the window, 2 the cut), edge_blocks, edge_payload, edge_lead:
+// the convolution's edge, refused where the form has no such kernel
+// (edge_form), the tables are 2-D, the tile is skewed, the side of the
+// edge is turned (transpose_in for the window, transpose_out for the cut),
+// the lead or the payload is no whole number of rows of `cols`, lead +
+// payload is not rows * cols or the batch is no whole number of signal
+// rows of edge_blocks payloads.  Returns a cudaError_t; `desc` is usable
+// only when it is 0.
 extern "C" int intfft_prepare_pass(
     int batch, int rows, int cols, int in_size, int out_size, int data_width,
     int scale, int round, int tw_shift, int bypass, int inverse, int natural,
     int transpose_in, int transpose_out, int synth_log_n, int mathpi,
-    int xshift, int sh_cnt, int tc, int threads, int product, int tables,
-    int device, void* desc, int* report) {
+    int xshift, int sh_cnt, int tc, int threads, int product, int edge,
+    int edge_blocks, int edge_payload, int edge_lead, int tables, int device,
+    void* desc, int* report) {
   auto* d = static_cast<PreparedPass*>(desc);
   d->magic = 0;
   const int log_rows = log2_exact(rows);
@@ -401,11 +421,24 @@ extern "C" int intfft_prepare_pass(
                      log_tc,   data_width, scale, round,    tw_shift,
                      bypass,   natural,    transpose_in,    transpose_out};
   const int skew = pass_skew(p, wide ? 8 : 4, inverse != 0, two_d);
+  if (edge != kEdgeNone &&
+      (edge != intfft::edge_form(in_size, out_size, inverse != 0,
+                                 product != 0) ||
+       two_d || skew > 0 ||
+       (edge == kEdgeWindow ? transpose_in : transpose_out) ||
+       edge_blocks < 1 || edge_payload < 1 || edge_lead < 0 ||
+       edge_payload % cols != 0 || edge_lead % cols != 0 ||
+       static_cast<long long>(edge_payload) + edge_lead !=
+           static_cast<long long>(rows) * cols ||
+       batch % edge_blocks != 0 ||
+       static_cast<long long>(edge_blocks) * edge_payload > INT32_MAX)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t smem = pass_smem(rows, tc, wide ? 8 : 4, synth, skew);
   if (smem > static_cast<size_t>(smem_optin(device))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  err = fns->grant(two_d, skew > 0, smem, device);
+  err = fns->grant(two_d, skew > 0, edge, smem, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   d->device = device;
   d->tables = tables;
@@ -414,6 +447,7 @@ extern "C" int intfft_prepare_pass(
   d->whole = nullptr;
   d->p = p;
   d->syn = syn;
+  d->edge = EdgeParams{edge, edge_blocks, edge_payload, edge_lead, 0};
   d->magic = kPrepared;
   report[0] = tc;
   report[1] = threads;
@@ -456,7 +490,8 @@ extern "C" int intfft_fused_chain(const void* descs, int n_passes,
     const PassPtrs a = pass_ptrs(ptrs + 12 * i);
     err = d[i].whole != nullptr
               ? d[i].whole(a, d[i].p, d[i].p2, d[i].w, d[i].smem, s, out)
-              : d[i].launch(a, d[i].p, d[i].syn, d[i].smem, s, out);
+              : d[i].launch(a, d[i].p, d[i].syn, d[i].edge, d[i].smem, s,
+                            out);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -475,7 +510,8 @@ extern "C" int intfft_fused_pass(
     int data_width, int scale, int round, int tw_shift, int bypass,
     int inverse, int natural, int transpose_in, int transpose_out,
     int synth_log_n, int mathpi, int xshift, int sh_cnt, int tc, int threads,
-    int product, int device, void* stream, int* out) {
+    int product, int edge, int edge_blocks, int edge_payload, int edge_lead,
+    int device, void* stream, int* out) {
   out[0] = 0;
   void* const ptrs[12] = {
       const_cast<void*>(x_re),  const_cast<void*>(x_im),
@@ -488,8 +524,9 @@ extern "C" int intfft_fused_pass(
   const int err = intfft_prepare_pass(
       batch, rows, cols, in_size, out_size, data_width, scale, round,
       tw_shift, bypass, inverse, natural, transpose_in, transpose_out,
-      synth_log_n, mathpi, xshift, sh_cnt, tc, threads, product,
-      table_mask(pass_ptrs(ptrs)), device, &d, out + 1);
+      synth_log_n, mathpi, xshift, sh_cnt, tc, threads, product, edge,
+      edge_blocks, edge_payload, edge_lead, table_mask(pass_ptrs(ptrs)),
+      device, &d, out + 1);
   if (err != 0) return err;
   return intfft_fused_chain(&d, 1, ptrs, device, stream, out);
 }
@@ -502,13 +539,16 @@ extern "C" int intfft_fused_pass(
 // as intfft_fused_pass (in_size, out_size, inverse, two_d: the 2-D stage
 // tables, product: 1 the modular product; skew: 1 the forward's form on
 // the skewed tile that a pass of these rows storing turned in natural order
-// takes, pass_skew).  cudaErrorInvalidValue where this library holds no
-// such kernel (a skewed inverse, 2-D or a tile of too few rows) or the tile
-// exceeds the card's shared memory per CTA.
+// takes, pass_skew; edge: 1 the window, 2 the cut, the convolution's form
+// of edge_form).  cudaErrorInvalidValue where this library holds no such
+// kernel (a skewed inverse, 2-D or a tile of too few rows; an edge of
+// another form, 2-D or skewed) or the tile exceeds the card's shared memory
+// per CTA.
 extern "C" int intfft_pass_attributes(int in_size, int out_size, int inverse,
                                       int two_d, int rows, int tc,
                                       int threads, int synth, int product,
-                                      int skew, int device, int* out) {
+                                      int skew, int edge, int device,
+                                      int* out) {
   const int blocks = block_form(in_size, out_size);
   const int log_rows = log2_exact(rows);
   const int word = blocks >= 2 ? 8 : 4;
@@ -516,7 +556,11 @@ extern "C" int intfft_pass_attributes(int in_size, int out_size, int inverse,
       device < 0 || device >= kMaxDevices || product < 0 || product > 1 ||
       skew < 0 || skew > 1 ||
       (skew && (inverse || two_d || log_rows < 0 ||
-                tile_skew(log_rows, word) == 0))) {
+                tile_skew(log_rows, word) == 0)) ||
+      (edge != kEdgeNone &&
+       (edge != intfft::edge_form(in_size, out_size, inverse != 0,
+                                  product != 0) ||
+        two_d || skew))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const PassFns* fns = pass_fns(threads, blocks, inverse, product);
@@ -530,7 +574,7 @@ extern "C" int intfft_pass_attributes(int in_size, int out_size, int inverse,
   }
   out[4] = static_cast<int>(smem);
   return static_cast<int>(
-      fns->query(two_d != 0, skew != 0, smem, device, out));
+      fns->query(two_d != 0, skew != 0, edge, smem, device, out));
 }
 
 // The [n1, n2] inter-factor table W_n^(+-k*j) from the coarse table

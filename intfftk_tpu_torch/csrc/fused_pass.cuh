@@ -39,6 +39,33 @@ struct PassPtrs {
   void *y_re, *y_im;
 };
 
+// The convolution's edges (OverlapSaveConv): a pass whose first load reads
+// the signal itself (kEdgeWindow) or whose last store writes the
+// convolution's output itself (kEdgeCut), where the plain pass reads and
+// writes [batch, rows, cols] blocks.  Block b of the batch is payload j = b
+// mod blocks of signal row s = b div blocks, and its flat position q lies at
+// s * blocks * payload + j * payload - lead + q of the signal (the window:
+// zero where j * payload - lead + q < 0) or of the output (the cut: stored
+// only where q >= lead).  lead and payload are whole rows (multiples of
+// cols), so both predicates are on the row.  first: the batch index of the
+// launch's first item (a batch of more than 65 535 items takes several
+// launches).  kind kEdgeNone: no edge; the other fields are not read.
+constexpr int kEdgeNone = 0, kEdgeWindow = 1, kEdgeCut = 2;
+struct EdgeParams {
+  int kind, blocks, payload, lead, first;
+};
+
+// The one edge a kernel of these element sizes (x, y), direction and
+// product form is instantiated with besides kEdgeNone: the window of the
+// convolution's int32 forward with exact products, the cut of its int64
+// inverse with products modulo 2^64; kEdgeNone for every other form.
+__host__ __device__ constexpr int edge_form(int in_size, int out_size,
+                                            bool inverse, bool mod) {
+  return in_size == 4 && out_size == 4 && !inverse && !mod   ? kEdgeWindow
+         : in_size == 8 && out_size == 8 && inverse && mod ? kEdgeCut
+                                                           : kEdgeNone;
+}
+
 // One pass in one direction on blocks of one pair of element types (x, y):
 // int16 -> int16 and int32 -> int32 on the int32 tile, int32 -> int64 (the
 // widening pass) and int64 -> int64 on the int64 tile, with kT threads per
@@ -47,25 +74,28 @@ struct PassPtrs {
 // of dynamic shared memory per CTA, which the grant below has allowed on
 // the current device, and adds the kernel launches it made to *launches.
 // kMod: the kernel that forms its complex product-sums modulo the tile's
-// word, 2^32 or 2^64 (ProductOf).
+// word, 2^32 or 2^64 (ProductOf).  edge: the convolution's edge the pass
+// takes (EdgeParams; kind kEdgeNone for a plain pass).
 #define INTFFT_LAUNCH_PASS(NAME)                                              \
   cudaError_t NAME(const PassPtrs& a, const PassParams& p,                    \
-                   const SynthParams& syn, size_t smem, cudaStream_t stream,  \
-                   int* launches)
+                   const SynthParams& syn, const EdgeParams& edge,            \
+                   size_t smem, cudaStream_t stream, int* launches)
 // Allows the kernel of that pass (two_d: the form with 2-D stage tables;
-// skew: the forward's form on the skewed tile, pass_skew) `smem` bytes of
-// dynamic shared memory per CTA on `device`, the current device: the
-// cudaFuncSetAttribute a launch needs, made once per size.
+// skew: the forward's form on the skewed tile, pass_skew; edge: the form
+// with that edge, edge_form) `smem` bytes of dynamic shared memory per CTA
+// on `device`, the current device: the cudaFuncSetAttribute a launch
+// needs, made once per size.
 #define INTFFT_GRANT_PASS(NAME)                                               \
-  cudaError_t NAME(bool two_d, bool skew, size_t smem, int device)
+  cudaError_t NAME(bool two_d, bool skew, int edge, size_t smem, int device)
 // What the compiled kernel of that pass takes: out[0] registers per
 // thread, out[1] bytes of local memory per thread (spills), out[2] the most
 // threads per CTA it can be launched with, out[3] the CTAs an SM holds with
 // `smem` bytes of dynamic shared memory each.  two_d: the form with 2-D
 // stage tables (int32 tile only); skew: the form on the skewed tile
-// (forward, 1-D tables only).
+// (forward, 1-D tables only); edge: the form with that edge (edge_form).
 #define INTFFT_QUERY_PASS(NAME)                                               \
-  cudaError_t NAME(bool two_d, bool skew, size_t smem, int device, int* out)
+  cudaError_t NAME(bool two_d, bool skew, int edge, size_t smem, int device, \
+                   int* out)
 #define INTFFT_PASS_FUNCTIONS(BLOCKS, DIR)                                    \
   template <int kT, bool kMod>                                                \
   INTFFT_LAUNCH_PASS(launch_pass_##BLOCKS##_##DIR);                           \
@@ -86,6 +116,10 @@ INTFFT_PASS_FUNCTIONS(i64, inv);
 
 namespace {
 
+using intfft::EdgeParams;
+using intfft::kEdgeCut;
+using intfft::kEdgeNone;
+using intfft::kEdgeWindow;
 using intfft::PassPtrs;
 using intfft::SynthParams;
 
@@ -210,6 +244,24 @@ struct PassCtx {
   int n_full;                     // the full size the synthesis indexes
 };
 
+// The offset in the signal (EdgeParams) of this CTA's item, payload j of
+// signal row s, and in `below` the samples of its block before the signal
+// row's start, lead - j * payload (none where <= 0).  32-bit but the
+// offset (the host holds blocks * payload within int32).  blockIdx.y is
+// read by a volatile move, so that each task of the group that reads x
+// (the window's first) or stores y (the cut's last) makes them anew and no
+// register holds them through the groups: the window's int32 form sits at
+// its plain twin's 64 registers.
+__device__ __forceinline__ size_t edge_item(const EdgeParams& e, int& below) {
+  unsigned y;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(y));
+  const int b = e.first + static_cast<int>(y);
+  const int s = b / e.blocks;
+  const int from = (b - s * e.blocks) * e.payload;
+  below = e.lead - from;
+  return static_cast<size_t>(s) * e.blocks * e.payload + from - e.lead;
+}
+
 // The uniform step between a task's rows of a group that does not straddle
 // the skew s of the skewed tile: (ld << lo) + 2^(lo - s) where lo >= s, ld
 // << lo where lo + R <= s.
@@ -233,11 +285,16 @@ __device__ __forceinline__ int skewed_step(int ld, int lo,
 // wholly below s the padded tile's (the skew is base's alone), and the one
 // group that straddles s (lo < s < lo + R; kD = s - lo) steps by ld << lo
 // with a word more at each multiple of 2^kD of a (group_load_straddle).
+// kEdge (EdgeParams `e`): kEdgeWindow reads x at the item's offset in the
+// signal (edge_item) and zeros in the rows r with r * cols below it,
+// kEdgeCut stores y at that offset and none of the rows r with r * cols <
+// lead.
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
-          int kT, int R, int kLo, typename P, bool kSkew, int kD>
+          int kT, int R, int kLo, typename P, bool kSkew, int kD, int kEdge>
 __device__ __forceinline__ void run_group(const PassCtx<Tin, Tout, V>& k,
                                           const PassParams& p,
-                                          const SynthParams& syn, int lo_rt,
+                                          const SynthParams& syn,
+                                          const EdgeParams& e, int lo_rt,
                                           int in_w0, bool from_x, bool to_y,
                                           bool last) {
   constexpr int N = 1 << R;
@@ -256,13 +313,16 @@ __device__ __forceinline__ void run_group(const PassCtx<Tin, Tout, V>& k,
     const bool live = col < p.cols;
     V xr[N], xi[N];
     if (from_x) {
+      size_t item = k.item;
+      int below = 0;
+      if constexpr (kEdge == kEdgeWindow) item = edge_item(e, below);
 #pragma unroll
       for (int a = 0; a < N; ++a) {
         const int row = base + (a << lo);
         const int src = k.rev_in ? (__brev(row) >> k.rev_sh) : row;
         xr[a] = xi[a] = 0;
-        if (live) {
-          const size_t g = k.item + static_cast<size_t>(src) * p.cols + col;
+        if (live && (kEdge != kEdgeWindow || src * p.cols >= below)) {
+          const size_t g = item + static_cast<size_t>(src) * p.cols + col;
           xr[a] = k.x_re[g];
           xi[a] = k.x_im[g];
         }
@@ -308,11 +368,15 @@ __device__ __forceinline__ void run_group(const PassCtx<Tin, Tout, V>& k,
     }
     if (!kSkew && to_y) {
       if (live) {
+        size_t item = k.item;
+        [[maybe_unused]] int below;
+        if constexpr (kEdge == kEdgeCut) item = edge_item(e, below);
 #pragma unroll
         for (int a = 0; a < N; ++a) {
           const int row = base + (a << lo);
           const int kk = k.rev_out ? (__brev(row) >> k.rev_sh) : row;
-          const size_t g = k.item + static_cast<size_t>(kk) * p.cols + col;
+          if (kEdge == kEdgeCut && kk * p.cols < e.lead) continue;
+          const size_t g = item + static_cast<size_t>(kk) * p.cols + col;
           k.y_re[g] = static_cast<Tout>(xr[a]);
           k.y_im[g] = static_cast<Tout>(xi[a]);
         }
@@ -344,9 +408,12 @@ __device__ __forceinline__ void run_group(const PassCtx<Tin, Tout, V>& k,
 // in place what other threads' store reads.  The registers a thread
 // may take are min_ctas's.  A thread with no task in a loop (more threads
 // than tasks, or the tail CTA's dead columns) still reaches every barrier:
-// no __syncthreads lies inside a loop over tasks.
+// no __syncthreads lies inside a loop over tasks.  kEdge: the
+// convolution's edge (EdgeParams, edge_form), instantiated for the two
+// forms that run it alone, on the padded tile; its first load or last
+// store takes the item's offset in the signal (edge_item, run_group).
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
-          int kT, bool kMod, bool kSkew>
+          int kT, bool kMod, bool kSkew, int kEdge>
 __global__ void __launch_bounds__(kT, (min_ctas<V, kInverse, kT>()))
 fused_pass_kernel(const Tin* __restrict__ x_re, const Tin* __restrict__ x_im,
                   const int32_t* __restrict__ w_re,
@@ -358,7 +425,8 @@ fused_pass_kernel(const Tin* __restrict__ x_re, const Tin* __restrict__ x_im,
                   const int32_t* __restrict__ c_re,
                   const int32_t* __restrict__ c_im, Tout* __restrict__ y_re,
                   Tout* __restrict__ y_im, const PassParams p,
-                  const SynthParams syn, const int skew_shift) {
+                  const SynthParams syn, const int skew_shift,
+                  const EdgeParams edge) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int R = GroupSize<V>::R;
   V* const smem = reinterpret_cast<V*>(smem_raw);
@@ -438,7 +506,7 @@ fused_pass_kernel(const Tin* __restrict__ x_re, const Tin* __restrict__ x_im,
     constexpr bool kTrim = kSkew && kMod;
 #define RUN_GROUP(GR, GLO, GD)                                                \
   run_group<Tin, Tout, V, kInverse, kTwoD, kT, GR, GLO, ProductOf<V, kMod>, \
-            kSkew, GD>(k, p, syn, lo, in_w0,                                 \
+            kSkew, GD, kEdge>(k, p, syn, edge, lo, in_w0,                    \
                        from_x && (!kTrim || GLO == 2 || GR == 0), to_y,      \
                        last && (!kTrim || GLO == 0))
     if (r == R) {
@@ -502,12 +570,13 @@ int log2_exact(int v) {
 // than any before it, not on every launch.  One cache per instantiation:
 // each thread count is a kernel of its own.
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
-          int kT, bool kMod, bool kSkew>
+          int kT, bool kMod, bool kSkew, int kEdge>
 cudaError_t grant_smem(int device, size_t smem) {
   static size_t granted[kMaxDevices] = {};
   if (smem <= granted[device]) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT, kMod, kSkew>,
+      fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT, kMod, kSkew,
+                        kEdge>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err == cudaSuccess) granted[device] = smem;
   return err;
@@ -519,13 +588,15 @@ cudaError_t grant_smem(int device, size_t smem) {
 // plan's override), and the prepare step has checked them: nothing here
 // clamps.  Sixteen int16 columns are one 32-byte sector per row; a narrower
 // tile reads shorter row segments and lets an SM hold more CTAs at large m.
+// The side of an edge (kEdge) is not sliced by item: each launch tells the
+// kernel its first item instead (EdgeParams::first).
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
-          int kT, bool kMod, bool kSkew>
+          int kT, bool kMod, bool kSkew, int kEdge>
 cudaError_t launch(const PassPtrs& a, const PassParams& p,
-                   const SynthParams& syn, size_t smem, cudaStream_t stream,
-                   int* launches) {
-  const auto kernel =
-      fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT, kMod, kSkew>;
+                   const SynthParams& syn, const EdgeParams& edge,
+                   size_t smem, cudaStream_t stream, int* launches) {
+  const auto kernel = fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT,
+                                        kMod, kSkew, kEdge>;
   const auto i32 = [](const void* v) {
     return static_cast<const int32_t*>(v);
   };
@@ -537,13 +608,17 @@ cudaError_t launch(const PassPtrs& a, const PassParams& p,
   for (int b0 = 0; b0 < p.batch; b0 += kMaxGridY) {
     const int nb = p.batch - b0 < kMaxGridY ? p.batch - b0 : kMaxGridY;
     const size_t off = static_cast<size_t>(b0) * item;
+    const size_t x_off = kEdge == kEdgeWindow ? 0 : off;
+    const size_t y_off = kEdge == kEdgeCut ? 0 : off;
+    EdgeParams e = edge;
+    e.first = b0;
     kernel<<<dim3(tiles, nb), kT, smem, stream>>>(
-        static_cast<const Tin*>(a.x_re) + off,
-        static_cast<const Tin*>(a.x_im) + off, i32(a.w_re), i32(a.w_im),
+        static_cast<const Tin*>(a.x_re) + x_off,
+        static_cast<const Tin*>(a.x_im) + x_off, i32(a.w_re), i32(a.w_im),
         i32(a.t2_re), i32(a.t2_im), i32(a.e_re), i32(a.e_im), i32(a.c_re),
-        i32(a.c_im), static_cast<Tout*>(a.y_re) + off,
-        static_cast<Tout*>(a.y_im) + off, p, syn,
-        pass_skew(p, sizeof(V), kInverse, kTwoD));
+        i32(a.c_im), static_cast<Tout*>(a.y_re) + y_off,
+        static_cast<Tout*>(a.y_im) + y_off, p, syn,
+        pass_skew(p, sizeof(V), kInverse, kTwoD), e);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ++*launches;
@@ -552,13 +627,13 @@ cudaError_t launch(const PassPtrs& a, const PassParams& p,
 }
 
 template <typename Tin, typename Tout, typename V, bool kInverse, bool kTwoD,
-          int kT, bool kMod, bool kSkew>
+          int kT, bool kMod, bool kSkew, int kEdge>
 cudaError_t query(size_t smem, int device, int* out) {
-  const auto kernel =
-      fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT, kMod, kSkew>;
+  const auto kernel = fused_pass_kernel<Tin, Tout, V, kInverse, kTwoD, kT,
+                                        kMod, kSkew, kEdge>;
   cudaError_t err =
-      grant_smem<Tin, Tout, V, kInverse, kTwoD, kT, kMod, kSkew>(device,
-                                                                   smem);
+      grant_smem<Tin, Tout, V, kInverse, kTwoD, kT, kMod, kSkew, kEdge>(
+          device, smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
@@ -572,68 +647,106 @@ cudaError_t query(size_t smem, int device, int* out) {
 
 // The 2-D stage tables are a template parameter, as the direction is, so
 // the standard stages carry no branch of the other forms; so is the skewed
-// tile, which only the forward's 1-D forms have (pass_skew).  The int64
-// tile has no 2-D form (the caller checks).
+// tile, which only the forward's 1-D forms have (pass_skew), and so is the
+// convolution's edge, which only edge_form's two forms have, with 1-D
+// tables on the padded tile.  The int64 tile has no 2-D form (the caller
+// checks).
+template <typename Tin, typename Tout, bool kInverse, bool kMod>
+constexpr int kEdgeOf =
+    intfft::edge_form(sizeof(Tin), sizeof(Tout), kInverse, kMod);
+
 template <typename Tin, typename Tout, typename V, bool kInverse, int kT,
           bool kMod>
 cudaError_t launch_tables(const PassPtrs& a, const PassParams& p,
-                          const SynthParams& syn, size_t smem,
-                          cudaStream_t stream, int* launches) {
+                          const SynthParams& syn, const EdgeParams& edge,
+                          size_t smem, cudaStream_t stream, int* launches) {
+  constexpr int kEdge = kEdgeOf<Tin, Tout, kInverse, kMod>;
+  if (edge.kind != kEdgeNone) {
+    if constexpr (kEdge != kEdgeNone) {
+      if (edge.kind == kEdge && a.t2_re == nullptr &&
+          pass_skew(p, sizeof(V), kInverse, false) == 0) {
+        return launch<Tin, Tout, V, kInverse, false, kT, kMod, false, kEdge>(
+            a, p, syn, edge, smem, stream, launches);
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
   if constexpr (sizeof(V) == 4) {
     if (a.t2_re != nullptr) {
-      return launch<Tin, Tout, V, kInverse, true, kT, kMod, false>(
-          a, p, syn, smem, stream, launches);
+      return launch<Tin, Tout, V, kInverse, true, kT, kMod, false,
+                    kEdgeNone>(a, p, syn, edge, smem, stream, launches);
     }
   }
   if constexpr (!kInverse) {
     if (pass_skew(p, sizeof(V), kInverse, false) > 0) {
-      return launch<Tin, Tout, V, kInverse, false, kT, kMod, true>(
-          a, p, syn, smem, stream, launches);
+      return launch<Tin, Tout, V, kInverse, false, kT, kMod, true,
+                    kEdgeNone>(a, p, syn, edge, smem, stream, launches);
     }
   }
-  return launch<Tin, Tout, V, kInverse, false, kT, kMod, false>(
-      a, p, syn, smem, stream, launches);
+  return launch<Tin, Tout, V, kInverse, false, kT, kMod, false, kEdgeNone>(
+      a, p, syn, edge, smem, stream, launches);
 }
 
 template <typename Tin, typename Tout, typename V, bool kInverse, int kT,
           bool kMod>
-cudaError_t grant_tables(bool two_d, bool skew, size_t smem, int device) {
+cudaError_t grant_tables(bool two_d, bool skew, int edge, size_t smem,
+                         int device) {
+  constexpr int kEdge = kEdgeOf<Tin, Tout, kInverse, kMod>;
+  if (edge != kEdgeNone) {
+    if constexpr (kEdge != kEdgeNone) {
+      if (edge == kEdge && !two_d && !skew) {
+        return grant_smem<Tin, Tout, V, kInverse, false, kT, kMod, false,
+                          kEdge>(device, smem);
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
   if constexpr (sizeof(V) == 4) {
     if (two_d && !skew) {
-      return grant_smem<Tin, Tout, V, kInverse, true, kT, kMod, false>(
-          device, smem);
+      return grant_smem<Tin, Tout, V, kInverse, true, kT, kMod, false,
+                        kEdgeNone>(device, smem);
     }
   }
   if constexpr (!kInverse) {
     if (skew && !two_d) {
-      return grant_smem<Tin, Tout, V, kInverse, false, kT, kMod, true>(
-          device, smem);
+      return grant_smem<Tin, Tout, V, kInverse, false, kT, kMod, true,
+                        kEdgeNone>(device, smem);
     }
   }
   if (two_d || skew) return cudaErrorInvalidValue;
-  return grant_smem<Tin, Tout, V, kInverse, false, kT, kMod, false>(device,
-                                                                    smem);
+  return grant_smem<Tin, Tout, V, kInverse, false, kT, kMod, false,
+                    kEdgeNone>(device, smem);
 }
 
 template <typename Tin, typename Tout, typename V, bool kInverse, int kT,
           bool kMod>
-cudaError_t query_tables(bool two_d, bool skew, size_t smem, int device,
-                         int* out) {
+cudaError_t query_tables(bool two_d, bool skew, int edge, size_t smem,
+                         int device, int* out) {
+  constexpr int kEdge = kEdgeOf<Tin, Tout, kInverse, kMod>;
+  if (edge != kEdgeNone) {
+    if constexpr (kEdge != kEdgeNone) {
+      if (edge == kEdge && !two_d && !skew) {
+        return query<Tin, Tout, V, kInverse, false, kT, kMod, false, kEdge>(
+            smem, device, out);
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
   if constexpr (sizeof(V) == 4) {
     if (two_d && !skew) {
-      return query<Tin, Tout, V, kInverse, true, kT, kMod, false>(
+      return query<Tin, Tout, V, kInverse, true, kT, kMod, false, kEdgeNone>(
           smem, device, out);
     }
   }
   if constexpr (!kInverse) {
     if (skew && !two_d) {
-      return query<Tin, Tout, V, kInverse, false, kT, kMod, true>(
+      return query<Tin, Tout, V, kInverse, false, kT, kMod, true, kEdgeNone>(
           smem, device, out);
     }
   }
   if (two_d || skew) return cudaErrorInvalidValue;
-  return query<Tin, Tout, V, kInverse, false, kT, kMod, false>(smem, device,
-                                                               out);
+  return query<Tin, Tout, V, kInverse, false, kT, kMod, false, kEdgeNone>(
+      smem, device, out);
 }
 
 }  // namespace

@@ -12,7 +12,9 @@
 // complex product (kMod false) and with the product modulo the tile's word
 // (kMod true: 2^32 on the int32 tile, 2^64 on the int64 tile), for every
 // pair of block types; a forward unit holds each 1-D form twice more, on
-// the skewed tile (fused_pass.cuh, pass_skew).
+// the skewed tile (fused_pass.cuh, pass_skew); the i32 forward unit holds
+// its exact 1-D form once more with the convolution's window, and the i64
+// inverse unit its modular one with the cut (edge_form).
 
 #include "fused_pass.cuh"
 
@@ -41,17 +43,17 @@ namespace intfft {
 
 template <int kT, bool kMod>
 INTFFT_LAUNCH_PASS(INTFFT_NAME(launch)) {
-  return launch_tables<INTFFT_FORM>(a, p, syn, smem, stream, launches);
+  return launch_tables<INTFFT_FORM>(a, p, syn, edge, smem, stream, launches);
 }
 
 template <int kT, bool kMod>
 INTFFT_GRANT_PASS(INTFFT_NAME(grant)) {
-  return grant_tables<INTFFT_FORM>(two_d, skew, smem, device);
+  return grant_tables<INTFFT_FORM>(two_d, skew, edge, smem, device);
 }
 
 template <int kT, bool kMod>
 INTFFT_QUERY_PASS(INTFFT_NAME(query)) {
-  return query_tables<INTFFT_FORM>(two_d, skew, smem, device, out);
+  return query_tables<INTFFT_FORM>(two_d, skew, edge, smem, device, out);
 }
 
 // the template arguments of one form (a macro, so that its comma does not

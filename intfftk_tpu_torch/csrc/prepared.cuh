@@ -49,8 +49,8 @@ constexpr unsigned long long kPrepared = 0x696e74666674ULL;  // "intfft"
 // A pass's launch (fused_pass_inst.cu) and a whole call's
 // (fused_whole_inst.cu).
 using Launch = cudaError_t (*)(const PassPtrs&, const PassParams&,
-                               const SynthParams&, size_t, cudaStream_t,
-                               int*);
+                               const SynthParams&, const EdgeParams&, size_t,
+                               cudaStream_t, int*);
 using WholeLaunch = cudaError_t (*)(const PassPtrs&, const PassParams&,
                                     const PassParams&, const WholeParams&,
                                     size_t, cudaStream_t, int*);
@@ -68,6 +68,7 @@ struct PreparedPass {
   Launch launch;             // a pass: its launch; null for a whole call
   PassParams p;              // a pass, or a whole call's factor 1
   SynthParams syn;
+  EdgeParams edge;           // a pass: the convolution's edge it takes
   WholeLaunch whole;         // a whole call: its launch; null for a pass
   PassParams p2;             // a whole call's factor 2
   WholeParams w;

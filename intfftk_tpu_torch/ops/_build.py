@@ -179,18 +179,18 @@ def library(threads: int | None = None):
         if span is not None:
             span.note = "built" if log else "cached"
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.intfft_fused_pass.argtypes = ([ptr] * 12 + [i32] * 22
+    lib.intfft_fused_pass.argtypes = ([ptr] * 12 + [i32] * 26
                                      + [ptr, ctypes.POINTER(i32)])
     lib.intfft_fused_pass.restype = i32
     lib.intfft_prepared_size.argtypes = []
     lib.intfft_prepared_size.restype = i32
-    lib.intfft_prepare_pass.argtypes = ([i32] * 23
+    lib.intfft_prepare_pass.argtypes = ([i32] * 27
                                         + [ptr, ctypes.POINTER(i32)])
     lib.intfft_prepare_pass.restype = i32
     lib.intfft_fused_chain.argtypes = [ptr, i32, ptr, i32, ptr,
                                        ctypes.POINTER(i32)]
     lib.intfft_fused_chain.restype = i32
-    lib.intfft_pass_attributes.argtypes = [i32] * 11 + [ctypes.POINTER(i32)]
+    lib.intfft_pass_attributes.argtypes = [i32] * 12 + [ctypes.POINTER(i32)]
     lib.intfft_pass_attributes.restype = i32
     lib.intfft_circle_table.argtypes = ([ptr] * 4 + [i32] * 8
                                         + [ptr, ctypes.POINTER(i32)])

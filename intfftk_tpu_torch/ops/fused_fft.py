@@ -70,8 +70,8 @@ from .intmath import cmult_exact
 from .transform import (check_width, fft_stages, fft_stages_2d, pack_tables,
                         pack_tables_2d)
 from .tuning import (MAX_CLUSTER, device_tuning, pass_geometry,
-                     whole_candidates, whole_capacity, whole_cluster,
-                     whole_launch, whole_shape)
+                     tile_skew, whole_candidates, whole_capacity,
+                     whole_cluster, whole_launch, whole_shape)
 from .twiddle_synth import (TABLE_ENTRY_BYTES, EpiSynth, can_synth,
                             check_block, coarse_table, device_circle_table,
                             synth_circle_block, synth_params)
@@ -102,6 +102,77 @@ PASS_DTYPES = ((torch.int16, torch.int16), (torch.int32, torch.int32),
 WHOLE_DTYPES = ((torch.int16,) * 3, (torch.int32,) * 3,
                 (torch.int32, torch.int32, torch.int64),
                 (torch.int32, torch.int64, torch.int64), (torch.int64,) * 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class Edges:
+    """The convolution's edges of a chain (``OverlapSaveConv``): signal rows
+    of ``length`` samples cut into payloads of ``payload`` samples, each
+    block the ``lead`` samples before its payload and the payload (n =
+    payload + lead).  Block b of a batch is payload j = b mod ``blocks`` of
+    signal row s = b div ``blocks``, and its flat position q is sample j *
+    payload - lead + q of row s.  A pass given ``window=`` reads its blocks
+    from the signal [S, length] itself, zeros before a row's start; a pass
+    given ``cut=`` writes the positions q >= lead of its blocks to the
+    output [S, length] itself, and nothing else (``fused_pass``)."""
+
+    payload: int
+    lead: int
+    length: int
+
+    def __post_init__(self):
+        if (self.payload < 1 or self.lead < 0 or self.length < 1
+                or self.length % self.payload):
+            raise ValueError(f"bad edges {self}: payload >= 1, lead >= 0, "
+                             f"length a multiple of payload")
+
+    @property
+    def blocks(self) -> int:
+        """Payloads, so blocks, per signal row."""
+        return self.length // self.payload
+
+    @property
+    def n(self) -> int:
+        """Samples of one block."""
+        return self.payload + self.lead
+
+
+#: The one form of pass that carries each edge, as the library holds it
+#: (``edge_form`` of ``csrc/fused_pass.cuh``): the dtype of its input and
+#: output blocks, its direction and the form of its products.  The window
+#: is the convolution's int32 forward's first pass, the cut its int64
+#: inverse's last.
+EDGE_FORMS = {"window": (torch.int32, False, "int32"),
+              "cut": (torch.int64, True, "mod64")}
+
+
+def edge_fault(side: str, edges: Edges, cfg: FFTConfig, cols: int, dtype,
+               kw) -> str | None:
+    """Why a pass of ``cfg`` over [B, cfg.n, ``cols``] blocks of ``dtype``,
+    with ``fused_pass``'s keyword arguments ``kw`` but the tables' values,
+    cannot take ``edges`` on ``side`` ("window": its first load, "cut": its
+    last store); None where it can.  It must be the form of ``EDGE_FORMS``
+    with 1-D stage tables on the padded tile, its side not turned, and the
+    lead and the payload whole rows of its blocks."""
+    inverse, natural = kw.get("inverse", False), kw.get("natural", True)
+    turned_out = kw.get("transpose_out", False)
+    out_dtype = kw.get("out_dtype") or dtype
+    two_d = kw.get("tables_2d") is not None
+    product = product_form(cfg, out_dtype, inverse,
+                           kw.get("epi") is not None
+                           or kw.get("synth") is not None, two_d)
+    if (dtype, inverse, product) != EDGE_FORMS[side] or out_dtype != dtype:
+        return (f"the {side} runs on the form {EDGE_FORMS[side]} alone, this "
+                f"pass is ({dtype}, {inverse}, {product!r}) -> {out_dtype}")
+    if two_d or (not inverse and natural and turned_out
+                 and tile_skew(cfg.n, dtype.itemsize)):
+        return f"the {side} runs with 1-D tables on the padded tile alone"
+    if kw.get("transpose_in" if side == "window" else "transpose_out"):
+        return f"the {side}'s side of the pass is turned"
+    if cfg.n * cols != edges.n or edges.lead % cols or edges.payload % cols:
+        return (f"the lead {edges.lead} and the payload {edges.payload} are "
+                f"no whole rows of the pass's [{cfg.n}, {cols}] blocks")
+    return None
 
 
 def block_dtype(width: int, io16: bool) -> torch.dtype:
@@ -144,11 +215,41 @@ def _check_blocks(x_re, x_im):
         raise ValueError("re and im blocks differ in shape, dtype or device")
 
 
+def _edge_shapes(shape, cfg: FFTConfig, transpose_in, transpose_out,
+                 window: Edges | None, cut: Edges | None):
+    """(the blocks a pass on input ``shape`` runs on, the shape of its
+    output): ``shape`` and its store's blocks for a plain pass; with
+    ``window`` the signal [S, length] as S * blocks blocks of [cfg.n, n /
+    cfg.n]; with ``cut`` the output as the signal [B / blocks, length]."""
+    if window is not None and cut is not None:
+        raise ValueError("a pass takes the window or the cut, not both")
+    shape = tuple(shape)
+    if window is not None:
+        if len(shape) != 2 or shape[1] != window.length or window.n % cfg.n:
+            raise ValueError(f"a window of [{cfg.n}, n / {cfg.n}] blocks, "
+                             f"n = {window.n}, reads the signal [S, "
+                             f"{window.length}], got {shape}")
+        shape = (shape[0] * window.blocks, cfg.n, window.n // cfg.n)
+    out = _out_shape(shape, cfg, transpose_in, transpose_out)
+    if cut is not None:
+        if (len(shape) != 3 or shape[0] % cut.blocks
+                or shape[1] * shape[2] != cut.n):
+            raise ValueError(f"a cut writes whole signal rows of "
+                             f"{cut.blocks} blocks of {cut.n}, got {shape}")
+        out = (shape[0] // cut.blocks, cut.length)
+    return shape, out
+
+
 def _check_pass(shape, dtype, dev, cfg: FFTConfig, tables, epi, synth,
-                tables_2d, natural, transpose_in, out_dtype):
-    """What a pass on blocks of ``shape`` and ``dtype`` on ``dev`` takes:
-    the factor, the block and table shapes, dtypes and devices, the
-    widths."""
+                tables_2d, natural, transpose_in, out_dtype,
+                transpose_out=False, inverse=False,
+                window: Edges | None = None, cut: Edges | None = None):
+    """What a pass on input ``shape`` and ``dtype`` on ``dev`` takes: the
+    factor, the block and table shapes, dtypes and devices, the widths, the
+    edges (``edge_fault``).  Returns ``_edge_shapes``: the blocks it runs
+    on and its output's shape."""
+    shape, out_shape = _edge_shapes(shape, cfg, transpose_in, transpose_out,
+                                    window, cut)
     check_width(cfg)
     if not MIN_ROWS <= cfg.n <= MAX_ROWS:
         raise ValueError(f"factor size {cfg.n} outside [{MIN_ROWS}, "
@@ -194,6 +295,14 @@ def _check_pass(shape, dtype, dev, cfg: FFTConfig, tables, epi, synth,
             raise ValueError(
                 f"table must be contiguous int32 {shape_} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    for side, edges in (("window", window), ("cut", cut)):
+        fault = edges and edge_fault(side, edges, cfg, cols, dtype, dict(
+            inverse=inverse, natural=natural, transpose_in=transpose_in,
+            transpose_out=transpose_out, out_dtype=out_dtype, epi=epi,
+            synth=synth, tables_2d=tables_2d))
+        if fault:
+            raise ValueError(fault)
+    return shape, out_shape
 
 
 #: The forms of a pass's complex products (``product_form``).
@@ -243,19 +352,25 @@ def modular(form: str) -> bool:
 
 def _pass_ints(cfg: FFTConfig, shape, in_dtype, out_dtype, synth, inverse,
                natural, transpose_in, transpose_out, lane_tile, threads,
-               product):
+               product, window: Edges | None = None,
+               cut: Edges | None = None):
     """The integers of a pass on blocks of ``shape``, as the C entries take
     them: batch, rows, cols, the element sizes, the numerics, the layout,
-    the synthesis constants, TC, threads per CTA and the product form
-    (``product_form``: 1 for a ``modular`` one, else 0)."""
+    the synthesis constants, TC, threads per CTA, the product form
+    (``product_form``: 1 for a ``modular`` one, else 0) and the edge: its
+    kind (1 the window, 2 the cut), blocks per signal row, payload and
+    lead (zeros for none)."""
     r = cfg.n
     c = shape[1] if transpose_in else shape[2]
     prm = synth_params(cfg, synth.n) if synth is not None else (0, 0, 0, 0)
+    edges = window or cut
+    edge = ((1 if window else 2, edges.blocks, edges.payload, edges.lead)
+            if edges else (0, 0, 0, 0))
     return (shape[0], r, c, in_dtype.itemsize, out_dtype.itemsize,
             cfg.data_width, cfg.scale, int(cfg.rounding == "round"),
             cfg.twiddle_shift, int(cfg.bypass_fly), int(inverse),
             int(natural), int(transpose_in), int(transpose_out), *prm,
-            lane_tile, threads, int(modular(product)))
+            lane_tile, threads, int(modular(product)), *edge)
 
 
 def _table_ptrs(tables, tables_2d, epi, synth) -> tuple:
@@ -272,19 +387,57 @@ def _out_shape(shape, cfg: FFTConfig, transpose_in, transpose_out):
     return (shape[0], c, cfg.n) if transpose_out else (shape[0], cfg.n, c)
 
 
+def _edge_positions(edges: Edges):
+    """[blocks, n]: each block's flat positions as samples of its signal
+    row, j * payload - lead + q (negative before the row's start)."""
+    j = torch.arange(edges.blocks)[:, None]
+    return j * edges.payload - edges.lead + torch.arange(edges.n)[None, :]
+
+
+def window_reference(x, edges: Edges, rows: int):
+    """The blocks [S * blocks, rows, n / rows] that a pass given
+    ``window=edges`` reads from the signal ``x`` [S, length]: block (s, j)
+    holds sample j * payload - lead + q of row s at flat position q, zero
+    where that is negative (the kernel's offsets and predicate)."""
+    at = _edge_positions(edges).to(x.device)
+    blocks = torch.where(at >= 0, x[:, at.clamp(min=0)], 0)
+    return blocks.reshape(-1, rows, edges.n // rows).to(x.dtype)
+
+
+def cut_reference(y, edges: Edges):
+    """The output [B / blocks, length] that a pass given ``cut=edges``
+    writes from its blocks ``y`` [B, R, C]: flat position q >= lead of
+    block (s, j) to sample j * payload - lead + q of row s (the kernel's
+    offsets and predicate), every sample written once."""
+    keep = torch.arange(edges.n, device=y.device) >= edges.lead
+    at = _edge_positions(edges).to(y.device)[:, keep].reshape(-1)
+    y = y.reshape(-1, edges.blocks, edges.n)[:, :, keep]
+    out = torch.empty((y.shape[0], edges.length), dtype=y.dtype,
+                      device=y.device)
+    out[:, at] = y.reshape(y.shape[0], -1)
+    return out
+
+
 def fused_pass_reference(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
                          synth: EpiSynth | None = None, tables_2d=None,
                          transpose_out: bool, inverse: bool = False,
                          natural: bool = True, transpose_in: bool = False,
                          out_dtype: torch.dtype | None = None,
                          lane_tile: int | None = None,
-                         threads: int | None = None):
+                         threads: int | None = None,
+                         window: Edges | None = None,
+                         cut: Edges | None = None):
     """Plain PyTorch version of ``fused_pass`` (any device): the eager
     stages of ``transform.fft_stages`` (or ``fft_stages_2d``) on the
     [B, C, R] view, the epilogue (``synth``: its table from
     ``synth_circle_block``) through ``intmath.cmult_exact``, then the store
-    layout and dtype.  ``lane_tile`` and ``threads`` are taken and ignored:
-    the plain version has no launch geometry."""
+    layout and dtype; the blocks read through ``window_reference`` and
+    written through ``cut_reference`` where the pass takes an edge.
+    ``lane_tile`` and ``threads`` are taken and ignored: the plain version
+    has no launch geometry."""
+    if window is not None:
+        x_re, x_im = (window_reference(x, window, cfg.n)
+                      for x in (x_re, x_im))
     xt = (lambda x: x) if transpose_in else (lambda x: x.transpose(1, 2))
     if tables_2d is not None:
         yr, yi = fft_stages_2d(xt(x_re), xt(x_im), cfg, *tables_2d,
@@ -303,7 +456,10 @@ def fused_pass_reference(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
     if not transpose_out:
         yr, yi = yr.transpose(1, 2), yi.transpose(1, 2)
     dt = out_dtype or x_re.dtype
-    return yr.to(dt).contiguous(), yi.to(dt).contiguous()
+    yr, yi = yr.to(dt).contiguous(), yi.to(dt).contiguous()
+    if cut is not None:
+        yr, yi = cut_reference(yr, cut), cut_reference(yi, cut)
+    return yr, yi
 
 
 def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
@@ -311,7 +467,8 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
                transpose_out: bool, inverse: bool = False,
                natural: bool = True, transpose_in: bool = False,
                out_dtype: torch.dtype | None = None,
-               lane_tile: int | None = None, threads: int | None = None):
+               lane_tile: int | None = None, threads: int | None = None,
+               window: Edges | None = None, cut: Edges | None = None):
     """One factor pass along R = cfg.n of [B, R, C] blocks, or of [B, C, R]
     blocks with ``transpose_in``.
 
@@ -331,6 +488,13 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
     int64 (the widening pass) or int64 -> int64 (``PASS_DTYPES``).  int64
     blocks carry outputs up to 64 bits, with a table epilogue or none.
 
+    The convolution's edges (``Edges``; one of the two, on the one form
+    of pass that carries it, ``EDGE_FORMS``, else ValueError): with
+    ``window`` the input is the signal [S, length] and the pass reads its
+    S * blocks blocks from it in place; with ``cut`` the output is the
+    convolution's [B / blocks, length], written in place from the blocks'
+    positions past the lead (``window_reference``, ``cut_reference``).
+
     ``lane_tile``: TC, the columns of a block one CTA holds, a power of
     two; ``threads``: threads per CTA.  The plans resolve both once, at
     build (``tuning.pass_geometry``); a caller that leaves them out gets
@@ -349,18 +513,20 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
     out_dtype = out_dtype or x_re.dtype
     dev = x_re.device
     _check_blocks(x_re, x_im)
-    _check_pass(x_re.shape, x_re.dtype, dev, cfg, tables, epi, synth,
-                tables_2d, natural, transpose_in, out_dtype)
+    shape, oshape = _check_pass(x_re.shape, x_re.dtype, dev, cfg, tables,
+                                epi, synth, tables_2d, natural, transpose_in,
+                                out_dtype, transpose_out, inverse, window,
+                                cut)
     if not use_kernel(dev):
         return fused_pass_reference(x_re, x_im, cfg, tables, epi=epi,
                                     synth=synth, tables_2d=tables_2d,
                                     transpose_out=transpose_out,
                                     inverse=inverse, natural=natural,
                                     transpose_in=transpose_in,
-                                    out_dtype=out_dtype)
-    lane_tile, threads = _geometry(dev, cfg, x_re.shape, transpose_in,
+                                    out_dtype=out_dtype, window=window,
+                                    cut=cut)
+    lane_tile, threads = _geometry(dev, cfg, shape, transpose_in,
                                    out_dtype, lane_tile, threads)
-    oshape = _out_shape(x_re.shape, cfg, transpose_in, transpose_out)
     y_re = torch.empty(oshape, dtype=out_dtype, device=dev)
     y_im = torch.empty(oshape, dtype=out_dtype, device=dev)
     lib = _build.library(threads)
@@ -371,9 +537,9 @@ def fused_pass(x_re, x_im, cfg: FFTConfig, tables, *, epi=None,
     err = lib.intfft_fused_pass(
         x_re.data_ptr(), x_im.data_ptr(), y_re.data_ptr(), y_im.data_ptr(),
         *_table_ptrs(tables, tables_2d, epi, synth),
-        *_pass_ints(cfg, x_re.shape, x_re.dtype, out_dtype, synth, inverse,
+        *_pass_ints(cfg, shape, x_re.dtype, out_dtype, synth, inverse,
                     natural, transpose_in, transpose_out, lane_tile,
-                    threads, product),
+                    threads, product, window, cut),
         dev.index, stream_handle(dev), out)
     if err:
         _build.check(lib, err, f"fused_pass launch (TC {lane_tile}, "
@@ -423,25 +589,27 @@ class PreparedPass:
     products (``product_form``), whose kernel the C entry took; ``skew``
     the skew of its tile as the C entry chose it (``tuning.tile_skew``
     where the forward stores turned in natural order with 1-D stage
-    tables, else 0).  Raises ValueError on a CPU device: the plain version
-    needs no preparing."""
+    tables, else 0).  With ``window`` ``shape`` is the signal's, with
+    ``cut`` ``out_shape`` the output's (``fused_pass``).  Raises ValueError
+    on a CPU device: the plain version needs no preparing."""
 
     def __init__(self, shape, dtype, dev, cfg: FFTConfig, tables, *,
                  epi=None, synth: EpiSynth | None = None, tables_2d=None,
                  transpose_out: bool, inverse: bool = False,
                  natural: bool = True, transpose_in: bool = False,
                  out_dtype: torch.dtype | None = None,
-                 lane_tile: int | None = None, threads: int | None = None):
+                 lane_tile: int | None = None, threads: int | None = None,
+                 window: Edges | None = None, cut: Edges | None = None):
         out_dtype = out_dtype or dtype
-        _check_pass(shape, dtype, dev, cfg, tables, epi, synth, tables_2d,
-                    natural, transpose_in, out_dtype)
+        shape, self.out_shape = _check_pass(
+            shape, dtype, dev, cfg, tables, epi, synth, tables_2d, natural,
+            transpose_in, out_dtype, transpose_out, inverse, window, cut)
         if not use_kernel(dev):
             raise ValueError(f"a prepared pass launches the kernel; {dev} "
                              f"runs the plain version (fused_pass)")
         lane_tile, threads = _geometry(dev, cfg, shape, transpose_in,
                                        out_dtype, lane_tile, threads)
         self.lib = _build.library(threads)
-        self.out_shape = _out_shape(shape, cfg, transpose_in, transpose_out)
         self.out_dtype = out_dtype
         self.product = product_form(cfg, out_dtype, inverse,
                                     epi is not None or synth is not None,
@@ -458,8 +626,8 @@ class PreparedPass:
         err = self.lib.intfft_prepare_pass(
             *_pass_ints(cfg, shape, dtype, out_dtype, synth, inverse,
                         natural, transpose_in, transpose_out, lane_tile,
-                        threads, self.product), mask, dev.index, self.desc,
-            report)
+                        threads, self.product, window, cut), mask,
+            dev.index, self.desc, report)
         if err:
             _build.check(self.lib, err, f"fused_pass prepare (TC "
                          f"{lane_tile}, {threads} threads per CTA)")
@@ -494,7 +662,8 @@ class PreparedChain:
     complex products in launch order (``product_form``; both factors' of a
     whole call), which ``products_note`` counts, beside ``skewed``: how
     many of its passes run on the skewed tile (``PreparedPass.skew``; the
-    whole form's none)."""
+    whole form's none).  Where pass 1 reads a window, a call takes the
+    signal; where the last pass writes a cut, it returns the output."""
 
     def __init__(self, shape, dtype, dev, passes, whole=None):
         self.in_shape, self.in_dtype, self.device = tuple(shape), dtype, dev
@@ -1140,12 +1309,13 @@ class LargeFFTPlan(PreparedPlan):
                                  f"buffer of this plan")
             buf.copy_(t)
 
-    def passes(self):
+    def passes(self, window: Edges | None = None, cut: Edges | None = None):
         """The two passes of ``apply_blocks`` as (cfg, keyword arguments of
         ``fused_pass``), in order: the split form's two launches, and what
         the whole form runs in its one (``fused_whole(x_re, x_im,
         plan.passes(), **plan.whole_geometry)``); their plain versions in
-        turn are both forms' plain version."""
+        turn are both forms' plain version.  ``window`` goes to pass 1,
+        ``cut`` to pass 2, where given (``apply_blocks``)."""
         kw = dict(inverse=self.inverse, natural=self.order == "natural")
         if self.schedule == "monolithic":
             std = dict(tables=(self.wsr, self.wsi))
@@ -1160,33 +1330,65 @@ class LargeFFTPlan(PreparedPlan):
             one = dict(tables=(self.w1r, self.w1i), **epi)
             two = dict(tables=(self.w2r, self.w2i))
         g1, g2 = self.pass_geometry
+        if window is not None:
+            one = dict(one, window=window)
+        if cut is not None:
+            two = dict(two, cut=cut)
         return [(self.cfg1, dict(one, transpose_out=True,
                                  out_dtype=self.mid_dtype, **g1, **kw)),
                 (self.cfg2, dict(two, transpose_out=False,
                                  out_dtype=self.out_dtype, **g2, **kw))]
 
-    def apply_blocks(self, xr, xi, pass_fn=None):
+    def takes_edge(self, side: str, payload: int, lead: int) -> bool:
+        """Whether the split chain's pass 1 (``side`` "window") or pass 2
+        ("cut") can take the convolution's edge of ``payload`` and ``lead``
+        (``Edges``, ``edge_fault``): the split form, blocks of payload +
+        lead samples, the pass of the one form that carries the edge, the
+        lead and the payload whole rows of its blocks."""
+        if self.fused_whole or payload + lead != self.cfg.n:
+            return False
+        first = (1,) + self.block_in_shape
+        i, shape, dtype = ((0, first, self.in_dtype) if side == "window"
+                           else (1, _out_shape(first, self.cfg1, False, True),
+                                 self.mid_dtype))
+        cfg, kw = self.passes()[i]
+        return edge_fault(side, Edges(payload, lead, payload), cfg, shape[2],
+                          dtype, kw) is None
+
+    def apply_blocks(self, xr, xi, pass_fn=None, window: Edges | None = None,
+                     cut: Edges | None = None):
         """[B, *block_in_shape] blocks in ``in_dtype`` -> [B,
         *block_out_shape] blocks in ``out_dtype``: the two passes, every
         reorder inside them.  On a CUDA tensor the plan's ``PreparedChain``
-        for this batch, dtype and device (prepared at the first call with
-        them) launches both passes in one C call, as two launches of the
-        pass or, in the whole form, one of the cluster kernel; on a CPU
+        for this batch, dtype, device and edges (prepared at the first call
+        with them) launches both passes in one C call, as two launches of
+        the pass or, in the whole form, one of the cluster kernel; on a CPU
         tensor the plain version runs (through ``fused_whole`` in the whole
         form).  ``pass_fn`` runs the split form's passes one call each
         instead, whatever the form: ``fused_pass`` (its checks, resolution
         and C call per pass) or ``fused_pass_reference`` (the plain version
-        on any device)."""
+        on any device).
+
+        The convolution's edges (``Edges``, split form only, where
+        ``takes_edge``): with ``window`` pass 1 reads the blocks from the
+        signal [S, length] ``xr``, ``xi`` in place; with ``cut`` pass 2
+        writes the convolution's output [S, length] in place of the
+        blocks."""
+        edges = {k: v for k, v in (("window", window), ("cut", cut))
+                 if v is not None}
+        if edges and self.fused_whole:
+            raise ValueError("the convolution's edges run on the split form")
         if pass_fn is None:
             if use_kernel(xr.device):
                 key = (xr.shape, xr.dtype, xr.device)
-                return self._prepare(key, lambda: PreparedChain(
-                    *key, self.passes(), whole=self.whole_geometry))(xr, xi)
+                return self._prepare(key + (window, cut), lambda: (
+                    PreparedChain(*key, self.passes(**edges),
+                                  whole=self.whole_geometry)))(xr, xi)
             if self.fused_whole:
                 return fused_whole(xr, xi, self.passes(),
                                    **self.whole_geometry)
             pass_fn = fused_pass
-        for cfg, kw in self.passes():
+        for cfg, kw in self.passes(**edges):
             xr, xi = pass_fn(xr, xi, cfg, **kw)
         return xr, xi
 

@@ -12,7 +12,10 @@ On the card a call is the forward's ``PreparedChain`` (two launches of the
 pass), one ``PreparedProduct`` (P1, ``csrc/product.cu``) that writes the
 inverse's input dtype itself, and the inverse's ``PreparedChain``: five
 launches and no torch kernel where the forward's output and the inverse's
-input are int32 or int64 blocks.  On the CPU the plain versions run.
+input are int32 or int64 blocks.  Given the convolution's edges
+(``fused_fft.Edges``), the forward's first pass reads the signal itself
+and the inverse's last pass writes the output itself: no torch kernel
+around the chain either.  On the CPU the plain versions run.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 from ..config import FFTConfig
 from ..device import resolve, use_kernel
 from ..runtime import trace
-from .fused_fft import LargeFFTPlan, PreparedPlan
+from .fused_fft import Edges, LargeFFTPlan, PreparedPlan
 from .intmath import PreparedProduct, spectrum_product
 
 
@@ -57,7 +60,7 @@ class FFTPairPlan(PreparedPlan):
     """``cfg``'s forward transform, the product with ``spectrum``, and the
     inverse transform, on [B, *block_in_shape] blocks: the port's one
     four-step FFT -> P1 -> IFFT chain (``OverlapSaveConv`` runs it between
-    its windows and its cut).
+    its windows and its cut, or hands it those as ``Edges``).
 
     The forward is ``LargeFFTPlan(cfg, n1, n2, order="raw")`` (``factors``
     = (n1, n2), else that plan's default split); the inverse is
@@ -124,7 +127,17 @@ class FFTPairPlan(PreparedPlan):
                             self.spectrum_width, self.inv.in_dtype,
                             product_fn)
 
-    def apply_blocks(self, xr, xi, pass_fn=None, product_fn=None):
+    def edge_sides(self, payload: int, lead: int) -> tuple:
+        """The convolution's edges of ``payload`` and ``lead`` that this
+        chain can take (``LargeFFTPlan.takes_edge``): "window" where the
+        forward's first pass can read the signal, "cut" where the inverse's
+        last pass can write the output."""
+        return tuple(side for side, plan in (("window", self.fwd),
+                                             ("cut", self.inv))
+                     if plan.takes_edge(side, payload, lead))
+
+    def apply_blocks(self, xr, xi, pass_fn=None, product_fn=None,
+                     window: Edges | None = None, cut: Edges | None = None):
         """[B, *fwd.block_in_shape] blocks in ``fwd.in_dtype`` -> the
         inverse's [B, *fwd.block_in_shape] blocks in ``inv.out_dtype``.  On
         the card the passes go out as the plans' prepared chains and the
@@ -132,13 +145,17 @@ class FFTPairPlan(PreparedPlan):
         run them one call each instead (``fused_pass``,
         ``spectrum_product``), and ``pass_fn=fused_pass_reference`` with
         ``product_fn=spectrum_product_reference`` the plain versions on any
-        device."""
-        fr, fi = self.fwd.apply_blocks(xr, xi, pass_fn=pass_fn)
+        device.  With ``window`` the input is the convolution's signal [S,
+        length], with ``cut`` the output its result [S, length]
+        (``LargeFFTPlan.apply_blocks``; ``edge_sides`` says which the
+        chain takes)."""
+        fr, fi = self.fwd.apply_blocks(xr, xi, pass_fn=pass_fn,
+                                       window=window)
         # where the caller handed temporaries (the convolution's blocks),
         # their memory is free again before P1 and the inverse allocate
         del xr, xi
         return self.inv.apply_blocks(*self.product(fr, fi, product_fn),
-                                     pass_fn=pass_fn)
+                                     pass_fn=pass_fn, cut=cut)
 
     def forward(self, x_re, x_im):
         """``apply_blocks`` on blocks of the forward's input shape and

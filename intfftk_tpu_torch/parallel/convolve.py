@@ -24,7 +24,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..device import use_kernel
 from ..golden.convolve import ConvSpec, taps_spectrum_int
-from ..ops.fused_fft import PreparedPlan
+from ..ops.fused_fft import Edges, PreparedPlan
 from ..ops.pair import FFTPairPlan, product_step
 from ..runtime import trace
 from .four_step import local_plan
@@ -65,7 +65,12 @@ class OverlapSaveConv(PreparedPlan):
       ``FFTPairPlan`` (``pair``) of ``spec.fft_cfg``, the taps spectrum and
       ``spec.ifft_cfg``'s inverse: the raw-order four-step forward (two
       launches), the product (one) and the swapped-factor inverse (two),
-      with the windows before it and the cut after it; for n <= 4096 a
+      with the windows before it and the cut after it; without a ``mesh``,
+      where the lead M - 1 and the payload are whole rows of the
+      transforms' blocks, the chain's first load reads the windows from
+      the signal and its last store writes the cut (``Edges``,
+      ``FFTPairPlan.edge_sides``, ``edges``): then nothing but the five
+      launches runs between a call's input and its output; for n <= 4096 a
       ``FusedAxisFFT`` pair (``fwd``, ``inv``), one launch each, with the
       spectrum in natural order (``hr``, ``hi``);
     * "xla": the staged ``FFTPlan`` pair, on the CPU only.
@@ -84,6 +89,12 @@ class OverlapSaveConv(PreparedPlan):
     rank's contiguous chunk [..., T/D] of a signal split over ``axis``;
     T must be a multiple of payload * D, and each chunk at least M - 1
     samples long; the device is the mesh's unless named.
+
+    ``edges``: the sides of the chain that read and write the signal in
+    place ("window", "cut"), () where torch's windows and cut run (a
+    ``mesh``, whose heads come from a neighbour; the single-pass engine; a
+    lead or payload of no whole rows).  While a recording is open the
+    ``plan.build`` span notes them, "edges window cut" or "edges none".
     """
 
     @trace.spanned("plan.build")
@@ -128,6 +139,9 @@ class OverlapSaveConv(PreparedPlan):
             for name, h in (("hr", hr), ("hi", hi)):
                 self.register_buffer(name, torch.as_tensor(
                     h.astype(np.int32), device=device))
+        self.edges = (self.pair.edge_sides(spec.payload, spec.taps_len - 1)
+                      if self.large and mesh is None else ())
+        trace.note("edges " + (" ".join(self.edges) or "none"))
 
     def _blocks(self, xr, xi, pass_fn, product_fn, heads=None):
         """[..., T] on the device (and the M - 1 samples before each row,
@@ -145,25 +159,37 @@ class OverlapSaveConv(PreparedPlan):
                  else torch.cat([head, x], -1))
             return e.unfold(-1, n, lpay)
 
-        def cut(y):
+        def trim(y):
             return y.reshape(shp + (-1, n))[..., m - 1:].reshape(
                 shp + (t,)).to(self.out_dtype)
 
         hr, hi = (None, None) if heads is None else heads
-        br, bi = windows(xr, hr), windows(xi, hi)
         if self.large:
+            # the chain reads the windows from the signal and writes the
+            # cut in place where it takes those edges (never on a mesh)
+            edges = Edges(lpay, m - 1, t)
+            window, cut = (edges if side in self.edges else None
+                           for side in ("window", "cut"))
             fwd = self.pair.fwd
-            blk = lambda b: b.reshape((-1,) + fwd.block_in_shape).to(
-                fwd.in_dtype).contiguous()
-            yr, yi = self.pair.apply_blocks(blk(br), blk(bi), pass_fn,
-                                            product_fn)
+            # temporaries go straight to the pair, which drops them once
+            # the forward has read them
+            src = ((lambda x, h: x.reshape(-1, t)) if window else
+                   lambda x, h: windows(x, h).reshape(
+                       (-1,) + fwd.block_in_shape).to(
+                           fwd.in_dtype).contiguous())
+            yr, yi = self.pair.apply_blocks(src(xr, hr), src(xi, hi),
+                                            pass_fn, product_fn,
+                                            window=window, cut=cut)
+            if cut:
+                return yr.reshape(shp + (t,)), yi.reshape(shp + (t,))
         else:
+            br, bi = windows(xr, hr), windows(xi, hi)
             fr, fi = self.fwd(br, bi)
             yr, yi = self.inv(*product_step(
                 self, fr, fi, self.hr, self.hi, spec.product_shift,
                 spec.product_width, spec.spectrum_width, self.out_dtype,
                 product_fn))
-        return cut(yr), cut(yi)
+        return trim(yr), trim(yi)
 
     def forward(self, x_re, x_im, pass_fn=None, product_fn=None):
         """Integer [..., T] (tensors or arrays) -> (y_re, y_im) [..., T] on

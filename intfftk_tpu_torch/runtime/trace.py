@@ -33,7 +33,11 @@ The spans, by name:
   inter-factor twiddle comes from and the bytes of table each call's pass
   1 reads for it, "epi device 134217728" at 4096 x 4096
   (``fused_fft.epi_table_bytes``: 8 n1 n2 from an [n1, n2] table, the
-  coarse table's 4096 for "inkernel");
+  coarse table's 4096 for "inkernel"); an ``OverlapSaveConv``'s the edges
+  its chain takes (``OverlapSaveConv.edges``): "edges window cut" where
+  the forward's first pass reads the signal and the inverse's last pass
+  writes the output in place, "edges none" where torch's windows and cut
+  run (a mesh, the single-pass engine, a lead of no whole rows);
 * ``twiddle.table``: the making of that table at a plan's build:
   ``twiddle_synth.device_circle_table`` (the generator, one launch on the
   card, counted in its ``launches``), the host's ``circle_table`` or the

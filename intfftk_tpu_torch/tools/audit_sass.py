@@ -382,10 +382,11 @@ def pass_pattern(wide: bool = False, threads: int | None = None,
     tile: the form the headline takes; 2^64 on the int64 tile); with
     ``skew`` the forward's kernel on the skewed tile (the headline's first
     pass, whose store is turned and in natural order), else the padded
-    one (its second).  A library whose kernel has no thread count, no
-    product form or no skew among its template parameters (before the
-    tuning layer, the modular form, the skewed tile) matches the exact
-    form and the padded tile too."""
+    one (its second); never an instance with the convolution's edge.  A
+    library whose kernel has no thread count, no product form, no skew or
+    no edge among its template parameters (before the tuning layer, the
+    modular form, the skewed tile, the edges) matches the exact form, the
+    padded tile and no edge too."""
     if threads is None:
         from ..ops.tuning import TUNINGS, pass_geometry
 
@@ -393,7 +394,8 @@ def pass_pattern(wide: bool = False, threads: int | None = None,
     form = "Lb1E" if mod else "Lb0E" if skew else "(?:Lb0E)?"
     tile = "Lb1E" if skew else "(?:Lb0E)?"
     return (r"fused_pass_kernelI" + ("lll" if wide else "ssi")
-            + rf"Lb{int(inverse)}ELb0E(?:Li{threads}E)?{form}{tile}E")
+            + rf"Lb{int(inverse)}ELb0E(?:Li{threads}E)?{form}{tile}"
+            + r"(?:Li0E)?E")
 
 
 def chain_loop_sizes(sass: dict) -> dict:

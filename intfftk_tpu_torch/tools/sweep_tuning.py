@@ -412,8 +412,8 @@ def attributes(form, dev) -> tuple[int, int, int]:
     err = lib.intfft_pass_attributes(in_size, out_size, int(inverse),
                                      int(two_d), rows, g["lane_tile"],
                                      g["threads"], int(synth),
-                                     int(modular(product)), 0, dev.index,
-                                     out)
+                                     int(modular(product)), 0, 0,
+                                     dev.index, out)
     _build.check(lib, err, "intfft_pass_attributes")
     return out[0], out[1], out[3]
 

@@ -120,32 +120,174 @@ def test_conv_four_step_engine_narrow():
     assert port.pair.inv.cfg == conv_spec_from_jax(spec).ifft_cfg
 
 
-def test_conv_frees_its_blocks_before_the_inverse(monkeypatch):
-    """The windows cast to the forward's blocks are garbage once the
-    forward has read them: nothing holds them while P1 and the inverse
-    allocate (on the card, a graph's pool reuses their memory)."""
-    spec = make_conv_spec(n=4096, taps_len=129, factors=(64, 64))
-    h = _taps(129, 16)
+#: Specs of the four-step engine at a small size: (make_conv_spec's
+#: arguments, the edges the chain takes).  A 44-bit product runs the
+#: inverse on int64 blocks with products modulo 2^64 (the cut's form); a
+#: 32-bit one on int32 blocks (no cut); a lead of no whole rows of 64
+#: takes no edge.
+EDGE_SPECS = {
+    "window_cut": (dict(n=4096, taps_len=129, factors=(64, 64),
+                        twiddle_width=16, max_spectrum_width=25,
+                        max_product_width=44), ("window", "cut")),
+    "window_only": (dict(n=4096, taps_len=129, factors=(64, 64)),
+                    ("window",)),
+    "lead_not_whole_rows": (dict(n=4096, taps_len=100, factors=(64, 64),
+                                 twiddle_width=16, max_spectrum_width=25,
+                                 max_product_width=44), ()),
+}
+
+
+def _glue(port):
+    """The same convolution with torch's windows and cut (no edges)."""
+    port.edges = ()
+    return port
+
+
+@pytest.mark.parametrize("engine", ["edges", "glue"])
+def test_conv_frees_its_blocks_before_the_inverse(monkeypatch, engine):
+    """Nothing of the signal's size that the convolution made lives while
+    P1 and the inverse allocate (on the card, a graph's pool reuses its
+    memory).  With the edges no window blocks exist: the forward reads
+    views of the caller's signal and the inverse writes the output.  On
+    torch's windows and cut (a lead of no whole rows; the mesh), the
+    windows cast to the forward's blocks are garbage once the forward has
+    read them."""
+    kw, sides = EDGE_SPECS["window_cut" if engine == "edges"
+                           else "lead_not_whole_rows"]
+    spec = make_conv_spec(**kw)
+    h = _taps(spec.taps_len, 16)
     port = OverlapSaveConv(conv_spec_from_jax(spec), *h, device="cpu")
-    blocks, alive = [], []
+    assert port.edges == sides
+    x = [torch.as_tensor(v, dtype=torch.int32)
+         for v in _signal((2 * spec.payload,), 16)]
+    seen, alive, outs = [], [], []
     fwd, inv = port.pair.fwd.apply_blocks, port.pair.inv.apply_blocks
 
-    def forward(xr, xi, pass_fn=None):
+    def forward(xr, xi, pass_fn=None, window=None):
+        seen.extend((x.data_ptr(), tuple(x.shape), window) for x in (xr, xi))
         blocks.extend(weakref.ref(x) for x in (xr, xi))
-        return fwd(xr, xi, pass_fn=pass_fn)
+        return fwd(xr, xi, pass_fn=pass_fn, window=window)
 
-    def inverse(xr, xi, pass_fn=None):
+    def inverse(xr, xi, pass_fn=None, cut=None):
         alive.extend(b() is not None for b in blocks)
-        return inv(xr, xi, pass_fn=pass_fn)
+        y = inv(xr, xi, pass_fn=pass_fn, cut=cut)
+        outs.extend(v.data_ptr() for v in y)
+        return y
 
+    blocks = []
     monkeypatch.setattr(port.pair.fwd, "apply_blocks", forward)
     monkeypatch.setattr(port.pair.inv, "apply_blocks", inverse)
-    x = _signal((2 * spec.payload,), 16)
     yr, yi = port(*x)
+    if engine == "edges":
+        window = seen[0][2]
+        assert window is not None and window.lead == spec.taps_len - 1
+        # views of the caller's own signal, no copy
+        assert [s[:2] for s in seen] == [
+            (v.data_ptr(), (1, 2 * spec.payload)) for v in x]
+        assert outs == [yr.data_ptr(), yi.data_ptr()]
+    else:
+        assert [s[2] for s in seen] == [None, None]
     assert alive == [False, False]
-    gr, gi = overlap_save_int(*x, *h, spec)
+    gr, gi = overlap_save_int(*(v.numpy() for v in x), *h, spec)
     np.testing.assert_array_equal(yr.numpy(), gr)
     np.testing.assert_array_equal(yi.numpy(), gi)
+
+
+#: (spec, signal shape in payloads, seed): one payload (block 0's lead of
+#: zeros alone), several, a batch of three rows (each row's block 0 its
+#: own lead), and the specs that take the window alone or no edge.
+EDGE_CASES = {
+    "one_payload": ("window_cut", (1,), 1),
+    "several_payloads": ("window_cut", (5,), 2),
+    "batched_rows": ("window_cut", (3, 2), 3),
+    "window_only": ("window_only", (2, 3), 4),
+    "lead_not_whole_rows": ("lead_not_whole_rows", (3,), 5),
+}
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_conv_edges_equal_golden_and_glue(case):
+    """The four-step engine with the edges (the forward's pass 1 reading
+    the signal in place, the inverse's pass 2 writing the output in place;
+    the plain ``fused_pass_reference`` applies the kernel's offsets and
+    predicates) equals golden ``overlap_save_int`` and torch's windows and
+    cut; a spec whose lead is no whole rows takes no edge and keeps the
+    glue path."""
+    name, shape, seed = EDGE_CASES[case]
+    kw, sides = EDGE_SPECS[name]
+    spec = make_conv_spec(**kw)
+    h = _taps(spec.taps_len, 16, seed=seed)
+    x = _signal(shape[:-1] + (shape[-1] * spec.payload,), 16, seed=seed)
+    # adversarial full-scale samples on each row's first and last block
+    for v in x:
+        v[..., :spec.payload:3] = (1 << 15) - 1
+        v[..., -spec.payload::5] = -(1 << 15)
+    port = OverlapSaveConv(conv_spec_from_jax(spec), *h, device="cpu")
+    assert port.edges == sides
+    plain = dict(pass_fn=fused_pass_reference,
+                 product_fn=spectrum_product_reference)
+    yr, yi = port(*x, **plain)
+    gr, gi = overlap_save_int(*x, *h, spec)
+    assert tuple(yr.shape) == x[0].shape
+    np.testing.assert_array_equal(yr.numpy(), gr)
+    np.testing.assert_array_equal(yi.numpy(), gi)
+    qr, qi = _glue(port)(*x, **plain)
+    assert torch.equal(qr, yr) and torch.equal(qi, yi)
+
+
+def test_pair_without_edges_is_unchanged():
+    """``FFTPairPlan.apply_blocks`` without edges runs the passes with the
+    keyword arguments it always had (no window, no cut) on blocks, and the
+    convolution's edges through the same pair give the glue path's bits."""
+    kw, _ = EDGE_SPECS["window_cut"]
+    spec = make_conv_spec(**kw)
+    port = OverlapSaveConv(conv_spec_from_jax(spec), *_taps(129, 16),
+                           device="cpu")
+    calls = []
+
+    def spy(xr, xi, cfg, **kw):
+        calls.append(sorted(kw))
+        return fused_pass_reference(xr, xi, cfg, **kw)
+
+    blocks = [torch.zeros((2,) + port.pair.fwd.block_in_shape,
+                          dtype=torch.int32) for _ in range(2)]
+    yr, _ = port.pair.apply_blocks(*blocks, pass_fn=spy)
+    assert yr.shape == (2,) + port.pair.inv.block_out_shape
+    assert all("window" not in c and "cut" not in c for c in calls)
+    assert len(calls) == 4
+    calls.clear()
+    x = _signal((spec.payload,), 16)
+    port(*x, pass_fn=spy, product_fn=spectrum_product_reference)
+    assert ["window" in c for c in calls] == [True, False, False, False]
+    assert ["cut" in c for c in calls] == [False, False, False, True]
+
+
+@pytest.mark.parametrize("name", list(EDGE_SPECS))
+def test_conv_build_notes_its_edges(name):
+    """The convolution's ``plan.build`` span notes the edges its chain
+    takes: "edges window cut" on the four-step engine where the lead and
+    the payload are whole rows, "edges none" where torch's windows and cut
+    run; an ``FFTPairPlan`` alone notes no edges (it reads and writes
+    blocks unless a caller hands it ``Edges``)."""
+    from intfftk_tpu_torch.runtime import trace
+
+    kw, sides = EDGE_SPECS[name]
+    spec = conv_spec_from_jax(make_conv_spec(**kw))
+    with trace.recording() as rec:
+        OverlapSaveConv(spec, *_taps(spec.taps_len, 16), device="cpu")
+    assert rec.spans[0].name == "plan.build"
+    assert rec.spans[0].note == "edges " + (" ".join(sides) or "none")
+    with trace.recording() as rec:
+        port = OverlapSaveConv(conv_spec_from_jax(make_conv_spec(
+            n=256, taps_len=33)), *_taps(33, 16), device="cpu")
+    assert not port.large and rec.spans[0].note == "edges none"
+    with trace.recording() as rec:
+        FFTPairPlan(spec.fft_cfg, (np.zeros(spec.n, np.int64),) * 2,
+                    product_shift=spec.product_shift,
+                    spectrum_width=spec.spectrum_width,
+                    product_width=spec.product_width, factors=spec.factors,
+                    device="cpu")
+    assert not any("edges" in s.note for s in rec.spans)
 
 
 def test_conv_errors():

@@ -555,7 +555,7 @@ def test_skewed_instances_spill_nothing_on_card(dev, form):
             out = (ctypes.c_int * 5)()
             assert lib.intfft_pass_attributes(
                 size_in, size_out, 0, 0, rows, g["lane_tile"], g["threads"],
-                int(size_out < 8), product, skew, device, out) == 0
+                int(size_out < 8), product, skew, 0, device, out) == 0
             read[product, skew] = tuple(out)
     cap = 128 if size_out == 8 else 64
     for product in (0, 1):
@@ -566,7 +566,7 @@ def test_skewed_instances_spill_nothing_on_card(dev, form):
     out = (ctypes.c_int * 5)()
     assert lib.intfft_pass_attributes(
         size_in, size_out, 1, 0, rows, g["lane_tile"], g["threads"], 0, 1,
-        1, device, out) != 0
+        1, 0, device, out) != 0
 
 
 # ------------------------------------ each tile's two forms of the product
@@ -653,6 +653,94 @@ def test_conv4_against_golden_on_card(dev, payloads):
     assert yr.dtype == torch.int64
     np.testing.assert_array_equal(yr.cpu().numpy(), gr)
     np.testing.assert_array_equal(yi.cpu().numpy(), gi)
+
+
+@pytest.mark.parametrize("payloads, rows", [(1, 1), (4, 3), (64, 1)])
+def test_conv4_edges_captured_against_golden(dev, payloads, rows):
+    """The benchmark's convolution with its edges (the forward's pass 1
+    reading the signal in place, the inverse's pass 2 writing the output
+    in place), captured, at T = 1, 4 and 64 payloads (4 on three signal
+    rows, each with its own block 0), full-scale 14-bit samples on every
+    row's first and last block: bit-equal to golden overlap_save_int and
+    to the eager call, on a first input and (T <= 4) on a replay with
+    new inputs."""
+    spec, h, conv = _conv4(dev)
+    assert conv.edges == ("window", "cut")
+    rng = np.random.default_rng(100 + payloads)
+    lim = 1 << 13
+    t = payloads * spec.payload
+    call = conv.capture()
+    for _ in range(1 if payloads == 64 else 2):
+        x = rng.integers(-lim, lim, (2, rows, t))
+        x[0, :, :spec.payload:3] = lim - 1
+        x[1, :, -spec.payload::7] = -lim
+        xd = [torch.as_tensor(v, dtype=torch.int32, device=dev) for v in x]
+        yr, yi = call(*xd)
+        er, ei = conv(*xd)
+        torch.cuda.synchronize()
+        assert yr.shape == (rows, t) and yr.dtype == torch.int64
+        assert torch.equal(yr, er) and torch.equal(yi, ei)
+        gr, gi = overlap_save_int(*x, *h, spec)
+        np.testing.assert_array_equal(yr.cpu().numpy(), gr)
+        np.testing.assert_array_equal(yi.cpu().numpy(), gi)
+
+
+def test_conv4_captured_call_runs_no_torch_kernel(dev):
+    """Under torch.profiler a replay of the captured convolution with its
+    edges runs the port's five kernels (four passes and P1) and no kernel,
+    copy or fill of torch's or the CUDA runtime's (the names
+    ``glue_ms_per_call`` reads)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    spec, _, conv = _conv4(dev)
+    x = [torch.ones(4 * spec.payload, dtype=torch.int32, device=dev)
+         for _ in range(2)]
+    call = conv.capture()
+    call(*x)
+    static = call.static_inputs(*x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call(*static)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    assert sum("fused_pass_kernel" in n for n in names) == 12, names
+    assert sum("product_kernel" in n for n in names) == 3, names
+    glue = ("at::native::", "at::cuda::", "memcpy", "memset")
+    assert not [n for n in names if any(g in n.lower() for g in glue)]
+
+
+def test_conv4_edge_kernels_spill_nothing(dev):
+    """The two edge instances at the geometry their passes launch with
+    (``intfft_pass_attributes``): no local memory, registers within the
+    cap of ``min_ctas``, and as many CTAs per SM as their plain twins."""
+    import ctypes
+
+    from intfftk_tpu_torch.ops import _build
+
+    _, _, conv = _conv4(dev)
+    device = torch.cuda.current_device()
+    for edge, (plan, i, size, inverse, product) in enumerate(
+            ((conv.pair.fwd, 0, 4, 0, 0), (conv.pair.inv, 1, 8, 1, 1)), 1):
+        g = plan.pass_geometry[i]
+        lib = _build.library(g["threads"])
+        read = []
+        for e in (0, edge):
+            out = (ctypes.c_int * 5)()
+            assert lib.intfft_pass_attributes(
+                size, size, inverse, 0, 256, g["lane_tile"], g["threads"], 0,
+                product, 0, e, device, out) == 0
+            read.append(tuple(out))
+        plain, edged = read
+        assert edged[1] == 0 and edged[0] <= (128 if size == 8 else 64), read
+        assert edged[3] == plain[3], read
+        # the edge of the other form is refused
+        out = (ctypes.c_int * 5)()
+        assert lib.intfft_pass_attributes(
+            size, size, inverse, 0, 256, g["lane_tile"], g["threads"], 0,
+            1 - product, 0, edge, device, out) != 0
 
 
 def test_config2_chain_both_forms_on_card(dev, monkeypatch):
@@ -903,7 +991,8 @@ def test_prepare_refuses_modular_past_the_bound(dev):
         # 256 threads
         return lib.intfft_prepare_pass(
             2, 256, 40, out_size, out_size, dw, scale, 0, 15, 0, inverse, 1,
-            0, 1, 0, 0, 0, 0, 16, 256, product, tables, device, desc, report)
+            0, 1, 0, 0, 0, 0, 16, 256, product, 0, 0, 0, 0, tables, device,
+            desc, report)
 
     assert prepare(49, 8, 1) == 0 and prepare(49, 8, 0) == 0
     assert prepare(50, 8, 1) == 1 and prepare(50, 8, 0) == 0
@@ -926,10 +1015,10 @@ def test_prepare_refuses_modular_past_the_bound(dev):
     # order 7's 49 bits, the epilogue's 50
     assert lib.intfft_prepare_pass(
         2, 256, 40, 8, 8, 42, 0, 0, 15, 0, 1, 1, 0, 1, 0, 0, 0, 0, 16, 256,
-        1, 1, device, desc, report) == 0
+        1, 0, 0, 0, 0, 1, device, desc, report) == 0
     assert lib.intfft_prepare_pass(
         2, 256, 40, 8, 8, 42, 0, 0, 15, 0, 1, 1, 0, 1, 0, 0, 0, 0, 16, 256,
-        1, 1 | 4, device, desc, report) == 1
+        1, 0, 0, 0, 0, 1 | 4, device, desc, report) == 1
 
 
 @pytest.mark.parametrize("out_size", [8, 4], ids=["int64", "int32"])
@@ -953,7 +1042,7 @@ def test_prepare_refuses_limbs_past_their_shift(dev, out_size):
         # threads
         return lib.intfft_prepare_pass(
             2, 256, 40, out_size, out_size, 8, 1, 0, shift, 0, 1, 1, 0, 1,
-            0, 0, 0, 0, 16, 256, 0, 1 | 4, device, desc, report)
+            0, 0, 0, 0, 16, 256, 0, 0, 0, 0, 0, 1 | 4, device, desc, report)
 
     assert prepare(0) == 0 and prepare(25) == 0 and prepare(32) == 0
     if out_size == 8:
@@ -992,7 +1081,7 @@ def test_product_form_registers_on_card(dev, case):
         out = (ctypes.c_int * 5)()
         assert lib.intfft_pass_attributes(
             size, size, inverse, 0, 256, g["lane_tile"], g["threads"], 0,
-            product, 0, torch.cuda.current_device(), out) == 0
+            product, 0, 0, torch.cuda.current_device(), out) == 0
         read[product] = tuple(out)
     if case == "conv4_inverse":
         assert max(read[0][0], read[1][0]) <= 128, read
@@ -1417,7 +1506,7 @@ def _raw_pass(lib, x, y, tables, rows, cols, tc, threads, dev):
         x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(),
         tables[0].data_ptr(), tables[1].data_ptr(), None, None, None, None,
         None, None, 1, rows, cols, 4, 4, 16, 0, 0, 15, 0, 0, 1, 0, 0,
-        0, 0, 0, 0, tc, threads, 0, torch.cuda.current_device(),
+        0, 0, 0, 0, tc, threads, 0, 0, 0, 0, 0, torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream, out)
     torch.cuda.synchronize()
     return err, out[0]

@@ -209,3 +209,25 @@ def test_positional_order_is_the_reference_s(world1):
     assert conv.mesh is world1 and conv.axis == FFT_AXIS
     for u, v in zip(conv(*xs), OverlapSaveConv(spec, *h, mesh=world1)(*xs)):
         np.testing.assert_array_equal(u.numpy(), v.numpy())
+
+
+def test_conv_edges_off_on_a_mesh(world1):
+    """On a mesh the M - 1 samples before a chunk come from the left
+    neighbour, so the convolution runs torch's windows and cut and its
+    ``plan.build`` notes "edges none"; the same four-step spec without a
+    mesh reads and writes the signal in place ("edges window cut"), with
+    the same bits on a mesh of one rank."""
+    from intfftk_tpu_torch.runtime import trace
+
+    spec = port_conv_spec(n=4096, taps_len=129, factors=(64, 64),
+                          twiddle_width=16, max_spectrum_width=25,
+                          max_product_width=44)
+    h, xs = _taps(129, 16, 2), _taps(spec.payload * 3, 16, 3)
+    with trace.recording() as rec:
+        a = OverlapSaveConv(spec, *h, device="cpu")
+        b = OverlapSaveConv(spec, *h, mesh=world1)
+    assert [s.note for s in rec.spans if s.parent == -1] == [
+        "edges window cut", "edges none"]
+    assert a.edges == ("window", "cut") and b.edges == ()
+    for u, v in zip(a(*xs), b(*xs)):
+        np.testing.assert_array_equal(u.numpy(), v.numpy())

@@ -285,6 +285,6 @@ def test_16m_passes_spill_nothing(dev):
         out = (ctypes.c_int * 5)()
         assert p.lib.intfft_pass_attributes(
             2, 2, 0, 0, 4096, geometry["lane_tile"], geometry["threads"], 0,
-            1, int(p.skew > 0), torch.cuda.current_device(), out) == 0
+            1, int(p.skew > 0), 0, torch.cuda.current_device(), out) == 0
         assert out[1] == 0, tuple(out)
         assert out[4] == p.geometry[2], tuple(out)

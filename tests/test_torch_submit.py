@@ -31,6 +31,10 @@ from intfftk_tpu_torch.runtime import CapturedCall, captured, trace
 
 #: Which table pointers a pass takes, as the C entries' mask: w, t2, e, c.
 MASK_BITS = (1, 2, 4, 8)
+#: The integers of a pass the C entries take (``fused_fft._pass_ints``):
+#: the product form at 20, the edge's kind, blocks, payload and lead at
+#: 21-24.
+N_INTS = 25
 
 
 class StubLibrary:
@@ -55,7 +59,7 @@ class StubLibrary:
         # x, y, then the tables: recorded in the chain's order (x, tables,
         # y)
         ptrs = (*a[:2], *a[4:12], *a[2:4])
-        ints, out = tuple(a[12:33]), a[35]
+        ints, out = tuple(a[12:12 + N_INTS]), a[14 + N_INTS]
         self.pass_calls += 1
         self.launched.append(("pass", ints, ptrs))
         out[0] = 1
@@ -63,8 +67,8 @@ class StubLibrary:
         return 0
 
     def intfft_prepare_pass(self, *a):
-        ints, mask, device, desc, report = tuple(a[:21]), a[21], a[22], \
-            a[23], a[24]
+        ints = tuple(a[:N_INTS])
+        mask, device, desc, report = a[N_INTS:N_INTS + 4]
         self.prepared.append((ints, mask, device))
         desc[0] = len(self.prepared)            # the descriptor's identity
         report[0], report[1] = ints[18], ints[19]
@@ -420,6 +424,45 @@ def test_conv_product_forms_reach_the_c_entries(lib, product_width,
         *(torch.zeros((2,) + conv.pair.inv.block_in_shape, dtype=torch.int64)
           for _ in range(2)), pass_fn=fused_pass)
     assert [ints[20] for _, ints, _ in lib.launched] == [flag, flag]
+
+
+def test_conv_edges_reach_the_c_entries(lib):
+    """The convolution's chains with the edges hand intfft_prepare_pass,
+    as fused_pass hands intfft_fused_pass, the edge of each pass as its
+    last four integers: the forward's pass 1 the window (1, payloads per
+    row, payload, lead), the inverse's pass 2 the cut (2, ...), the other
+    two none; the batch is every row's payloads.  The forward's first
+    pass reads the caller's signal and the inverse's last writes the
+    call's output, [rows, T] int64.  The pair alone hands no edge."""
+    spec = make_conv_spec(n=4096, taps_len=129, factors=(64, 64),
+                          twiddle_width=16, max_spectrum_width=25,
+                          max_product_width=44)
+    rng = np.random.default_rng(7)
+    conv = OverlapSaveConv(spec, rng.integers(-99, 99, 129),
+                           np.zeros(129, np.int64), device="cpu")
+    assert conv.edges == ("window", "cut")
+    t = 3 * spec.payload
+    x = [torch.as_tensor(rng.integers(-99, 99, (2, t)), dtype=torch.int32)
+         for _ in range(2)]
+    yr, yi = conv(*x)
+    assert yr.shape == (2, t) and yr.dtype == torch.int64
+    edge = (3, spec.payload, spec.taps_len - 1)
+    none = (0, 0, 0, 0)
+    assert [ints[21:] for ints, _, _ in lib.prepared] == [
+        (1, *edge), none, none, (2, *edge)]
+    assert [ints[0] for ints, _, _ in lib.prepared] == [6] * 4
+    chained = [c for c in lib.launched if c[0] == "chain"]
+    assert chained[0][2][:2] == (x[0].data_ptr(), x[1].data_ptr())
+    assert chained[-1][2][10:] == (yr.data_ptr(), yi.data_ptr())
+    lib.launched.clear()
+    conv(*x, pass_fn=fused_pass)
+    assert [ints for entry, ints, _ in lib.launched if entry == "pass"] == [
+        ints for ints, _, _ in lib.prepared]
+    lib.prepared.clear()
+    blocks = [torch.zeros((2,) + conv.pair.fwd.block_in_shape,
+                          dtype=torch.int32) for _ in range(2)]
+    conv.pair.apply_blocks(*blocks)
+    assert [ints[21:] for ints, _, _ in lib.prepared] == [none] * 4
 
 
 @pytest.mark.parametrize("cfg,kw,form,skewed", [
