@@ -24,6 +24,9 @@ import torch
 
 from . import trace
 
+#: the profiler's state, read on every call (``trace.profiler``)
+_profiler = trace.profiler
+
 
 def _counters():
     """The port's launch counters: the functions whose ``launches``
@@ -44,6 +47,29 @@ class _Graph:
     def __init__(self, graph, inputs, outputs, launches):
         self.graph, self.inputs = graph, inputs
         self.outputs, self.launches = outputs, launches
+
+
+class _Open:
+    """A span of ``CapturedCall.__call__``, open from its construction to
+    ``close()``: a range of the profiler's trace where ``ranged``, and its
+    start and end on the clock where ``rec`` (the open recording) is
+    given."""
+
+    __slots__ = ("range", "timed", "start", "end")
+
+    def __init__(self, name, ranged, rec):
+        self.range = trace.Range(name) if ranged else None
+        if ranged:
+            self.range.__enter__()
+        self.timed = rec is not None
+        self.start = time.time_ns() if self.timed else 0
+        self.end = 0
+
+    def close(self):
+        if self.timed:
+            self.end = time.time_ns()
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
 
 
 class CapturedCall:
@@ -116,59 +142,52 @@ class CapturedCall:
         return None if g is None else g.inputs
 
     def __call__(self, *args):
-        if trace.on:
-            return self._call_traced(args)
-        key = self._key(args)
-        g = self._graphs.get(key)
-        if g is None:
-            g = self._graphs[key] = self._capture(key[0], args)
-        else:
-            for s, a in zip(g.inputs, args):
-                if a.data_ptr() != s.data_ptr() or a.stride() != s.stride():
-                    s.copy_(a)
-        with torch.cuda.device(key[0]):
-            g.graph.replay()
-        for counter, n in g.launches:
-            counter.launches += n
-        return g.outputs
-
-    def _call_traced(self, args):
-        """``__call__`` while a recording is open: the same steps, read on
-        the clock, then recorded as a ``graph.call`` span with
-        ``graph.key``, ``graph.copy_in`` (where a copy is made) and
-        ``graph.launch`` inside it; the recording's own work falls after
-        the call's end.  The first call with a key is set-up: its
-        ``graph.capture`` is a span of its own, and no ``graph.call`` is
-        recorded."""
-        start = time.time_ns()
-        key = self._key(args)
-        g = self._graphs.get(key)
-        if g is None:
-            g = self._graphs[key] = self._capture(key[0], args)
+        """One call: the key, the capture (first call) or the copies into
+        the static inputs, the replay and the counters.  In each sink that
+        is on (``trace``) the call is a ``graph.call`` span holding
+        ``graph.copy_in`` (where a copy is made) and ``graph.launch`` (the
+        replay alone): the profiler's ranges open and close around these
+        statements, and the recording's spans are read on the clock and
+        recorded after the call's end.  The first call with a key is
+        set-up: its ``graph.capture`` is a span of its own, no
+        ``graph.launch`` is opened, and the recording keeps no
+        ``graph.call``.  With both sinks off no clock is read and no span
+        object is built."""
+        rec, ranged = trace.active, _profiler._is_profiler_enabled
+        whole = (_Open("graph.call", ranged, rec)
+                 if ranged or rec is not None else None)
+        try:
+            key = self._key(args)
+            g = self._graphs.get(key)
+            first = g is None
+            copy = launch = None
+            if first:
+                g = self._graphs[key] = self._capture(key[0], args)
+            else:
+                for s, a in zip(g.inputs, args):
+                    if (a.data_ptr() != s.data_ptr()
+                            or a.stride() != s.stride()):
+                        if copy is None and whole is not None:
+                            copy = _Open("graph.copy_in", ranged, rec)
+                        s.copy_(a)
+                if copy is not None:
+                    copy.close()
             with torch.cuda.device(key[0]):
+                if whole is not None and not first:
+                    launch = _Open("graph.launch", ranged, rec)
                 g.graph.replay()
+                if launch is not None:
+                    launch.close()
             for counter, n in g.launches:
                 counter.launches += n
-            return g.outputs
-        keyed = time.time_ns()
-        stale = [(s, a) for s, a in zip(g.inputs, args)
-                 if a.data_ptr() != s.data_ptr() or a.stride() != s.stride()]
-        for s, a in stale:
-            s.copy_(a)
-        copied = time.time_ns() if stale else None
-        with torch.cuda.device(key[0]):
-            launched = time.time_ns()
-            g.graph.replay()
-            done = time.time_ns()
-        for counter, n in g.launches:
-            counter.launches += n
-        end = time.time_ns()
-        rec = trace.active
-        i = rec.add("graph.call", start, end, call=True)
-        rec.add("graph.key", start, keyed, i)
-        if copied is not None:
-            rec.add("graph.copy_in", keyed, copied, i)
-        rec.add("graph.launch", launched, done, i)
+        finally:
+            if whole is not None:
+                whole.close()
+        if rec is not None and launch is not None:
+            i = rec.add("graph.call", whole.start, whole.end, call=True)
+            if copy is not None:
+                rec.add("graph.copy_in", copy.start, copy.end, i)
+            rec.add("graph.launch", launch.start, launch.end, i)
         return g.outputs
 
     @trace.spanned("graph.capture")

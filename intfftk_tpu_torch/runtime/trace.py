@@ -1,31 +1,47 @@
-"""Spans of the port's host code, recorded in memory on the profiler's
-clock.
+"""Spans of the port's host code, in two sinks: a recording in memory on
+the profiler's clock, and ranges of torch's profiler.
 
-A span is one stretch of the host's time inside the port: its name, its
-start and end in ns of ``time.time_ns()``, the index of the span that
-encloses it (-1 at a root) and the call it belongs to: the sequence
-number of its ``graph.call`` in the recording, -1 outside any call (the
-set-up).  ``time.time_ns()`` is the clock that ``torch.profiler`` stamps
-its host ranges with, and CUPTI's device timestamps are converted to it,
-so a span lines up with the kernels of a profiled window as it is.
+A span is one stretch of the host's time inside the port, under a name.
 
-Recording is off unless a ``recording()`` is open; then ``on`` is True
-and ``active`` is the ``Recording``.  A boundary that runs on every call
-(``CapturedCall.__call__``) checks ``on`` once and runs its untraced body
-when it is False; set-up boundaries wrap their function with
-``spanned(name)``, which costs the same check, and may give it a note
-with ``note(text)``.  With recording off no span is kept and no clock is
-read.  One thread records: spans opened on another thread while a
-recording is open would nest under the wrong parent.
+**The recording.**  While a ``recording()`` is open, ``on`` is True and
+``active`` is the ``Recording``: each span is kept with its start and end
+in ns of ``time.time_ns()``, the index of the span that encloses it (-1
+at a root) and the call it belongs to: the sequence number of its
+``graph.call`` in the recording, -1 outside any call (the set-up).
+``time.time_ns()`` is the clock that ``torch.profiler`` stamps its host
+ranges with, and CUPTI's device timestamps are converted to it, so a
+span lines up with the kernels of a profiled window as it is.  A span's
+note (``note(text)``) is kept here alone.
+
+**The profiler.**  While torch's profiler runs
+(``profiler._is_profiler_enabled``: the module bool of
+``torch.autograd.profiler`` that ``torch.profiler.profile`` sets), each
+span is also a range of the profiler's trace under the same name, opened
+and closed where the span is (``Range``, torch's
+``_RecordFunctionFast``), so a profiled window holds the port's spans
+beside the host's CUDA calls and the card's kernels.  A range costs the
+host about a microsecond while the profiler runs; none is built while it
+is off.  Both sinks may be on at once.
+
+The boundary that runs on every call (``CapturedCall.__call__``) reads
+``active`` and the profiler's bool once, and opens each of its spans in
+the sinks that are on around the same statements it runs with both off;
+set-up boundaries wrap their function with ``spanned(name)``, which costs
+the same check, or open ``span(name)``.  With both sinks off
+no span is kept, no range is built and no clock is read.  One thread
+records: spans opened on another thread while a recording is open would
+nest under the wrong parent.
 
 The spans, by name:
 
 * ``graph.call``: ``CapturedCall.__call__`` (a call of a captured graph);
-  its children ``graph.key`` (the key and the lookup), ``graph.copy_in``
-  (the copies into the static inputs, only where one is made) and
-  ``graph.launch`` (the replay alone, the CUDA graph launch);
+  its children ``graph.copy_in`` (the copies into the static inputs, only
+  where one is made) and ``graph.launch`` (the replay alone, the CUDA
+  graph launch); the call's own time less theirs is the key, the lookup,
+  the device switch and the counters;
 * ``graph.capture``: a ``CapturedCall``'s warm-up and capture, once per
-  key;
+  key (in the recording a root span of the set-up; in the profiler inside
+  that first call's ``graph.call``, which holds no ``graph.launch``);
 * ``plan.build``: ``LargeFFTPlan``, ``OverlapSaveConv``, ``FFTPairPlan``
   and ``Channelizer``'s constructors (tables, twiddles, tuning); a
   channelizer's notes its layout and engine, "cn FusedAxisFFT" or "nc
@@ -61,7 +77,8 @@ The spans, by name:
 * ``library.load``: the kernel library's first load for a thread count,
   its ``note`` "built" or "cached";
 * ``stream.repack``, ``stream.dispatch``, ``stream.wait``:
-  ``StreamExecutor``'s three costs (``stats``).
+  ``StreamExecutor``'s three costs (``stats``), in the recording alone:
+  they are read from its timers' clock after the fact.
 """
 
 from __future__ import annotations
@@ -70,10 +87,20 @@ import contextlib
 import functools
 import time
 
+import torch
+from torch.autograd import profiler
+
 #: True while a recording is open.
 on = False
 #: The open ``Recording``, or None.
 active = None
+
+#: ``Range(name)``: a context manager that is a range ``name`` of the
+#: profiler's trace, the kind made for hot paths; built only while
+#: ``profiler._is_profiler_enabled``.
+Range = torch._C._profiler._RecordFunctionFast
+#: What ``span`` opens in the profiler's place while it is off.
+_NO_RANGE = contextlib.nullcontext()
 
 
 class Span:
@@ -91,24 +118,13 @@ class Span:
                 f"{f', note={self.note!r}' if self.note else ''})")
 
 
-def _launches() -> dict:
-    """The port's launch counters (``graph._counters``) as they read now,
-    by kernel function."""
-    from .graph import _counters
-
-    return {f.__name__: f.launches for f in _counters()}
-
-
 class Recording:
-    """The spans of one recording, in the order they were opened, and the
-    launch counters' readings at its start and end."""
+    """The spans of one recording, in the order they were opened."""
 
     def __init__(self):
         self.spans = []
         self._stack = []
         self._calls = 0
-        self._before = _launches()
-        self._after = None
 
     def add(self, name: str, start_ns: int, end_ns: int,
             parent: int | None = None, call: bool = False) -> int:
@@ -135,18 +151,6 @@ class Recording:
         finally:
             self._stack.pop()
             self.spans[i].end_ns = time.time_ns()
-
-    def _stop(self) -> None:
-        self._after = _launches()
-
-    @property
-    def launches(self) -> dict:
-        """The launch counters' increments over the recording (so far, while
-        it is open), by kernel function; counters that did not move are
-        left out."""
-        after = self._after or _launches()
-        return {k: after[k] - self._before[k] for k in after
-                if after[k] != self._before[k]}
 
     def summary(self) -> dict:
         """By span name: ``count``, ``total_ms`` and ``self_ms`` (the
@@ -187,18 +191,19 @@ def recording():
         yield rec
     finally:
         on, active = False, None
-        rec._stop()
 
 
 @contextlib.contextmanager
 def span(name: str):
-    """A span ``name`` around the block while a recording is open (yields
-    the ``Span``), nothing otherwise (yields None)."""
-    if not on:
-        yield None
-        return
-    with active.span(name) as s:
-        yield s
+    """A span ``name`` around the block in each sink that is on: a range
+    while the profiler runs, and in the open recording (yields its
+    ``Span``, to set its note; None where no recording is open)."""
+    with Range(name) if profiler._is_profiler_enabled else _NO_RANGE:
+        if not on:
+            yield None
+            return
+        with active.span(name) as s:
+            yield s
 
 
 def note(text: str) -> None:
@@ -209,14 +214,14 @@ def note(text: str) -> None:
 
 
 def spanned(name: str):
-    """Decorate a set-up function: each call is a span ``name`` while a
-    recording is open, and costs one check of ``on`` otherwise."""
+    """Decorate a set-up function: each call is a span ``name`` in each
+    sink that is on (``span``), and costs one check of both otherwise."""
     def wrap(fn):
         @functools.wraps(fn)
         def inner(*args, **kwargs):
-            if not on:
+            if not (on or profiler._is_profiler_enabled):
                 return fn(*args, **kwargs)
-            with active.span(name):
+            with span(name):
                 return fn(*args, **kwargs)
         return inner
     return wrap
